@@ -1,8 +1,9 @@
 """
 The port's plain modules of the env step against their JAX counterparts on
 the same numpy inputs: kinematics, traffic lights and controls, primitive
-generation, camera transform, map-grid losses, collisions, red-light
-violations and the heuristic initializer.
+generation (typed primitives and the per-camera RGB mesh), camera
+transform, map-grid losses, collisions, red-light violations and the
+heuristic initializer.
 """
 import os
 import random
@@ -44,7 +45,7 @@ def maps():
     """Both packages' Town02 configs, lanelet maps and grids, parsed once."""
     jcfg, cfg = jax_find_map(MAP), find_map_config(MAP)
     return dict(jcfg=jcfg, cfg=cfg, jlanelets=jcfg.lanelet_map,
-                lanelets=cfg.lanelet_map, jgrids=jcfg.grids(), grids=cfg.grids())
+                lanelets=cfg.lanelet_map, jgrids=jcfg.grids(), grids=cfg.grids(device='cpu'))
 
 
 def _t(x, dtype=torch.float32):
@@ -69,6 +70,22 @@ def test_bicycle_rollout_matches(left_handed):
     np.testing.assert_allclose(s.numpy(), np.asarray(js), atol=1e-5, rtol=0)
 
 
+def test_simple_rollout_matches():
+    """The behaviour-cloning example's simple model: 2-wide actions padded
+    to the 4-wide buffer, and full 4-wide actions."""
+    rng = np.random.RandomState(5)
+    state = rng.uniform(-10, 10, (3, 2, 4)).astype(np.float32)
+    jparams = JK.KinematicParams(dt=0.1, max_dx=20.0, max_dpsi=10 * np.pi, max_dv=5.0)
+    params = K.SimpleKinematicModel(device='cpu').params
+    for width in (2, 4):
+        actions = rng.uniform(-1, 1, (10, 3, 2, width)).astype(np.float32)
+        js, s = jnp.asarray(state), _t(state)
+        for act in actions:
+            js = JK.step(js, jnp.asarray(act), jparams, single_model=JK.SIMPLE)
+            s = K.step(s, _t(act), params, single_model=K.SIMPLE)
+        np.testing.assert_allclose(s.numpy(), np.asarray(js), atol=1e-5, rtol=0)
+
+
 def test_light_schedule_and_control_advance_match(maps):
     jcfg, cfg = maps['jcfg'], maps['cfg']
     ids = [sl.actor_id for sl in cfg.stoplines if sl.agent_type == 'traffic_light']
@@ -79,14 +96,14 @@ def test_light_schedule_and_control_advance_match(maps):
     finally:
         random.setstate(saved)
     sched = BakedLightSchedule(TrafficLightController.from_json(
-        cfg.traffic_light_controller_path, random.Random(11)), ids)
+        cfg.traffic_light_controller_path, random.Random(11)), ids, device='cpu')
     for name in ('durations_cum', 'colors', 'tail_end', 'period', 'offset',
                  'light_fsm', 'n_rows'):
         np.testing.assert_array_equal(getattr(sched, name).numpy(),
                                       np.asarray(getattr(jsched, name)), err_msg=name)
     pos = np.asarray([[[sl.x, sl.y, sl.length, sl.width, sl.orientation]
                        for sl in cfg.stoplines]], np.float32)
-    jctl, ctl = JaxLightControl(np.repeat(pos, 2, 0)), TrafficLightControl(np.repeat(pos, 2, 0))
+    jctl, ctl = JaxLightControl(np.repeat(pos, 2, 0)), TrafficLightControl(np.repeat(pos, 2, 0), device='cpu')
     jctl.set_schedule(jsched, dt=0.1)
     ctl.set_schedule(sched, dt=0.1)
     js, s = jctl.state, ctl.state
@@ -125,12 +142,71 @@ def test_generate_prims_match():
     gen = BirdviewRGBMeshGenerator(get_default_color_map(), get_default_rendering_levels())
     gen.initialize_actors_mesh(_t(lenwid), torch.zeros((b, a), dtype=torch.int64),
                                ['vehicle'])
-    gen.initialize_traffic_controls_mesh({'traffic_light': TrafficLightControl(pos)})
+    gen.initialize_traffic_controls_mesh({'traffic_light': TrafficLightControl(pos, device='cpu')})
     got = gen.generate_prims(_t(state), present_mask=_t(present, torch.bool),
                              traffic_light_state=_t(lights, torch.int32))
     for g, w in zip(got, want):
         assert tuple(g.shape) == w.shape
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=0)
+
+
+def _jax_example():
+    """The JAX package's behaviour-cloning example module."""
+    import importlib
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(root, 'examples'))
+    try:
+        return importlib.import_module('imitation_learning')
+    finally:
+        sys.path.pop(0)
+
+
+def test_generate_mesh_matches():
+    """The per-camera RGB mesh of the differentiable render, two cameras per
+    environment: the example's synthetic road (triangulated from its
+    lanelets and collated), actors with absent ones collapsed, traffic
+    lights by state and waypoint discs with a rendering mask."""
+    from torchdrivesim_tpu.rendering.base import (
+        get_default_color_map, get_default_rendering_levels)
+    from torchdrivesim_tpu.scene_mesh import BirdviewRGBMeshGenerator as JGen
+    from torchdrivesim_tpu_torch.imitation import build_synthetic_batch
+    b, nc, a, nl, m = 2, 2, 3, 2, 3
+    jroad = _jax_example().build_synthetic_batch(b, 1)[0]
+    road = build_synthetic_batch(b, 1, device='cpu')[0]
+    for name in ('verts', 'faces', 'vert_category'):
+        np.testing.assert_array_equal(getattr(road, name),
+                                      np.asarray(getattr(jroad, name)), err_msg=name)
+    assert road.categories == jroad.categories
+
+    rng = np.random.RandomState(6)
+    lenwid = rng.uniform(1.5, 5.0, (b, a, 2)).astype(np.float32)
+    state = np.concatenate([rng.uniform(-40, 40, (b, nc, a, 2)),
+                            rng.uniform(-3, 3, (b, nc, a, 2))], -1).astype(np.float32)
+    present = rng.rand(b, nc, a) > 0.3
+    pos = np.concatenate([rng.uniform(-40, 40, (b, nl, 2)), rng.uniform(1, 6, (b, nl, 2)),
+                          rng.uniform(-3, 3, (b, nl, 1))], -1).astype(np.float32)
+    lights = rng.randint(0, 3, (b, nl)).astype(np.int32)
+    waypoints = rng.uniform(-40, 40, (b, nc, m, 2)).astype(np.float32)
+    wmask = rng.rand(b, nc, m) > 0.4
+    cmap, levels = get_default_color_map(), get_default_rendering_levels()
+
+    jgen = JGen(jroad, cmap, levels)
+    jgen.initialize_actors_mesh(lenwid, np.zeros((b, a), np.int32), ['vehicle'])
+    jgen.initialize_traffic_controls_mesh({'traffic_light': JaxLightControl(pos)})
+    want = jgen.generate(nc, jnp.asarray(state), jnp.asarray(present),
+                         jnp.asarray(lights), jnp.asarray(waypoints), jnp.asarray(wmask))
+    gen = BirdviewRGBMeshGenerator(cmap, levels, background_mesh=road)
+    gen.initialize_actors_mesh(_t(lenwid), torch.zeros((b, a), dtype=torch.int64),
+                               ['vehicle'])
+    gen.initialize_traffic_controls_mesh(
+        {'traffic_light': TrafficLightControl(pos, device='cpu')})
+    got = gen.generate(nc, _t(state), _t(present, torch.bool), _t(lights, torch.int32),
+                       _t(waypoints), _t(wmask, torch.bool))
+    for name in ('verts', 'faces', 'attrs'):
+        g, w = getattr(got, name), np.asarray(getattr(want, name))
+        assert tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-5, rtol=0, err_msg=name)
 
 
 @pytest.mark.parametrize('left_handed', [False, True])
@@ -183,7 +259,7 @@ def test_collisions_and_red_lights_match(maps):
     assert (got.numpy() > 0).any()
 
     jctl = JaxLightControl(np.repeat(stop, b, 0))
-    ctl = TrafficLightControl(np.repeat(stop, b, 0))
+    ctl = TrafficLightControl(np.repeat(stop, b, 0), device='cpu')
     lights = rng.randint(0, 3, (b, stop.shape[1])).astype(np.int32)
     want = jax_red_light(jnp.asarray(boxes), jctl.corners, jnp.asarray(lights), 0)
     got = red_light_violations(_t(boxes), ctl.corners, _t(lights, torch.int32), 0)
@@ -214,13 +290,36 @@ def test_port_imports_no_jax():
     import subprocess
     import sys
     code = ('import sys, torchdrivesim_tpu_torch.benchmark, '
-            'torchdrivesim_tpu_torch.convert; '
+            'torchdrivesim_tpu_torch.convert, torchdrivesim_tpu_torch.imitation, '
+            'torchdrivesim_tpu_torch.models, torchdrivesim_tpu_torch.ops.soft, '
+            'torchdrivesim_tpu_torch.ops.warp, torchdrivesim_tpu_torch.ops.fused; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "flax", "optax", "orbax", "torchdrivesim_tpu")]; '
             'assert not bad, bad')
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, '-c', code], cwd=root, check=True,
                    timeout=120)
+
+
+def test_entry_points_default_to_the_card():
+    """The entry points build on the card unless the caller asks for the
+    CPU; the constructors below them take the device from their inputs or
+    from an argument without a default."""
+    import inspect
+
+    from torchdrivesim_tpu_torch import benchmark, convert, imitation
+    from torchdrivesim_tpu_torch.rendering.renderer import Renderer
+    from torchdrivesim_tpu_torch.traffic_controls import BaseTrafficControl
+    for fn in (benchmark.build_benchmark_scenario, benchmark.build_il_scenario,
+               convert.scenario_from_arrays, imitation.build_synthetic_batch):
+        assert inspect.signature(fn).parameters['device'].default == 'cuda', fn
+    for fn in (K.KinematicBicycle, K.SimpleKinematicModel, Renderer,
+               BaseTrafficControl, BakedLightSchedule):
+        default = inspect.signature(fn).parameters['device'].default
+        assert default is inspect.Parameter.empty, fn
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            imitation.build_synthetic_batch(2, 2)
 
 
 def test_schedule_matches_host_ticking(maps):
@@ -232,7 +331,7 @@ def test_schedule_matches_host_ticking(maps):
     ids = [sl.actor_id for sl in cfg.stoplines if sl.agent_type == 'traffic_light']
     ctrl = TrafficLightController.from_json(cfg.traffic_light_controller_path,
                                             random.Random(3))
-    sched = BakedLightSchedule(ctrl, ids)
+    sched = BakedLightSchedule(ctrl, ids, device='cpu')
     dt = 0.3713
     for step in range(300):
         want = [CONTROL_STATE_INDEX[ctrl.current_state[str(i)].name] for i in ids]

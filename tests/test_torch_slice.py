@@ -97,7 +97,7 @@ def _arrays(scn):
 @pytest.mark.parametrize('actions', ['zero', 'random'])
 def test_slice_steps_match(jax_scenario, actions):
     scn, jstep = jax_scenario
-    port = scenario_from_arrays(_arrays(scn))
+    port = scenario_from_arrays(_arrays(scn), device='cpu')
     step = port.make_step_fn(render=True, metrics=True)
     rng = np.random.RandomState(1)
     jstate, state = scn.sim.state, port.sim.state
@@ -129,7 +129,7 @@ def test_slice_steps_match(jax_scenario, actions):
 def test_packed_image_step_matches_float_image(jax_scenario):
     """``make_step_fn(packed_image=True)`` gives the same frames, packed
     0x00BBGGRR, and the same metrics."""
-    port = scenario_from_arrays(_arrays(jax_scenario[0]))
+    port = scenario_from_arrays(_arrays(jax_scenario[0]), device='cpu')
     act = torch.from_numpy(np.random.RandomState(2).uniform(
         -1, 1, (B, AGENTS, 2)).astype(np.float32))
     _, out = port.make_step_fn()(port.sim.state, act)
@@ -147,7 +147,8 @@ def test_port_scenario_equals_jax_scenario(jax_scenario):
     """The port's own build, seeded like the reference, starts from the
     same world: placements, sizes, lr, light states and schedule."""
     want = _arrays(jax_scenario[0])
-    got = build_benchmark_scenario(batch_size=B, agent_count=AGENTS, res=RES, seed=0)
+    got = build_benchmark_scenario(batch_size=B, agent_count=AGENTS, res=RES, seed=0,
+                                   device='cpu')
     sim = got.sim
     np.testing.assert_array_equal(sim.state.agent_state.numpy(), want['agent_state'])
     np.testing.assert_array_equal(sim.state.present_mask.numpy(), want['present_mask'])

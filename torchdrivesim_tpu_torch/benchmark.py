@@ -5,20 +5,27 @@ town, ~20 bicycle-model vehicles each, FSM-driven traffic lights, an
 egocentric bird's-eye-view render over the baked map texture, and
 collision / offroad / wrong-way / red-light metrics every step.
 
+Also the imitation-learning gradient path (the reference's
+``tools/bench_suite.py:config4_il_gradients``): :func:`build_il_scenario`
+and :func:`make_il_grad_fn`, the gradient of a policy's rollout loss
+through the differentiable render and the dynamics.
+
 The map caches (texture, grids) are read from next to the map; baking them
 is not ported.
 """
 import os
 import random
 import statistics
+import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 import torchdrivesim_tpu_torch.kinematic as K
 from torchdrivesim_tpu_torch.behavior.heuristic import heuristic_initialize
+from torchdrivesim_tpu_torch.imitation import render_ego
 from torchdrivesim_tpu_torch.infractions import compute_collision_matrix
 from torchdrivesim_tpu_torch.map import (
     MapConfig, find_map_config, traffic_controls_from_map_config,
@@ -121,7 +128,7 @@ def build_benchmark_scenario(map_name: str = 'carla_Town02',
                              res: int = 128, fov: float = 70.0,
                              dt: float = 0.1, seed: int = 0,
                              n_layouts: int = 4,
-                             device='cpu') -> BenchmarkScenario:
+                             device='cuda') -> BenchmarkScenario:
     """
     Assemble the benchmark world on ``device``: ``batch_size`` envs on one
     map, each with ``agent_count`` bicycle-model vehicles placed on lanelet
@@ -155,7 +162,7 @@ def build_benchmark_scenario(map_name: str = 'carla_Town02',
         road_mesh=cfg_map.road_mesh, kinematic_model=kin, agent_size=attrs[..., :2],
         initial_present_mask=np.ones((batch_size, agent_count), dtype=bool),
         cfg=cfg, traffic_controls=controls,
-        map_grids=cfg_map.grids(device=device), device=device)
+        map_grids=cfg_map.grids(device=device))
     sim.renderer.res = Resolution(res, res)
     sim.renderer.scale = 2.0 / fov
     sim.renderer.background_texture = load_or_bake_texture(cfg_map)
@@ -215,4 +222,95 @@ def run_benchmark(scenario: BenchmarkScenario, steps_per_chunk: int = 100,
         'batch_size': b,
         'steps_per_chunk': steps_per_chunk,
         'checksum': float(checksum),
+    }
+
+
+def build_il_scenario(batch_size: int = 16, agent_count: int = 8, res: int = 64,
+                      fov: float = 70.0, seed: int = 0,
+                      device='cuda') -> BenchmarkScenario:
+    """The imitation-learning gradient configuration: the benchmark world
+    (carla_Town02 by default) with the renderer in differentiable mode."""
+    scenario = build_benchmark_scenario(batch_size=batch_size,
+                                        agent_count=agent_count, res=res,
+                                        fov=fov, seed=seed, device=device)
+    scenario.sim.renderer.cfg.differentiable = True
+    return scenario
+
+
+def make_il_loss_fn(scenario: BenchmarkScenario, policy: torch.nn.Module,
+                    horizon: int = 40) -> Callable[..., torch.Tensor]:
+    """
+    ``loss_fn(state)``: roll the scenario ``horizon`` steps with the first
+    agent of each environment driven by ``policy`` on its differentiable
+    egocentric view (actors only, over the bilinear mip warp of the map
+    texture) and the others holding zero action; the loss is the mean
+    squared final position of the first agent.
+    """
+    sim = scenario.sim
+    scale = 2.0 / scenario.fov
+
+    def loss_fn(state) -> torch.Tensor:
+        b, n = state.agent_state.shape[:2]
+        rest = torch.zeros((b, n - 1, 2), device=state.agent_state.device)
+        for _ in range(horizon):
+            image = render_ego(sim, state, scenario.res, scale,
+                               include_background=False)
+            act = policy(image)
+            state = sim.functional_step(state, torch.cat([act[:, None], rest], dim=1))
+        return torch.mean(state.agent_state[:, 0, :2] ** 2)
+
+    return loss_fn
+
+
+def make_il_grad_fn(scenario: BenchmarkScenario, policy: torch.nn.Module,
+                    horizon: int = 40
+                    ) -> Callable[..., Tuple[torch.Tensor, List[torch.Tensor]]]:
+    """``grad_fn(state) -> (loss, grads)``: the loss of
+    :func:`make_il_loss_fn` and its gradient with respect to each of the
+    policy's parameters, in ``policy.parameters()`` order."""
+    loss_fn = make_il_loss_fn(scenario, policy, horizon)
+    params = list(policy.parameters())
+
+    def grad_fn(state):
+        loss = loss_fn(state)
+        grads = torch.autograd.grad(loss, params)
+        return loss.detach(), list(grads)
+
+    return grad_fn
+
+
+def run_il_benchmark(scenario: BenchmarkScenario, policy: torch.nn.Module,
+                     horizon: int = 40, rollouts_per_chunk: int = 2,
+                     n_chunks: int = 3, warmup_rollouts: int = 1) -> dict:
+    """
+    Time the imitation-learning gradient step on a CUDA device: each chunk
+    of ``rollouts_per_chunk`` gradient rollouts is timed by the host clock
+    between two ``torch.cuda.synchronize()`` calls.
+
+    Returns:
+        grad-rollouts/s and env-steps/s (batch x horizon per rollout) per
+        chunk and their medians.
+    """
+    sim = scenario.sim
+    if sim.device.type != 'cuda':
+        raise RuntimeError(f'run_il_benchmark times a CUDA device; the scenario '
+                           f'is on {sim.device}')
+    grad_fn = make_il_grad_fn(scenario, policy, horizon)
+    for _ in range(warmup_rollouts):
+        grad_fn(sim.state)
+    torch.cuda.synchronize(sim.device)
+    rates = []
+    for _ in range(n_chunks):
+        t0 = time.perf_counter()
+        for _ in range(rollouts_per_chunk):
+            grad_fn(sim.state)
+        torch.cuda.synchronize(sim.device)
+        rates.append(rollouts_per_chunk / (time.perf_counter() - t0))
+    steps = sim.batch_size * horizon
+    return {
+        'grad_rollouts_per_sec_median': statistics.median(rates),
+        'env_steps_per_sec_median': statistics.median(rates) * steps,
+        'chunk_rollout_rates': rates,
+        'batch_size': sim.batch_size,
+        'horizon': horizon,
     }

@@ -1,7 +1,9 @@
 """
 Build the port's benchmark scenario from a scenario's data given as numpy
 arrays, such as the JAX package's scenario with ``np.asarray`` applied to
-its leaves. Both packages then step the same world.
+its leaves, so both packages step the same world; and carry a flax
+``BirdviewCNNPolicy`` parameter tree across as the port's ``state_dict``
+(:func:`policy_state_dict_from_flax`).
 
 The arrays (B environments, A agents, N traffic lights):
 
@@ -40,7 +42,7 @@ from torchdrivesim_tpu_torch.traffic_lights import BakedLightSchedule
 from torchdrivesim_tpu_torch.utils import Resolution
 
 
-def scenario_from_arrays(a: Dict, device='cpu') -> BenchmarkScenario:
+def scenario_from_arrays(a: Dict, device='cuda') -> BenchmarkScenario:
     """The port's :class:`BenchmarkScenario` from the arrays listed in the
     module docstring, on ``device``."""
     dev = torch.device(device)
@@ -74,7 +76,7 @@ def scenario_from_arrays(a: Dict, device='cpu') -> BenchmarkScenario:
                     initial_present_mask=a['present_mask'], cfg=cfg,
                     traffic_controls={'traffic_light': control},
                     map_grids=grids, npc_controller=npc,
-                    internal_time=int(a['time']), device=dev)
+                    internal_time=int(a['time']))
     sim.state.npc_time = torch.tensor(int(a['npc_time']), dtype=torch.int32,
                                       device=dev)
     sim.renderer.res = Resolution(res, res)
@@ -93,3 +95,28 @@ def scenario_from_arrays(a: Dict, device='cpu') -> BenchmarkScenario:
             device=dev)
         control.set_schedule(schedule, dt=dt)
     return BenchmarkScenario(sim=sim, schedule=schedule, res=res, fov=fov, dt=dt)
+
+
+def policy_state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """
+    The port's ``BirdviewCNNPolicy`` state dict from a flax parameter tree
+    ``{'params': {'Conv_i': {'kernel': (3, 3, Cin, Cout), 'bias'},
+    'Dense_0', 'Dense_1': {'kernel': (in, out), 'bias'}}}`` of numpy arrays
+    (or anything ``np.asarray`` takes): convolution kernels HWIO -> OIHW,
+    dense kernels transposed. The tensors are on the CPU; ``load_state_dict``
+    copies them to the module's device.
+    """
+    tree = params.get('params', params)
+    t = lambda x: torch.from_numpy(np.array(x, dtype=np.float32))
+    out = {}
+    n_conv = sum(1 for k in tree if k.startswith('Conv_'))
+    for i in range(n_conv):
+        conv = tree[f'Conv_{i}']
+        out[f'convs.{i}.weight'] = t(np.transpose(np.asarray(conv['kernel']),
+                                                  (3, 2, 0, 1)))
+        out[f'convs.{i}.bias'] = t(conv['bias'])
+    for i in range(2):
+        dense = tree[f'Dense_{i}']
+        out[f'dense_{i}.weight'] = t(np.asarray(dense['kernel']).T)
+        out[f'dense_{i}.bias'] = t(dense['bias'])
+    return out

@@ -1,8 +1,9 @@
 """
 Pure-Python Lanelet2 map ingestion (counterpart of
 ``torchdrivesim_tpu/lanelet2.py``): OSM parsing, WGS84 -> UTM projection
-(Karney's transverse-Mercator series), a small lanelet data model and the
-random centerline sampler the heuristic initializer uses. Host numpy code.
+(Karney's transverse-Mercator series), a small lanelet data model, the
+random centerline sampler the heuristic initializer uses, and the road mesh
+triangulated from the lanelets. Host numpy code.
 
 The parser keeps the reference parser's lanelet order, so a seeded
 ``pick_random_point_and_orientation`` picks the same lanelets.
@@ -13,9 +14,11 @@ import math
 import random
 import xml.etree.ElementTree as ET
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from torchdrivesim_tpu_torch.mesh import BaseMesh
 
 _WGS84_A = 6378137.0
 _WGS84_F = 1 / 298.257223563
@@ -213,3 +216,45 @@ def pick_random_point_and_orientation(lanelet_map: LaneletMap,
     else:
         ori = float(np.arctan2(y2 - y, x2 - x))
     return x, y, ori
+
+
+def road_mesh_from_lanelet_map(lanelet_map: LaneletMap,
+                               lanelets: Optional[List[int]] = None) -> BaseMesh:
+    """
+    Triangulate lanelets into a road-surface mesh: every map point becomes a
+    vertex and each lanelet is zipped between its left and right boundary
+    polylines (host numpy, batch 1).
+    """
+    point_index = {p.id: i for i, p in enumerate(lanelet_map.pointLayer)}
+    verts = np.asarray([[p.x, p.y] for p in lanelet_map.pointLayer],
+                       dtype=np.float32)
+    all_faces = []
+    for ll in lanelet_map.laneletLayer:
+        if lanelets is not None and ll.id not in lanelets:
+            continue
+        faces = _zipper_triangulate(
+            [point_index[p.id] for p in ll.left_bound],
+            [point_index[p.id] for p in ll.right_bound])
+        if faces:
+            all_faces.append(np.asarray(faces, dtype=np.int64))
+    faces = np.concatenate(all_faces, axis=0) if all_faces \
+        else np.zeros((0, 3), np.int64)
+    return BaseMesh(verts=verts[None], faces=faces.astype(np.int32)[None])
+
+
+def _zipper_triangulate(left: Sequence[int], right: Sequence[int]) -> List[List[int]]:
+    """Alternating zipper between two polylines: advance the left and right
+    cursors in turn, emitting one triangle per advance."""
+    faces = []
+    i, j = 0, 0
+    n_faces = len(left) + len(right) - 2
+    if n_faces < 1:
+        return faces
+    while i + j < n_faces:
+        if i < len(left) - 1:
+            faces.append([left[i], right[j], left[i + 1]])
+            i += 1
+        if j < len(right) - 1 and i + j < n_faces:
+            faces.append([left[i], right[j], right[j + 1]])
+            j += 1
+    return faces

@@ -94,7 +94,7 @@ class MapConfig:
             return None
         return os.path.join(os.path.dirname(base), f'{self.name}_tpu_grids_v2.npz')
 
-    def grids(self, device='cpu'):
+    def grids(self, *, device):
         """This map's baked :class:`MapGrids`, read from the cache the JAX
         package wrote next to the map (baking is not ported)."""
         from torchdrivesim_tpu_torch.map_grids import load_map_grids
@@ -145,7 +145,7 @@ def find_map_config(map_name: str) -> Optional[MapConfig]:
     return resolve_paths_to_absolute(cfg, root=map_path)
 
 
-def traffic_controls_from_map_config(cfg: MapConfig, device='cpu'
+def traffic_controls_from_map_config(cfg: MapConfig, *, device
                                      ) -> Dict[str, BaseTrafficControl]:
     """Traffic-light controls from the map's stoplines (stop and yield
     signs are not ported)."""

@@ -39,7 +39,7 @@ def map_grids_from_arrays(distance: np.ndarray, distance_origin: np.ndarray,
                           direction: Optional[np.ndarray] = None,
                           direction_origin: Optional[np.ndarray] = None,
                           direction_cell: Optional[float] = None,
-                          device='cpu') -> MapGrids:
+                          *, device) -> MapGrids:
     """MapGrids from the cache's arrays: the (H, W, 1) distance field in
     meters and the packed (H, W, 1) int32 direction field."""
     dev = torch.device(device)
@@ -55,7 +55,7 @@ def map_grids_from_arrays(distance: np.ndarray, distance_origin: np.ndarray,
     return MapGrids(distance_quad=dist, direction=dirs)
 
 
-def load_map_grids(path: str, device='cpu') -> MapGrids:
+def load_map_grids(path: str, *, device) -> MapGrids:
     """Read a ``*_tpu_grids_v2.npz`` cache."""
     with np.load(path) as data:
         kw = dict(distance=data['distance'].astype(np.float32),

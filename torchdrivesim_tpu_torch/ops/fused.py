@@ -8,21 +8,13 @@ camera from the prepared primitive operands (``ops.rasterize
 :func:`render_coefs_fused` launches the hand-written CUDA kernel
 (``csrc/fused_render.cu``) for CUDA tensors and runs the plain PyTorch
 version :func:`render_coefs_fused_reference` for CPU tensors. The kernel is
-compiled with ``nvcc`` for ``sm_90a`` at first use into ``build/kernels/``
-at the repository root, named by the hash of its source and flags, and bound
-with ``ctypes``.
+built by ``ops/build.py`` at first use and bound with ``ctypes``.
 """
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 
 import torch
 
-from torchdrivesim_tpu_torch import _REPO_ROOT
+from torchdrivesim_tpu_torch.ops.build import KernelLibrary, check_launch
 from torchdrivesim_tpu_torch.ops.rasterize import CHUNK, SENTINEL, band_rows
 from torchdrivesim_tpu_torch.ops import warp
 from torchdrivesim_tpu_torch.ops.warp import RES, WINDOW, WIN_ROWS, MipLevel
@@ -31,53 +23,7 @@ from torchdrivesim_tpu_torch.ops.warp import RES, WINDOW, WIN_ROWS, MipLevel
 #: show that its main path went through the kernel
 LAUNCHES = 0
 
-_SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                       'csrc', 'fused_render.cu')
-BUILD_DIR = os.path.join(_REPO_ROOT, 'build', 'kernels')
-NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC']
 _INV255 = 1.0 / 255.0
-_lib = None
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get('CUDA_HOME') or os.environ.get('CUDA_PATH') \
-        or '/usr/local/cuda'
-    found = shutil.which('nvcc') or os.path.join(cuda_home, 'bin', 'nvcc')
-    if not os.path.exists(found):
-        raise RuntimeError('nvcc not found: the fused render kernel is built '
-                           'from csrc/ at first use and needs the CUDA toolkit')
-    return found
-
-
-def library_path() -> str:
-    """Where the built kernel library lives for the current source."""
-    with open(_SOURCE, 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f'fused_render_{digest.hexdigest()[:16]}.so')
-
-
-def build() -> str:
-    """Compile the kernel library unless the current source's build exists;
-    returns its path. The compile writes to a temporary name and renames, so
-    concurrent processes never load a partial file."""
-    path = library_path()
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, _SOURCE],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                               f'{proc.stdout}\n{proc.stderr}')
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -91,11 +37,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        _lib = _bind(ctypes.CDLL(build()))
-    return _lib
+LIBRARY = KernelLibrary('fused_render.cu', _bind)
 
 
 def _launch(lib: ctypes.CDLL, ptrs, tex_h: int, tex_w: int, batch: int,
@@ -179,11 +121,10 @@ def render_coefs_fused(mip: MipLevel, fcoef: torch.Tensor, icoef: torch.Tensor,
                           device=fcoef.device)
     with torch.cuda.device(fcoef.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _launch(_library(), [t.data_ptr() for t in operands],
+        err = _launch(LIBRARY.load(), [t.data_ptr() for t in operands],
                       tex.shape[0], tex.shape[1], b, res, qpk.shape[1],
                       tpk.shape[1], packed, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f'fused render kernel launch failed: CUDA error {err}')
+    check_launch(err, 'fused render')
     LAUNCHES += 1
     return out
 
@@ -237,10 +178,3 @@ def render_coefs_fused_reference(mip: MipLevel, fcoef: torch.Tensor,
         torch.where(covered, best & 255, (bg >> 16) & 255),
     ], dim=1)
     return rgb.to(torch.float32) * _INV255
-
-
-def timed_build() -> float:
-    """Build (or find) the kernel library and load it; seconds taken."""
-    t0 = time.perf_counter()
-    _library()
-    return time.perf_counter() - t0

@@ -1,7 +1,8 @@
 """
-Screen-space primitive preparation for the fused render (counterpart of
-the parts of ``torchdrivesim_tpu/ops/rasterize.py`` and
-``ops/pallas_rasterize.py`` that the textured primitive path runs).
+Screen-space primitive preparation for the fused render, and the plain
+softmax-blend soft raster (counterpart of the parts of
+``torchdrivesim_tpu/ops/rasterize.py`` and ``ops/pallas_rasterize.py`` that
+the textured primitive path and the differentiable path run).
 
 Screen convention: the camera's forward axis points up in the image, its
 left axis points left; ``left_handed`` mirrors columns. Pixel (r, c) has its
@@ -68,6 +69,102 @@ def camera_rows_cols(points_xy: torch.Tensor, cam_xy: torch.Tensor,
     row = half - forward * px_per_m
     col = half + left * px_per_m if left_handed else half - left * px_per_m
     return torch.stack([row, col], dim=-1)
+
+
+def face_arrays(verts: torch.Tensor, faces: torch.Tensor, attrs: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """
+    Per-face screen corners, priority z (of the first vertex) and flat color
+    (of the first vertex).
+
+    Args:
+        verts: (B, V, 3) screen-space (row, col, z); faces: (B, F, 3) int;
+        attrs: (B, V, 3).
+    Returns:
+        (corners (B, F, 3, 2), z (B, F), color (B, F, 3)).
+    """
+    b, n_faces = faces.shape[0], faces.shape[1]
+    idx = faces.long().reshape(b, n_faces * 3, 1)
+    tri = torch.gather(verts, 1, idx.expand(b, n_faces * 3, verts.shape[-1])
+                       ).reshape(b, n_faces, 3, verts.shape[-1])
+    color = torch.gather(attrs, 1, faces[..., 0].long()[..., None].expand(
+        b, n_faces, attrs.shape[-1]))
+    return tri[..., :2], tri[..., 0, 2], color
+
+
+def edge_functions(corners: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
+    """
+    Signed edge functions ``e_k(p) = cross(b - a, p - a)`` of each face on
+    the pixel grid.
+
+    Args:
+        corners: (B, F, 3, 2) screen corners (row, col).
+        px, py: (H, W) pixel center coordinates (row, col).
+    Returns:
+        (e (B, F, 3, H, W), area (B, F)).
+    """
+    a = corners
+    b = corners[..., [1, 2, 0], :]
+    ex = b[..., 0] - a[..., 0]
+    ey = b[..., 1] - a[..., 1]
+    e = (ex[..., None, None] * (py - a[..., 1][..., None, None])
+         - ey[..., None, None] * (px - a[..., 0][..., None, None]))
+    area = (ex[..., 0] * (a[..., 2, 1] - a[..., 0, 1])
+            - ey[..., 0] * (a[..., 2, 0] - a[..., 0, 0]))
+    return e, area
+
+
+def rasterize_softmax(verts: torch.Tensor, faces: torch.Tensor,
+                      attrs: torch.Tensor, res: int, background: torch.Tensor,
+                      sigma: float = 0.5, gamma: float = 0.5,
+                      face_chunk: int = 16) -> torch.Tensor:
+    """
+    Plain differentiable softmax-blend soft raster, channels last (the
+    reference's ``rasterize_softmax``, the twin of the kernel path in
+    ``ops/soft.py``): per pixel, ``alpha_f = prod_e sigmoid(d_e / sigma) *
+    clip(min_e d_e / sigma + 4, 0, 1)``, faces resolve by softmax over
+    ``alpha_f * exp((20 - z_f) / gamma)``, and the coverage
+    ``1 - prod_f (1 - alpha_f)`` lerps against the background. Autograd
+    gives the gradients.
+
+    Args:
+        verts: (B, V, 3) screen (row, col, z); faces: (B, F, 3);
+        attrs: (B, V, 3); background: (B, res, res, 3).
+    Returns:
+        (B, res, res, 3) image in [0, 1].
+    """
+    b = verts.shape[0]
+    if faces.shape[1] == 0:
+        return background
+    corners, z, color = face_arrays(verts, faces, attrs)
+    zw = torch.exp((20.0 - z) / gamma)
+    coords = torch.arange(res, dtype=verts.dtype, device=verts.device) + 0.5
+    px = coords[:, None].expand(res, res)
+    py = coords[None, :].expand(res, res)
+    num = torch.zeros_like(background)
+    den = torch.zeros((b, res, res), dtype=verts.dtype, device=verts.device)
+    transparent = torch.ones_like(den)
+    for s in range(0, corners.shape[1], face_chunk):
+        cc, czw, ccol = (corners[:, s:s + face_chunk], zw[:, s:s + face_chunk],
+                         color[:, s:s + face_chunk])
+        e, area = edge_functions(cc, px, py)               # B,Fc,3,H,W
+        sign = torch.sign(area)[..., None, None, None]
+        ed = cc[..., [1, 2, 0], :] - cc
+        # clamped sqrt: norm'(0) = inf would turn masked degenerate faces'
+        # zero gradient into 0 * inf = NaN
+        elen = torch.sqrt(torch.clamp((ed * ed).sum(-1), min=1e-12))
+        d = e * sign / (elen[..., None, None] + 1e-8)
+        alpha = torch.prod(torch.sigmoid(d / sigma), dim=2)  # B,Fc,H,W
+        window = torch.clamp(torch.amin(d, dim=2) / sigma + 4.0, 0.0, 1.0)
+        ok = (torch.abs(area) > DEGENERATE_AREA_EPS)[..., None, None]
+        alpha = torch.where(ok, alpha * window, torch.zeros_like(alpha))
+        w = alpha * czw[..., None, None]
+        num = num + torch.einsum('bfhw,bfc->bhwc', w, ccol)
+        den = den + w.sum(dim=1)
+        transparent = transparent * torch.prod(1.0 - alpha, dim=1)
+    c_faces = num / torch.clamp(den[..., None], min=1e-8)
+    coverage = (1.0 - transparent)[..., None]
+    return coverage * c_faces + (1.0 - coverage) * background
 
 
 def _prim_screen_stats(corners: torch.Tensor, res: int):

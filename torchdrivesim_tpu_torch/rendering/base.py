@@ -14,12 +14,25 @@ import torch
 @dataclass
 class RendererConfig:
     """Switches of the port's renderer (the reference's ``JaxRendererConfig``
-    fields that the textured primitive path reads)."""
+    fields that the textured primitive path and the differentiable mesh path
+    read)."""
     render_agent_direction: bool = True
     left_handed_coordinates: bool = False
     #: per-camera primitive cap PER TYPE (quads / triangles); 56 is the
     #: packed-rank maximum (2 x 56 < 127)
     band_budget: int = 56
+    #: mesh renders: soft (differentiable) coverage; the hard mesh path is
+    #: not ported
+    differentiable: bool = False
+    #: edge softness in pixels of the soft raster
+    soft_sigma: float = 0.5
+    #: soft blend: 'softmax' (z-weighted, order-independent); the painter's
+    #: blend ('soft') is not ported
+    soft_blend: str = 'softmax'
+    #: textured differentiable renders: the bilinear mip warp with
+    #: finite-difference pose gradients; the full-resolution bilinear
+    #: gather (False) is not ported
+    diff_fast_background: bool = True
 
 
 @dataclass

@@ -2,10 +2,14 @@
 The port's bird's-eye-view renderer (counterpart of
 ``torchdrivesim_tpu/rendering/jax_renderer.py``): typed primitives
 composited over the baked map texture by the fused render, on the textured
-path at resolutions that are multiples of 16 up to 128.
+path at resolutions that are multiples of 16 up to 128; and the
+differentiable mesh render, soft-rasterized over the bilinear mip warp of
+the texture or over the constant background color.
 
-Not ported yet: pad-and-crop for other resolutions, the sub-camera tiling
-above 128, the untextured path and the mesh entry points.
+Not ported yet: pad-and-crop for other resolutions and the sub-camera tiling
+above 128 (ROADMAP A10), the untextured primitive path, the hard mesh render
+(kernel B6), the painter's soft blend and the full-resolution bilinear
+background of the differentiable render.
 """
 from __future__ import annotations
 
@@ -14,13 +18,16 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from torchdrivesim_tpu_torch.mesh import RGBMesh
 from torchdrivesim_tpu_torch.ops.fused import render_coefs_fused
 from torchdrivesim_tpu_torch.ops.grids import Grid2D
 from torchdrivesim_tpu_torch.ops.rasterize import (
     camera_rows_cols, n_bands_for, prep_sorted_prim_coefs,
 )
+from torchdrivesim_tpu_torch.ops.soft import rasterize_softmax_chw
 from torchdrivesim_tpu_torch.ops.warp import (
-    MIP_FACTOR, MipLevel, RES, build_mip_pyramid, select_mip, warp_coefficients,
+    MIP_FACTOR, MipLevel, RES, build_mip_pyramid, select_mip, warp_background_diff,
+    warp_coefficients,
 )
 from torchdrivesim_tpu_torch.rendering.base import (
     Cameras, RendererConfig, get_default_color_map, get_default_rendering_levels,
@@ -36,7 +43,7 @@ class Renderer:
         cfg: renderer switches.
         res / fov: default view size and field of view (meters).
     """
-    def __init__(self, cfg: RendererConfig, device='cpu',
+    def __init__(self, cfg: RendererConfig, device,
                  color_map: Optional[Dict[str, Tuple[int, int, int]]] = None,
                  rendering_levels: Optional[Dict[str, float]] = None,
                  res: Resolution = Resolution(64, 64), fov: float = 35):
@@ -129,3 +136,55 @@ class Renderer:
         image = render_coefs_fused(mip, fcoef, icoef, qcoef, qpk, tcoef, tpk,
                                    qmask, tmask, size, packed)
         return image if packed else image * 255.0
+
+    def render_rgb_mesh_chw(self, mesh: RGBMesh, res: Resolution,
+                            cameras: Cameras) -> torch.Tensor:
+        """
+        Render a per-camera RGB mesh (world-space (x, y, priority z)
+        vertices, as from ``BirdviewRGBMeshGenerator.generate``) with the
+        differentiable soft raster: over the bilinear mip warp of the
+        background texture when one is set (pose gradients by
+        ``warp_background_diff``), else over the background color.
+
+        Returns:
+            (B, 3, H, W) float image in [0, 255], differentiable w.r.t. the
+            mesh vertices and colors and the camera pose.
+        """
+        assert res.width == res.height, "only square resolutions are supported"
+        size = res.width
+        if not self.cfg.differentiable:
+            raise NotImplementedError(
+                "the hard mesh render (kernel B6, ROADMAP A14) is not ported; "
+                "set cfg.differentiable for the soft render")
+        if self.cfg.soft_blend != 'softmax':
+            raise NotImplementedError(
+                f"soft_blend={self.cfg.soft_blend!r}: only the softmax blend is "
+                "ported (the painter's blend rasterize_soft is not, ROADMAP A12)")
+        if size % 16 or size > RES:
+            raise NotImplementedError(
+                f"res {size}: the soft render serves multiples of 16 up to {RES}; "
+                "pad-and-crop and tiling are not ported (ROADMAP A10)")
+        lh = self.cfg.left_handed_coordinates
+        b = cameras.xy.shape[0]
+        if self._mip_pyramid is not None:
+            if not self.cfg.diff_fast_background:
+                raise NotImplementedError(
+                    "diff_fast_background=False (the full-resolution bilinear "
+                    "background, sample_background_quad) is not ported (ROADMAP A12)")
+            mip = self._warp_mip(cameras.scale, size)
+            if mip is None:
+                raise NotImplementedError(
+                    f"no mip level covers a view of fov {2.0 / cameras.scale} at "
+                    f"res {size}; tiling is not ported (ROADMAP A10)")
+            background = warp_background_diff(
+                mip, cameras.xy, cameras.sc, cameras.scale,
+                self._background_color, left_handed=lh, res=size)
+        else:
+            background = self._background_color[None, :, None, None].expand(
+                b, 3, size, size)
+        rc = camera_rows_cols(mesh.verts[..., :2], cameras.xy, cameras.sc,
+                              cameras.scale, size, left_handed=lh)
+        sv = torch.cat([rc, mesh.verts[..., 2:3]], dim=-1)
+        image = rasterize_softmax_chw(sv, mesh.faces, mesh.attrs, size,
+                                      background, sigma=self.cfg.soft_sigma)
+        return image * 255.0

@@ -69,7 +69,7 @@ class NPCController:
         return npc_state, npc_present_mask
 
     @classmethod
-    def empty(cls, batch_size: int, device='cpu') -> "NPCController":
+    def empty(cls, batch_size: int, *, device) -> "NPCController":
         return cls(npc_size=torch.zeros((batch_size, 0, 2), device=device),
                    npc_state=torch.zeros((batch_size, 0, 4), device=device),
                    npc_present_mask=torch.zeros((batch_size, 0), dtype=torch.bool,
@@ -81,22 +81,26 @@ class Simulator:
     Facade holding the static parameters (sizes, kinematic parameters,
     controls, grids, renderer) and the current :attr:`state`.
 
+    Everything lives on the device of the kinematic model's state.
+
     Args:
-        road_mesh: the map's drivable-area mesh (or None); the env step does
+        road_mesh: the map's drivable-area mesh (host BirdviewMesh, or
+            None): the background of the per-camera meshes
+            (``birdview_mesh_generator.generate``); the textured render does
             not read it.
         kinematic_model: holds the initial agent states and parameters.
         agent_size: BxAx2 (length, width).
         initial_present_mask: BxA bool.
         waypoints: optional BxAxNxMx2 waypoint goals, all active at first.
     """
-    def __init__(self, road_mesh, kinematic_model: K.KinematicBicycle,
+    def __init__(self, road_mesh, kinematic_model: K.KinematicModel,
                  agent_size, initial_present_mask, cfg: TorchDriveConfig,
                  traffic_controls: Optional[Dict[str, BaseTrafficControl]] = None,
                  map_grids: Optional[MapGrids] = None,
                  npc_controller: Optional[NPCController] = None,
                  waypoints: Optional[torch.Tensor] = None,
-                 internal_time: int = 0, device='cpu'):
-        self.device = torch.device(device)
+                 internal_time: int = 0):
+        self.device = kinematic_model.get_state().device
         self.road_mesh = road_mesh
         self.kinematic_model = kinematic_model
         self.agent_size = torch.as_tensor(agent_size, dtype=torch.float32,
@@ -109,10 +113,11 @@ class Simulator:
         self.npc_controller = npc_controller or NPCController.empty(
             self._batch_size, device=self.device)
         cfg.renderer.left_handed_coordinates = cfg.left_handed_coordinates
-        self.renderer = Renderer(cfg.renderer, device=self.device)
+        self.renderer = Renderer(cfg.renderer, self.device)
         self.birdview_mesh_generator = BirdviewRGBMeshGenerator(
             self.renderer.color_map, self.renderer.rendering_levels,
-            render_agent_direction=cfg.renderer.render_agent_direction)
+            render_agent_direction=cfg.renderer.render_agent_direction,
+            background_mesh=road_mesh)
         all_size = self.get_all_agent_size()
         self.birdview_mesh_generator.initialize_actors_mesh(
             all_size, torch.zeros(all_size.shape[:2], dtype=torch.int64,
@@ -162,7 +167,8 @@ class Simulator:
         npc_state, npc_mask = self.npc_controller.advance(
             state.npc_state, state.npc_present_mask, npc_time)
         agent_state = K.step(state.agent_state, agent_action,
-                             self.kinematic_model.params)
+                             self.kinematic_model.params,
+                             single_model=self.kinematic_model.model_id)
         tc_state = {kind: control.advance(state.traffic_control_state[kind], time)
                     for kind, control in (self.traffic_controls or {}).items()}
         wp_state = state.waypoint_state

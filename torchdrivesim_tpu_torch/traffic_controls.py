@@ -80,7 +80,7 @@ class BaseTrafficControl:
         mask: BxN presence flags.
     """
     def __init__(self, pos, allowed_states: Optional[List[str]] = None,
-                 replay_states=None, mask=None, device='cpu'):
+                 replay_states=None, mask=None, *, device):
         device = torch.device(device)
         self.pos = torch.as_tensor(pos, dtype=torch.float32, device=device)
         self.allowed_states = allowed_states if allowed_states is not None \

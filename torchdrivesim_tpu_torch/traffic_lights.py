@@ -160,7 +160,7 @@ class BakedLightSchedule:
     MAX_PHASES = 64
 
     def __init__(self, controller: TrafficLightController,
-                 light_ids: Sequence[int], device='cpu'):
+                 light_ids: Sequence[int], *, device):
         self.light_ids = [int(i) for i in light_ids]
         id_strs = [str(i) for i in self.light_ids]
         n_fsm = len(controller.traffic_fsms)
@@ -212,7 +212,7 @@ class BakedLightSchedule:
 
     @classmethod
     def from_tables(cls, durations_cum, colors, tail_end, period, offset,
-                    light_fsm, n_rows, light_ids, device='cpu'
+                    light_fsm, n_rows, light_ids, *, device
                     ) -> "BakedLightSchedule":
         """Rebuild a schedule from its tables (numpy arrays)."""
         out = cls.__new__(cls)
