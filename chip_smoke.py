@@ -34,17 +34,25 @@ MAIN_STEPS = 200
 COMPARE_BATCH, COMPARE_STEPS = 4, 3
 IL_BATCH, IL_AGENTS, IL_RES, IL_HORIZON, IL_FEATURES = 16, 8, 64, 40, (16, 32)
 
-#: the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W)
+#: the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
+#: at 3.35 TB/s; float32 at 67 TFLOP/s outside the tensor cores, which
+#: counts a fused multiply-add as two operations. The kernels here forbid
+#: contraction (round-to-nearest intrinsics), so each add, multiply, min or
+#: compare issues on its own, at half that rate. exp and reciprocals run on
+#: the special-function units: 16 results per SM and clock, 132 SMs at the
+#: 1.98 GHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+FP32_INSTR_PER_S = 67e12 / 2
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
 
 #: float32 operations per (pixel, face) of the soft raster, counted from
-#: csrc/soft_raster.cu: forward 3 edge values (4 each), 3 logistics (clamp 2,
-#: exp, add, reciprocal), their product and minimum (4), window (3), alpha,
-#: weight, 3 colour sums (6), den, transparency (2); the backward repeats
-#: the forward, keeps alpha and the prefix, evaluates the face terms again
-#: (31) and forms and sums 13 gradient terms (~50)
-SOFT_FWD_OPS, SOFT_BWD_OPS = 47, 47 + 31 + 50
+#: csrc/soft_raster.cu, as (ALU, SFU): the forward evaluates 3 edge values
+#: (4 each), 3 logistics (clamp 2, add; exp and reciprocal on the SFU), their
+#: product and minimum (4), window (3), alpha, weight, 3 colour sums (6),
+#: den and transparency (3); the backward repeats the forward, evaluates the
+#: face terms again (25 + 6 SFU) and forms and sums 13 gradient terms (~50)
+SOFT_FWD_OPS, SOFT_FWD_SFU = 39, 6
+SOFT_BWD_OPS, SOFT_BWD_SFU = 39 + 25 + 50, 12
 #: per pixel of the bilinear warp: 3 positions (4 each), 2 pass-1 taps of
 #: 4 + 6 and 3 lerps (3 each), the final 3 lerps and the validity test (4)
 WARP_OPS = 12 + 2 * (10 + 9) + 9 + 4
@@ -102,9 +110,12 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: float, n_ops: float):
-    """(bound ms, 'bytes' or 'operations'): the larger of the two times."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+def bound(n_bytes: float, n_ops: float, n_sfu: float = 0.0):
+    """(bound ms, 'bytes' or 'operations'): the largest of the times of the
+    bytes over HBM, the float32 ALU operations and the special-function
+    operations (the two units issue side by side)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max(n_ops / FP32_INSTR_PER_S, n_sfu / SFU_OPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else 'operations'
 
 
@@ -595,12 +606,13 @@ def il_path(device, card):
     face_pixels = b * n_faces * IL_RES * IL_RES
     pixels = b * IL_RES * IL_RES
     entries = []
-    for name, fn, plain, reps, plain_reps, n_bytes, n_ops, source, replaces, err, n in (
+    for name, fn, plain, reps, plain_reps, n_bytes, n_ops, n_sfu, source, replaces, \
+            err, n in (
             ('warp_bilinear',
              lambda: warp.warp_view_bilinear(mip.data, fcoef, icoef, IL_RES),
              lambda: warp.warp_view_bilinear_reference(mip.data, fcoef, icoef, IL_RES),
              200, 10, nbytes(fcoef, icoef) + texel_bytes(mip, b, scenario.fov)
-             + pixels * 3 * 4, pixels * WARP_OPS,
+             + pixels * 3 * 4, pixels * WARP_OPS, 0,
              'torchdrivesim_tpu_torch/csrc/warp_bilinear.cu',
              'torchdrivesim_tpu/ops/pallas_warp.py:306', max(errs['warp']),
              launches['warp']),
@@ -608,6 +620,7 @@ def il_path(device, card):
              lambda: soft.soft_raster_fwd(*sops),
              lambda: soft.soft_raster_fwd_reference(*sops),
              200, 5, nbytes(*sops) + nbytes(bg), face_pixels * SOFT_FWD_OPS,
+             face_pixels * SOFT_FWD_SFU,
              'torchdrivesim_tpu_torch/csrc/soft_raster.cu',
              'torchdrivesim_tpu/ops/pallas_soft.py:177', max(errs['fwd']),
              launches['fwd']),
@@ -615,17 +628,18 @@ def il_path(device, card):
              lambda: soft.soft_raster_bwd(*sops, g),
              lambda: soft.soft_raster_bwd_reference(*sops, g),
              100, 2, nbytes(*sops, g) + nbytes(coef, zw, color, bg),
-             face_pixels * SOFT_BWD_OPS,
+             face_pixels * SOFT_BWD_OPS, face_pixels * SOFT_BWD_SFU,
              'torchdrivesim_tpu_torch/csrc/soft_raster.cu',
              'torchdrivesim_tpu/ops/pallas_soft.py:199', max(errs['bwd']),
              launches['bwd'])):
         ms, call_ms = graph_ms(fn, reps), cuda_ms(fn, reps)
         plain_ms = cuda_ms(plain, plain_reps)
-        bound_ms, bound_by = bound(n_bytes, n_ops)
+        bound_ms, bound_by = bound(n_bytes, n_ops, n_sfu)
         print(f'{name} kernel B={b} res={IL_RES} F={n_faces}: {ms:.4f} ms (device, '
               f'graph replay); eager call {call_ms:.4f} ms; plain version '
               f'{plain_ms:.3f} ms; bound {bound_ms * 1e3:.3f} us by {bound_by} '
-              f'({n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.1f} M float32 operations) '
+              f'({n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.1f} M float32 ALU and '
+              f'{n_sfu / 1e6:.1f} M SFU operations) '
               f'[{card}]')
         entries.append({'name': name, 'route': 'cuda', 'source': source,
                         'replaces': replaces, 'launches': n, 'max_abs_err': err,

@@ -4,7 +4,16 @@ JAX package's single-group Pallas kernels in interpret mode, on identical
 operands: the edge coefficients, z weights and colors are built once by the
 JAX package's ``_soft_coefficients`` and handed to both as numpy.
 
-Tolerances, judged against the plain version in float64 (the exact value):
+The exact value is the reference's own: the JAX package's code (the Pallas
+kernel bodies in interpret mode, or its plain XLA composition) run in
+float64 on the same operands. Two checks against it:
+
+* the port's plain version in float64 equals it to 1e-9 relative (atol
+  1e-12 x max|exact|): the same formula, up to float64 rounding;
+* the port in float32 is no further from it than the reference in float32,
+  beyond the tolerance: |port - exact| <= |reference - exact| + tol.
+
+Tolerances for the float32 check:
 
 * forward 1e-5 absolute: both sides add the faces in the same order, so
   they differ only by rounding (XLA's CPU code contracts some products
@@ -14,16 +23,16 @@ Tolerances, judged against the plain version in float64 (the exact value):
   reference sums 13 per-face terms over image rows, then over lanes; the
   plain version over all pixels at once).
 
-The port is held to the reference through the exact value: its error
-from the exact value may exceed the reference's own error by at most the
-tolerance, |port - exact| <= |reference - exact| + tol (so a port value
-within tol of the reference always passes). Where the reference itself is
-off by more than tol, the value is ill-conditioned in float32: a face's
+The float32 check is measured from the exact value rather than from the
+reference because some values are ill-conditioned in float32: a face's
 clamped sigmoid tail carries a z weight of up to e^36, so the blend and its
 gradient sums amplify last-ulp differences, and ``dl/dw`` cancels where one
-face dominates a pixel. The tests print how many values differ from the
-reference by more than tol.
+face dominates a pixel; there the reference itself is off by more than the
+tolerance. The tests print how many values differ from the reference by
+more than the tolerance.
 """
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +43,29 @@ from torchdrivesim_tpu.ops import pallas_soft as PS
 from torchdrivesim_tpu_torch.ops import soft
 
 torch.set_num_threads(1)
+
+
+class _Float64Numpy:
+    """``jax.numpy`` with ``float32`` read as ``float64``."""
+    float32 = jnp.float64
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+@contextlib.contextmanager
+def float64_jax(*modules):
+    """Runs the JAX package's ``modules`` in float64 (their kernel bodies,
+    scratch and outputs included): x64 on, and each module's ``jnp`` read
+    through :class:`_Float64Numpy`."""
+    with jax.enable_x64(True), pytest.MonkeyPatch.context() as mp:
+        for module in modules:
+            mp.setattr(module, 'jnp', _Float64Numpy())
+        yield
+
+
+def _f64(*arrays):
+    return [jnp.asarray(np.asarray(a, np.float64)) for a in arrays]
 
 
 def _scene(seed, b=2, n_tri=9, res=32):
@@ -67,13 +99,18 @@ def _operands(scene, sigma=0.5, gamma=0.5):
     return np.asarray(coef), np.asarray(zw)[:, None, :], np.asarray(color), bg
 
 
-def _judge(got, want, exact, name, rtol=1e-4, atol=None):
-    """Port ``got`` against reference ``want`` as the module docstring says,
-    with ``exact`` the float64 value; atol defaults to 1e-6 x max|exact|."""
-    got, want, exact = (np.asarray(x, np.float64) for x in (got, want, exact))
-    assert got.shape == want.shape, name
+def _judge(got, got64, want, exact, name, rtol=1e-4, atol=None):
+    """The port in float32 (``got``) and in float64 (``got64``) against the
+    reference in float32 (``want``) and its exact value (``exact``), as the
+    module docstring says; atol defaults to 1e-6 x max|exact|."""
+    got, got64, want, exact = (np.asarray(x, np.float64)
+                               for x in (got, got64, want, exact))
+    assert got.shape == want.shape == exact.shape == got64.shape, name
+    scale = float(np.abs(exact).max())
+    np.testing.assert_allclose(got64, exact, rtol=1e-9, atol=1e-12 * scale,
+                               err_msg=f'{name}: float64 formula')
     if atol is None:
-        atol = 1e-6 * float(np.abs(exact).max())
+        atol = 1e-6 * scale
     tol = atol + rtol * np.abs(exact)
     apart = np.abs(got - want) > tol
     print(f'{name}: {int(apart.sum())} of {apart.size} values beyond tol of the '
@@ -91,10 +128,13 @@ def test_forward_matches_jax_kernel(seed, res):
     assert (coef[:, -1, :, 2] == -1e9).all()           # the degenerate face
     want = PS._pallas_soft_fwd(jnp.asarray(coef), jnp.asarray(zw),
                                jnp.asarray(color), jnp.asarray(bg), res=res,
-                               cams=2, interpret=True)
+                               cams=1, interpret=True)
+    with float64_jax(PS):
+        exact = PS._pallas_soft_fwd(*_f64(coef, zw, color, bg), res=res, cams=1,
+                                    interpret=True)
     got = soft.soft_raster_fwd(*map(_t, (coef, zw, color, bg)))
-    exact = soft.soft_raster_fwd(*(_t(x).double() for x in (coef, zw, color, bg)))
-    _judge(got.numpy(), want, exact.numpy(), f'seed {seed} res {res} image',
+    got64 = soft.soft_raster_fwd(*(_t(x).double() for x in (coef, zw, color, bg)))
+    _judge(got.numpy(), got64.numpy(), want, exact, f'seed {seed} res {res} image',
            rtol=0.0, atol=1e-5)
 
 
@@ -113,11 +153,15 @@ def test_backward_matches_jax_kernel(seed):
     coef, zw, color, bg = _operands(_scene(seed, res=res))
     g = np.random.RandomState(99 + seed).uniform(-1, 1, bg.shape).astype(np.float32)
     want = PS._pallas_soft_bwd(*map(jnp.asarray, (coef, zw, color, bg, g)),
-                               res=res, cams=2, interpret=True)
+                               res=res, cams=1, interpret=True)
+    with float64_jax(PS):
+        exact = PS._pallas_soft_bwd(*_f64(coef, zw, color, bg, g), res=res,
+                                    cams=1, interpret=True)
     got = soft.soft_raster_bwd(*map(_t, (coef, zw, color, bg, g)))
-    exact = soft.soft_raster_bwd(*(_t(x).double() for x in (coef, zw, color, bg, g)))
-    for name, a, b, e in zip(('gcoef', 'gzw', 'gcolor', 'gbg'), got, want, exact):
-        _judge(a.numpy(), b, e.numpy(), name)
+    got64 = soft.soft_raster_bwd(*(_t(x).double() for x in (coef, zw, color, bg, g)))
+    for name, a, a64, b, e in zip(('gcoef', 'gzw', 'gcolor', 'gbg'), got, got64,
+                                  want, exact):
+        _judge(a.numpy(), a64.numpy(), b, e, name)
 
 
 def test_gradients_through_coefficients_match_jax():
@@ -135,6 +179,9 @@ def test_gradients_through_coefficients_match_jax():
         return jnp.sum(jnp.transpose(img, (0, 3, 1, 2)) * weight)
 
     want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (verts, attrs, bg)))
+    with float64_jax(PS):
+        exact = jax.grad(jloss, argnums=(0, 1, 2))(*_f64(verts, attrs, bg))
+
     def grads(dtype):
         leaves = [_t(x).to(dtype).requires_grad_(True) for x in (verts, attrs, bg)]
         img = soft.rasterize_softmax_chw(leaves[0], _t(faces), leaves[1], res,
@@ -142,10 +189,11 @@ def test_gradients_through_coefficients_match_jax():
         (img * _t(weight).to(dtype)).sum().backward()
         return [x.grad.numpy() for x in leaves]
 
-    for name, a, b, e in zip(('verts', 'attrs', 'background'),
-                             grads(torch.float32), want, grads(torch.float64)):
+    for name, a, a64, b, e in zip(('verts', 'attrs', 'background'),
+                                  grads(torch.float32), grads(torch.float64),
+                                  want, exact):
         assert np.isfinite(a).all(), name
-        _judge(a, b, e, name)
+        _judge(a, a64, b, e, name)
 
 
 @pytest.mark.parametrize('seed', [8, 9])
@@ -155,6 +203,7 @@ def test_plain_composition_matches_jax_and_kernel_path(seed):
     ``rasterize_softmax`` and against the kernel path
     ``rasterize_softmax_chw``: the image and its gradients w.r.t. vertices,
     colors and background."""
+    from torchdrivesim_tpu.ops import rasterize as jax_rasterize
     from torchdrivesim_tpu.ops.rasterize import rasterize_softmax as jax_plain
     from torchdrivesim_tpu_torch.ops.rasterize import rasterize_softmax
     res = 32
@@ -165,9 +214,14 @@ def test_plain_composition_matches_jax_and_kernel_path(seed):
     def jloss(v, a, b_):
         return jnp.sum(jax_plain(v, jnp.asarray(faces), a, res, b_) * weight)
 
-    jimg = np.asarray(jax_plain(*map(jnp.asarray, (verts, faces, attrs)), res,
-                                jnp.asarray(bg_hwc)))
-    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (verts, attrs, bg_hwc)))
+    def reference(cast):
+        leaves = cast(verts, attrs, bg_hwc)
+        img = jax_plain(leaves[0], jnp.asarray(faces), leaves[1], res, leaves[2])
+        return [img, *jax.grad(jloss, argnums=(0, 1, 2))(*leaves)]
+
+    want = reference(lambda *a: [jnp.asarray(x) for x in a])
+    with float64_jax(jax_rasterize):
+        exact = reference(_f64)
 
     def run(fn, dtype):
         leaves = [_t(x).to(dtype).requires_grad_(True) for x in (verts, attrs, bg_hwc)]
@@ -178,15 +232,16 @@ def test_plain_composition_matches_jax_and_kernel_path(seed):
     plain = lambda v, f, a, b_: rasterize_softmax(v, f, a, res, b_)
     kernel_path = lambda v, f, a, b_: soft.rasterize_softmax_chw(
         v, f, a, res, b_.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-    got, exact = run(plain, torch.float32), run(plain, torch.float64)
+    got, got64 = run(plain, torch.float32), run(plain, torch.float64)
     names = ('image', 'verts', 'attrs', 'background')
-    for name, g, w, e in zip(names, got, [jimg, *jgrads], exact):
-        _judge(g, w, e, name, **({'rtol': 0.0, 'atol': 1e-5} if name == 'image' else {}))
+    for name, g, g64, w, e in zip(names, got, got64, want, exact):
+        _judge(g, g64, w, e, name,
+               **({'rtol': 0.0, 'atol': 1e-5} if name == 'image' else {}))
     # the kernel path is the same function: in float64 the two agree to
     # rounding. (In float32 the kernel path's A*px + B*py + C form rounds
     # each edge value to ~ulp(C), more than the direct distance does; the
     # kernel-path tests above hold it to the reference's kernels.)
-    for name, g, w in zip(names, run(kernel_path, torch.float64), exact):
+    for name, g, w in zip(names, run(kernel_path, torch.float64), got64):
         np.testing.assert_allclose(g, w, rtol=1e-9, atol=1e-10 * np.abs(w).max(),
                                    err_msg=name)
 

@@ -7,12 +7,16 @@ package and handed to both as numpy; and the differentiable background
 
 Tolerances:
 
-* the image 1e-5 absolute, judged through the exact value (the plain
-  version evaluated in float64 on the same coefficients): the port's error
-  may exceed the reference's own by at most 1e-5. The two-pass positions
-  ``a*x + b*y + c`` reach ~256 texels, where one float32 ulp is 3e-5 texel,
-  and the reference's compiled CPU code contracts some of them into FMAs,
-  so on a random texture a lerp can move by a few 1e-6 either way;
+* the image: the exact value is the reference's own, the JAX kernel
+  body run in interpret mode in float64 on the same coefficients. The
+  port's plain version in float64 equals it to 1e-7 absolute (the port
+  reads texels as float32 k/255, the float64 reference as float64 k/255),
+  and the port in float32 is no further from it than the reference in
+  float32 beyond 1e-5: |port - exact| <= |reference - exact| + 1e-5. The
+  two-pass positions ``a*x + b*y + c`` reach ~256 texels, where one float32
+  ulp is 3e-5 texel, and the reference's compiled CPU code contracts some
+  of them into FMAs, so on a random texture a lerp can move by a few 1e-6
+  either way;
 * pixels whose validity test (texture row or column against the texture's
   bounds) lies within 1e-4 texel of its bound may take the texture on one
   side and the background color on the other: they are counted, printed
@@ -32,6 +36,8 @@ import torch
 import torchdrivesim_tpu.ops.pallas_warp as W
 from torchdrivesim_tpu.ops.grids import Grid2D
 from torchdrivesim_tpu_torch.ops import warp
+
+from tests.test_torch_soft import float64_jax
 
 torch.set_num_threads(1)
 
@@ -65,14 +71,17 @@ def _scene(seed, b, res, cam_xy=None, left_handed=False):
     return jmip, mip, xy, sc
 
 
-def _judge(got, want, exact, name, rtol, atol, skip=None):
-    """The port's error from the exact value may exceed the reference's own
-    by at most the tolerance; ``skip`` masks values left out."""
-    got, want, exact = (np.asarray(x, np.float64) for x in (got, want, exact))
-    assert got.shape == want.shape, name
-    keep = np.ones(got.shape, bool) if skip is None else ~skip
-    tol = atol + rtol * np.abs(exact)
-    ok = np.abs(got - exact) <= np.abs(want - exact) + tol
+def _judge(got, got64, want, exact, name, atol, skip):
+    """The port in float32 (``got``) and float64 (``got64``) against the
+    reference in float32 (``want``) and float64 (``exact``), as the module
+    docstring says; ``skip`` masks values left out."""
+    got, got64, want, exact = (np.asarray(x, np.float64)
+                               for x in (got, got64, want, exact))
+    assert got.shape == want.shape == exact.shape == got64.shape, name
+    keep = ~skip
+    np.testing.assert_allclose(got64[keep], exact[keep], rtol=0, atol=1e-7,
+                               err_msg=f'{name}: float64 formula')
+    ok = np.abs(got - exact) <= np.abs(want - exact) + atol
     print(f'{name}: max difference {np.abs(got - want)[keep].max():.3g}, '
           f'{int((~keep).sum())} values left out')
     assert ok[keep].all(), f'{name}: {int((~ok[keep]).sum())} values off'
@@ -103,9 +112,16 @@ def test_bilinear_plain_matches_jax_kernel(interpret_mode, case):
     fcoef, icoef = map(np.asarray, W.warp_coefficients(
         jmip, *args, 2.0 / FOV, jnp.asarray(BG_COLOR), left_handed=lh, res=res))
     assert (icoef[:, 0, 2] == 1).any() and (icoef[:, 0, 2] == 0).any()
-    f32, i32 = torch.from_numpy(fcoef), torch.from_numpy(icoef)
+    with float64_jax(W), pytest.MonkeyPatch.context() as mp:
+        # the same coefficients as the float32 run, widened
+        mp.setattr(W, 'warp_coefficients', lambda *a, **k: (
+            jnp.asarray(fcoef, jnp.float64), jnp.asarray(icoef)))
+        exact = np.asarray(jax.jit(lambda: W.warp_background_bilinear(
+            jmip, *args, 2.0 / FOV, jnp.asarray(BG_COLOR), left_handed=lh,
+            res=res))())
+    f32, i32 = torch.from_numpy(fcoef.copy()), torch.from_numpy(icoef.copy())
     got = warp.warp_view_bilinear(mip.data, f32, i32, res).numpy()
-    exact = warp.warp_view_bilinear_reference(mip.data, f32.double(), i32, res).numpy()
+    got64 = warp.warp_view_bilinear_reference(mip.data, f32.double(), i32, res).numpy()
     # pixels whose validity test sits within 1e-4 texel of its bound
     r = np.arange(res, dtype=np.float64)[None, :, None]
     c = np.arange(res, dtype=np.float64)[None, None, :]
@@ -113,7 +129,7 @@ def test_bilinear_plain_matches_jax_kernel(interpret_mode, case):
     ty, tx = f(6) * r + f(7) * c + f(8), f(9) * r + f(10) * c + f(11)
     near = np.minimum.reduce([np.abs(ty), np.abs(ty - f(12)),
                               np.abs(tx), np.abs(tx - f(13))]) < 1e-4
-    _judge(got, want, exact, case, rtol=0.0, atol=1e-5,
+    _judge(got, got64, want, exact, case, atol=1e-5,
            skip=np.repeat(near[:, None], 3, axis=1))
     if case == 'texture_edge':
         bg = np.floor(BG_COLOR * np.float32(255)) * np.float32(1 / 255)

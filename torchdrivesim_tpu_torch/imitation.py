@@ -15,7 +15,6 @@ pass (a few MB per step at the IL configuration), so every render kernel
 runs once per step forward and the soft raster's backward kernel once per
 step backward, and nothing is recomputed.
 """
-import dataclasses
 from typing import Callable, Tuple
 
 import numpy as np
@@ -108,8 +107,7 @@ def render_ego(sim: Simulator, state: SimulatorState, res: int, scale: float,
 
 
 def make_bc_train_step(sim: Simulator, policy: torch.nn.Module,
-                       optimizer: torch.optim.Optimizer, res: int,
-                       teacher_forcing: bool = False
+                       optimizer: torch.optim.Optimizer, res: int
                        ) -> Callable[[SimulatorState, torch.Tensor], torch.Tensor]:
     """
     The behaviour-cloning training step: one rollout of T steps, each a
@@ -122,14 +120,12 @@ def make_bc_train_step(sim: Simulator, policy: torch.nn.Module,
     """
     def loss_fn(state0: SimulatorState, expert: torch.Tensor) -> torch.Tensor:
         state, preds = state0, []
-        for target in expert:
+        for _ in range(expert.shape[0]):
             image = render_ego(sim, state, res, sim.renderer.scale,
                                include_background=True)
             action = policy(image)[:, None, :]                 # B x 1 x Ac
             state = sim.functional_step(state, action)
             preds.append(state.agent_state)
-            if teacher_forcing:
-                state = dataclasses.replace(state, agent_state=target)
         preds = torch.stack(preds)
         return torch.mean((preds[..., :2] - expert[..., :2]) ** 2)
 
