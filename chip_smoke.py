@@ -1,6 +1,6 @@
 """
 Smoke run of the PyTorch port on one CUDA card. Builds every kernel from the
-checkout (one ``nvcc`` per source, all at once), then drives two paths:
+checkout (one ``nvcc`` per source, all at once), then drives three paths:
 
 * the headline env step (carla_Town02, 256 environments, 20 vehicles,
   128 x 128 render plus all metrics): the fused render kernel against its
@@ -12,7 +12,17 @@ checkout (one ``nvcc`` per source, all at once), then drives two paths:
   kernels against their plain versions, a small gradient step against the
   CPU path, one full-width gradient step counting launches with a
   directional finite-difference check of its gradient, three steps of the
-  behaviour-cloning loop, times and peak memory.
+  behaviour-cloning loop, times and peak memory;
+* the RL path (BASELINE config 5: PPO over 1024 vectorized environments of
+  the same town, 4 vehicles, 64 x 64 hard mesh render, rollout 16, 2
+  epochs): the nearest background warp and the hard raster's packed and
+  chunked kernels against their plain versions on random operands, a
+  small RL step against the CPU path, two full-width PPO iterations
+  counting launches per rollout collection, the kernels again on the
+  frame those iterations ended on, three steps of the untextured
+  environment (the whole map mesh, the chunked kernel, whose launches the
+  JSON line reports) and the chunked kernel on its last frame, times,
+  device profile and peak memory.
 
     python3 chip_smoke.py
 
@@ -21,6 +31,7 @@ any phase fails. The line before the last is a JSON object describing each
 kernel; the last line is ``{"ok": true, "device": ...}``.
 """
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -33,6 +44,8 @@ BATCH, AGENTS, RES, FOV = 256, 20, 128, 70.0
 MAIN_STEPS = 200
 COMPARE_BATCH, COMPARE_STEPS = 4, 3
 IL_BATCH, IL_AGENTS, IL_RES, IL_HORIZON, IL_FEATURES = 16, 8, 64, 40, (16, 32)
+RL_BATCH, RL_RES, RL_ROLLOUT, RL_EPOCHS, RL_ITERATIONS = 1024, 64, 16, 2, 2
+RL_UNTEXTURED_BATCH, RL_UNTEXTURED_STEPS = 16, 3
 
 #: the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
 #: at 3.35 TB/s; float32 at 67 TFLOP/s outside the tensor cores, which
@@ -59,6 +72,17 @@ WARP_OPS = 12 + 2 * (10 + 9) + 9 + 4
 #: per pixel of the fused render: the warp index arithmetic and the texel
 #: (~20), and per live 8-primitive chunk 8 quads x 11 or 8 triangles x 15
 FUSED_PIXEL_OPS, FUSED_QUAD_OPS, FUSED_TRI_OPS = 20, 8 * 11, 8 * 15
+#: per pixel of the nearest warp (csrc/warp_index.cuh, warp_nearest.cu): the
+#: row and column indices (affine 4, round 2, clamp 2 each), the texture
+#: coordinates (2 x 4), the validity test (4) and the unpack (3)
+NEAREST_PIXEL_OPS = 8 + 8 + 8 + 4 + 3
+#: per (pixel, face) of the hard raster (csrc/hard_raster.cu): three edge
+#: values (4 each), three compares and the minimum (packed) or the z
+#: compares (chunked)
+HARD_FACE_OPS, HARD_CHUNKED_FACE_OPS = 12 + 3 + 1, 12 + 3 + 2
+#: pixels per side of the tiles in which the chunked raster's bound counts
+#: the faces a pixel must test
+BOUND_TILE = 16
 
 
 def card_label() -> str:
@@ -121,8 +145,9 @@ def bound(n_bytes: float, n_ops: float, n_sfu: float = 0.0):
 
 def texel_bytes(mip, b: int, fov: float) -> float:
     """Texel bytes the views need: each camera's view covers about
-    (fov / cell + 1)^2 texels of the mip level."""
-    return b * (fov / mip.cell_size + 1) ** 2 * 4
+    (fov / cell + 1)^2 texels of the mip level, and all the views together
+    at most the whole level, read once."""
+    return min(b * (fov / mip.cell_size + 1) ** 2 * 4, nbytes(mip.data))
 
 
 # --- the headline step -------------------------------------------------------
@@ -200,19 +225,21 @@ def random_warp_operands(seed: int, b: int, res: int, device):
 def compare_fused(fused, mip, ops, label):
     """Kernel against plain version in both output modes; returns the
     largest absolute difference of the float output."""
-    worst = 0.0
-    for packed in (False, True):
-        got = fused.render_coefs_fused(mip, *ops, RES, packed)
-        want = fused.render_coefs_fused_reference(mip, *ops, RES, packed)
-        torch.cuda.synchronize()
-        mismatches = int((got != want).sum())
-        print(f'{label} packed={packed}: {mismatches} mismatching values of '
-              f'{got.numel()}')
-        if mismatches:
-            raise AssertionError(f'{label}: kernel disagrees with its plain version')
-        if not packed:
-            worst = max(worst, float((got - want).abs().max()))
-    return worst
+    errs = [compare_exact(fused.render_coefs_fused(mip, *ops, RES, packed),
+                          fused.render_coefs_fused_reference(mip, *ops, RES, packed),
+                          f'{label} packed={packed}') for packed in (False, True)]
+    return errs[0]
+
+
+def compare_exact(got, want, label):
+    """Kernel against plain version: the count of mismatching values (must
+    be 0); returns the largest absolute difference."""
+    torch.cuda.synchronize()
+    mismatches = int((got != want).sum())
+    print(f'{label}: {mismatches} mismatching values of {got.numel()}')
+    if mismatches:
+        raise AssertionError(f'{label}: kernel disagrees with its plain version')
+    return float((got - want).abs().max())
 
 
 def compare_with_cpu(build, label):
@@ -490,7 +517,8 @@ def directional_gradcheck(loss_fn, params, grads, state):
 def profile_step(fn, label, card):
     """One call of ``fn`` under ``torch.profiler``: device operations, their
     summed device time, its share of the (profiled) wall time, and the
-    kernels that take the most device time."""
+    kernels that take the most device time. Returns (device operations,
+    busy share) or None when the profiler traced no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -513,6 +541,7 @@ def profile_step(fn, label, card):
           f'(busy {100 * busy_us / wall_us:.1f}%) [{card}]')
     for name, us in top:
         print(f'  {us / 1e3:9.3f} ms  {name[:100]}')
+    return len(device), busy_us / wall_us
 
 
 def il_path(device, card):
@@ -662,11 +691,280 @@ def il_path(device, card):
     return entries
 
 
+# --- the RL path (BASELINE config 5) -----------------------------------------
+
+def rl_frame(venv, state):
+    """The operands of the frame of ``state`` from the renderer's own
+    preparation, ``((background, hard operands, warp operands or None),
+    (mesh, cameras))``."""
+    mesh, cams = venv.view(state)
+    return (venv.sim.renderer.hard_frame_operands(mesh, venv.cfg.res, cams),
+            (mesh, cams))
+
+
+def compare_nearest(warp, mip, fcoef, icoef, res, label):
+    flip = int((icoef[:, 0, 2] == 1).sum())
+    return compare_exact(warp.warp_view_nearest(mip.data, fcoef, icoef, res),
+                         warp.warp_view_nearest_reference(mip.data, fcoef, icoef, res),
+                         f'{label} warp_nearest B={fcoef.shape[0]} res {res} '
+                         f'({flip} cameras on the flip branch)')
+
+
+def compare_hard(hard, ops, bg, res, label):
+    """Returns the kernel's name and its largest difference."""
+    kind = 'hard_raster_packed' if len(ops) == 2 else 'hard_raster_chunked'
+    return kind, compare_exact(hard.raster(ops, bg, res),
+                               hard.raster_reference(ops, bg, res),
+                               f'{label} {kind} F={ops[1].shape[1]} B={bg.shape[0]}')
+
+
+def hard_tile_pairs(venv, mesh, cams, valid, res) -> int:
+    """(face, tile) pairs of a raster that tests a face only in the
+    BOUND_TILE x BOUND_TILE pixel tiles its bounding box overlaps: the
+    faces the view needs. ``valid`` (B, F) excludes the degenerate faces,
+    which never win."""
+    from torchdrivesim_tpu_torch.ops.rasterize import camera_rows_cols, face_arrays
+    rc = camera_rows_cols(mesh.verts[..., :2], cams.xy, cams.sc, cams.scale, res,
+                          left_handed=venv.sim.renderer.cfg.left_handed_coordinates)
+    corners, _, _ = face_arrays(torch.cat([rc, mesh.verts[..., 2:3]], dim=-1),
+                                mesh.faces, mesh.attrs)
+    corners = torch.nan_to_num(corners, nan=-1e9)
+    # the first and last pixel row (col) whose center the box covers
+    lo = torch.ceil(corners.amin(dim=2) - 0.5).clamp(0, res).long()
+    hi = torch.floor(corners.amax(dim=2) - 0.5).clamp(-1, res - 1).long()
+    tiles = torch.where(lo <= hi, hi // BOUND_TILE - lo // BOUND_TILE + 1, 0).prod(dim=-1)
+    return int((tiles * valid).sum())
+
+
+def rl_compare_with_cpu(device):
+    """Three steps of the RL environment at B = 2 on the card and on the
+    CPU: states and rewards to 1e-4, observations >= 99.9% identical."""
+    from torchdrivesim_tpu_torch.benchmark import build_rl_env
+    runs = []
+    rng = np.random.RandomState(0)
+    actions = [torch.from_numpy(rng.uniform(-1, 1, (2, 2)).astype(np.float32))
+               for _ in range(COMPARE_STEPS)]
+    for dev in (device, torch.device('cpu')):
+        venv = build_rl_env(batch_size=2, res=RL_RES, device=dev)
+        step = venv.make_step_fn()
+        state, outs = venv.initial_state, []
+        for act in actions:
+            state, obs, reward, done = step(state, act.to(dev))
+            outs.append((state.agent_state.cpu(), obs.cpu(), reward.cpu(), done.cpu()))
+        runs.append(outs)
+    for i, (g, c) in enumerate(zip(*runs)):
+        torch.testing.assert_close(g[0], c[0], atol=1e-4, rtol=0)
+        torch.testing.assert_close(g[2], c[2], atol=1e-4, rtol=0)
+        if not torch.equal(g[3], c[3]):
+            raise AssertionError(f'RL step {i}: done differs')
+        same = float((g[1] == c[1]).all(dim=1).float().mean())
+        print(f'RL compare step {i}: {same * 100:.4f}% of observation pixels identical '
+              'on the card and the CPU; states and rewards agree to 1e-4')
+        if same < 0.999:
+            raise AssertionError(f'RL step {i}: observations differ')
+
+
+def rl_counts(warp, hard):
+    return {'warp_nearest': warp.NEAREST_LAUNCHES,
+            'hard_raster_packed': hard.PACKED_LAUNCHES,
+            'hard_raster_chunked': hard.CHUNKED_LAUNCHES}
+
+
+def rl_zero_counts(warp, hard):
+    warp.NEAREST_LAUNCHES = hard.PACKED_LAUNCHES = hard.CHUNKED_LAUNCHES = 0
+
+
+def rl_path(device, card):
+    """The RL phases; returns the JSON entries of its three kernels."""
+    from torchdrivesim_tpu_torch import rl
+    from torchdrivesim_tpu_torch.benchmark import build_rl_env, run_rl_benchmark
+    from torchdrivesim_tpu_torch.ops import hard, warp
+
+    # 1. the kernels against their plain versions on random operands
+    errs = {'warp_nearest': [], 'hard_raster_packed': [], 'hard_raster_chunked': []}
+    for label, (m, f, i), res in (
+            ('random', random_warp_operands(8, 64, 32, device), 32),
+            ('random', random_warp_operands(9, 16, 128, device), 128)):
+        assert int((i[:, 0, 2] == 0).sum()) > 0, 'no camera on the standard branch'
+        errs['warp_nearest'].append(compare_nearest(warp, m, f, i, res, label))
+    for n_faces, b in ((1, 8), (12, RL_BATCH), (127, 8), (128, 8), (129, 8), (300, 8)):
+        corners, z, colors, bg = hard.random_faces(10 + n_faces, b, n_faces, RL_RES,
+                                                   device)
+        kind, err = compare_hard(hard, hard.hard_operands(corners, z, colors), bg,
+                                 RL_RES, 'random')
+        errs[kind].append(err)
+
+    # 2. a small RL step on the card against the CPU
+    rl_compare_with_cpu(device)
+
+    # 3. the main path: two full-width PPO iterations, counting launches
+    venv, model, optimizer = rl.build(RL_BATCH, res=RL_RES, device=device)
+    step_fn = venv.make_step_fn()
+    generator = torch.Generator(device=device).manual_seed(0)
+    state = venv.initial_state
+    want = {'warp_nearest': 2 * RL_ROLLOUT + 1, 'hard_raster_packed': 2 * RL_ROLLOUT + 1,
+            'hard_raster_chunked': 0}
+    launches = None
+    for it in range(RL_ITERATIONS):
+        torch.cuda.synchronize()
+        rl_zero_counts(warp, hard)
+        t0 = time.perf_counter()
+        state, batch = rl.collect(model, step_fn, state, RL_ROLLOUT, generator)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        counts = rl_counts(warp, hard)
+        for _ in range(RL_EPOCHS):
+            loss, pg, v_loss = rl.ppo_update(model, optimizer, batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        print(f'RL iteration {it}: B={RL_BATCH} rollout {RL_ROLLOUT}: collect '
+              f'{t1 - t0:.3f} s ({RL_BATCH * RL_ROLLOUT / (t1 - t0):.1f} env-steps/s), '
+              f'{RL_EPOCHS} PPO updates {(t2 - t1) * 1e3:.1f} ms; return '
+              f'{float(batch[4].mean()):.4f}, loss {float(loss):.5f} (pg '
+              f'{float(pg):.5f}, value {float(v_loss):.5f}); launches per collect '
+              f'{counts} [{card}]')
+        if counts != want:
+            raise AssertionError(f'launches per collect {counts}, expected {want}')
+        if not all(math.isfinite(float(x)) for x in (loss, pg, v_loss)):
+            raise AssertionError('non-finite PPO loss')
+        obs = batch[0]
+        if obs.shape != (RL_ROLLOUT, RL_BATCH, 3, RL_RES, RL_RES) or \
+                not torch.isfinite(obs).all():
+            raise AssertionError(f'observations {tuple(obs.shape)} not finite or '
+                                 'of the wrong shape')
+        launches = counts
+    # every view shows its own car (the ego sits at the center)
+    vehicle = torch.tensor(venv.sim.renderer.color_map['vehicle'],
+                           dtype=torch.float32, device=device)
+    on_car = ((obs[-1] - vehicle[None, :, None, None]).abs() < 0.5).all(dim=1)
+    with_car = float((on_car.sum(dim=(1, 2)) >= 10).float().mean())
+    print(f'{with_car * 100:.1f}% of RL views show vehicle pixels')
+    if with_car < 0.9:
+        raise AssertionError('RL observations do not show the vehicles')
+
+    # 4. the kernels against their plain versions on the frame the main path
+    # ended on: the sampled actions have spread the 1024 copies of the scenario
+    (bg, hops, (mip, fcoef, icoef)), (_, cams) = rl_frame(venv, state)
+    distinct = int(torch.unique(torch.cat([cams.xy, cams.sc], dim=-1), dim=0).shape[0])
+    print(f'RL operands after {RL_ITERATIONS} iterations: B={RL_BATCH}, {distinct} '
+          f'distinct cameras, {hops[1].shape[1]} faces per camera, texture '
+          f'{tuple(mip.data.shape)} at {mip.cell_size} m')
+    if distinct < RL_BATCH // 2:
+        raise AssertionError(f'only {distinct} distinct cameras')
+    errs['warp_nearest'].append(compare_nearest(warp, mip, fcoef, icoef, RL_RES, 'RL'))
+    kind, err = compare_hard(hard, hops, bg, RL_RES, 'RL')
+    errs[kind].append(err)
+
+    # 5. the untextured environment: the whole map mesh, the chunked kernel,
+    # stepped with random actions
+    untextured = build_rl_env(batch_size=RL_UNTEXTURED_BATCH, res=RL_RES,
+                              use_background_texture=False, device=device)
+    step_u = untextured.make_step_fn()
+    gen_u = torch.Generator(device=device).manual_seed(1)
+    actions = [torch.rand((RL_UNTEXTURED_BATCH, 2), generator=gen_u, device=device) * 2 - 1
+               for _ in range(RL_UNTEXTURED_STEPS + 1)]
+    state_u, obs_u, _, _ = step_u(untextured.initial_state, actions[0])
+    torch.cuda.synchronize()
+    rl_zero_counts(warp, hard)
+    t0 = time.perf_counter()
+    for act in actions[1:]:
+        state_u, obs_u, reward_u, _ = step_u(state_u, act)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / RL_UNTEXTURED_STEPS
+    counts_u = rl_counts(warp, hard)
+    (town_bg, town_ops, _), (town_mesh, town_cams) = rl_frame(untextured, state_u)
+    print(f'untextured RL env B={RL_UNTEXTURED_BATCH}: {town_ops[1].shape[1]} faces per '
+          f'camera, {step_ms:.2f} ms per step; launches over {RL_UNTEXTURED_STEPS} '
+          f'steps {counts_u} [{card}]')
+    if counts_u != {'warp_nearest': 0, 'hard_raster_packed': 0,
+                    'hard_raster_chunked': RL_UNTEXTURED_STEPS}:
+        raise AssertionError(f'untextured launches {counts_u}')
+    if not torch.isfinite(obs_u).all() or not torch.isfinite(reward_u).all():
+        raise AssertionError('untextured step: non-finite output')
+    kind, err = compare_hard(hard, tuple(x[:4] for x in town_ops), town_bg[:4], RL_RES,
+                             'Town02 untextured')
+    errs[kind].append(err)
+    # B6b's path is the untextured environment: its launches are that run's
+    launches = {**launches, 'hard_raster_chunked': counts_u['hard_raster_chunked']}
+
+    # 6. times, on this card, at the main path's operands
+    coef, pk = hops
+    b, n_faces = pk.shape
+    pixels = b * RL_RES * RL_RES
+    image_bytes = pixels * 3 * 4
+    tcoef, tz, trgb = town_ops
+    tb, tf = tz.shape
+    pairs = hard_tile_pairs(untextured, town_mesh, town_cams, tz != hard.Z_SENTINEL,
+                            RL_RES)
+    tiles = (RL_RES // BOUND_TILE) ** 2
+    print(f'untextured view: {pairs / (tb * tiles):.1f} of {tf} faces per '
+          f'{BOUND_TILE} x {BOUND_TILE} tile overlap it by bounding box')
+    entries = []
+    for name, fn, plain, reps, plain_reps, n_bytes, n_ops, source, replaces in (
+            ('warp_nearest',
+             lambda: warp.warp_view_nearest(mip.data, fcoef, icoef, RL_RES),
+             lambda: warp.warp_view_nearest_reference(mip.data, fcoef, icoef, RL_RES),
+             200, 10, nbytes(fcoef, icoef) + texel_bytes(mip, b, venv.cfg.fov)
+             + image_bytes, pixels * NEAREST_PIXEL_OPS,
+             'torchdrivesim_tpu_torch/csrc/warp_nearest.cu',
+             'torchdrivesim_tpu/ops/pallas_warp.py:373'),
+            ('hard_raster_packed',
+             lambda: hard.raster_packed(coef, pk, bg, RL_RES),
+             lambda: hard.raster_packed_reference(coef, pk, bg, RL_RES),
+             200, 10, nbytes(coef, pk) + 2 * image_bytes,
+             pixels * n_faces * HARD_FACE_OPS,
+             'torchdrivesim_tpu_torch/csrc/hard_raster.cu',
+             'torchdrivesim_tpu/ops/pallas_rasterize.py:134'),
+            ('hard_raster_chunked',
+             lambda: hard.raster_chunked(tcoef, tz, trgb, town_bg, RL_RES),
+             lambda: hard.raster_chunked_reference(tcoef, tz, trgb, town_bg, RL_RES),
+             20, 2, nbytes(tcoef, tz, trgb) + 2 * tb * RL_RES * RL_RES * 3 * 4,
+             pairs * BOUND_TILE ** 2 * HARD_CHUNKED_FACE_OPS,
+             'torchdrivesim_tpu_torch/csrc/hard_raster.cu',
+             'torchdrivesim_tpu/ops/pallas_rasterize.py:152')):
+        ms, call_ms = graph_ms(fn, reps), cuda_ms(fn, reps)
+        plain_ms = cuda_ms(plain, plain_reps)
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        print(f'{name} kernel: {ms:.4f} ms (device, graph replay); eager call '
+              f'{call_ms:.4f} ms; plain version {plain_ms:.3f} ms; bound '
+              f'{bound_ms * 1e3:.3f} us by {bound_by} ({n_bytes / 1e6:.3f} MB, '
+              f'{n_ops / 1e6:.1f} M float32 ALU operations) [{card}]')
+        entries.append({'name': name, 'route': 'cuda', 'source': source,
+                        'replaces': replaces, 'launches': launches[name],
+                        'max_abs_err': max(errs[name]), 'ms': ms, 'plain_ms': plain_ms,
+                        'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None})
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    state, batch = rl.collect(model, step_fn, state, RL_ROLLOUT, generator)
+    for _ in range(RL_EPOCHS):
+        rl.ppo_update(model, optimizer, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device) - base
+    print(f'RL iteration peak memory above the resident environment: '
+          f'{peak / 2**20:.1f} MiB [{card}]')
+    del batch
+    prof = profile_step(lambda: rl.collect(model, step_fn, venv.initial_state,
+                                           RL_ROLLOUT, generator), 'RL collect', card)
+    if prof is not None:
+        n_ops, busy = prof
+        print(f'RL collect: {n_ops / RL_ROLLOUT:.1f} device operations per rollout step '
+              f'({n_ops / (2 * RL_ROLLOUT + 1):.1f} per environment step call), busy '
+              f'{busy * 100:.1f}% [{card}]')
+    bench = run_rl_benchmark(venv, model, optimizer, rollout=RL_ROLLOUT,
+                             epochs=RL_EPOCHS, n_chunks=3)
+    print(f'RL B={RL_BATCH} rollout {RL_ROLLOUT}: collect '
+          f'{bench["collect_env_steps_per_sec_median"]:.1f} env-steps/s median of chunks '
+          f'{[round(r, 1) for r in bench["chunk_collect_rates"]]}; PPO update '
+          f'{bench["ppo_update_ms_median"]:.2f} ms median, iteration updates '
+          f'{[round(r, 2) for r in bench["chunk_ppo_iteration_ms"]]} ms [{card}]')
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 1
-    from torchdrivesim_tpu_torch.ops import fused, soft, warp
+    from torchdrivesim_tpu_torch.ops import fused, hard, soft, warp
     from torchdrivesim_tpu_torch.ops.build import build_all
 
     device = torch.device('cuda', 0)
@@ -674,12 +972,15 @@ def main() -> int:
     card = card_label()
     print(f'device: {name}')
     print(card)                  # name, power.limit as nvidia-smi gives them
-    secs = build_all([fused.LIBRARY, warp.LIBRARY, soft.LIBRARY])
-    print(f'kernel build (fused_render, warp_bilinear, soft_raster in parallel): '
+    libraries = [fused.LIBRARY, warp.LIBRARY, soft.LIBRARY, warp.NEAREST_LIBRARY,
+                 hard.LIBRARY]
+    secs = build_all(libraries)
+    print(f'kernel build ({", ".join(lib.name for lib in libraries)} in parallel): '
           f'{secs:.2f} s (nvcc sm_90a)')
 
     kernels = [headline(device, card)]
     kernels += il_path(device, card)
+    kernels += rl_path(device, card)
 
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -1,13 +1,14 @@
 """
 The port's CUDA kernels against their plain PyTorch versions on a CUDA card
-(skips without one): the fused render, the bilinear background warp and the
-soft raster's forward and backward. Imports neither JAX nor the JAX package,
+(skips without one): the fused render, the nearest and bilinear background
+warps, the soft raster's forward and backward, and the hard raster's packed
+and chunked kernels. Imports neither JAX nor the JAX package,
 so it also runs where JAX is absent:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-The fused render and the warp must match their plain versions exactly (the
-same operations, each rounded on its own). The soft raster is judged
+The fused render, the warps and the hard raster must match their plain
+versions exactly (the same operations, each rounded on its own). The soft raster is judged
 through its plain version in float64: the kernel's error may exceed the
 plain version's by at most 1e-5 (forward) or 1e-4 relative plus 1e-6 of
 the largest value (backward), since its per-face sums run in another order.
@@ -16,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from torchdrivesim_tpu_torch.ops import fused, soft, warp
+from torchdrivesim_tpu_torch.ops import fused, hard, soft, warp
 from torchdrivesim_tpu_torch.ops.rasterize import n_bands_for, prep_sorted_prim_coefs
 from torchdrivesim_tpu_torch.ops.warp import (
     build_mip_pyramid, select_mip, warp_coefficients,
@@ -136,3 +137,35 @@ def test_soft_backward_is_deterministic(cuda):
     second = soft.soft_raster_bwd(*ops, g)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.depends_on_cuda
+@pytest.mark.parametrize('res,b', [(64, 1024), (128, 8), (32, 4)])
+def test_nearest_warp_kernel_matches_plain_version(cuda, res, b):
+    mip, ops = _operands(res + 2, b, res, cuda)
+    fcoef, icoef = ops[:2]
+    assert (icoef[:, 0, 2] == 1).any() and (icoef[:, 0, 2] == 0).any()
+    before = warp.NEAREST_LAUNCHES
+    got = warp.warp_view_nearest(mip.data, fcoef, icoef, res)
+    want = warp.warp_view_nearest_reference(mip.data, fcoef, icoef, res)
+    torch.cuda.synchronize()
+    assert warp.NEAREST_LAUNCHES == before + 1
+    assert int((got != want).sum()) == 0
+
+
+@pytest.mark.depends_on_cuda
+@pytest.mark.parametrize('n_faces,b,res', [(1, 8, 64), (12, 1024, 64), (127, 16, 64),
+                                           (128, 8, 64), (129, 8, 32), (300, 4, 64),
+                                           (17000, 2, 64)])
+def test_hard_raster_kernels_match_plain_versions(cuda, n_faces, b, res):
+    corners, z, colors, bg = hard.random_faces(n_faces + res, b, n_faces, res, cuda)
+    ops = hard.hard_operands(corners, z, colors)
+    packed = len(ops) == 2
+    before = (hard.PACKED_LAUNCHES, hard.CHUNKED_LAUNCHES)
+    got = hard.raster(ops, bg, res)
+    want = hard.raster_reference(ops, bg, res)
+    torch.cuda.synchronize()
+    assert (hard.PACKED_LAUNCHES, hard.CHUNKED_LAUNCHES) == (
+        before[0] + packed, before[1] + (not packed))
+    assert int((got != want).sum()) == 0
+    assert int((got != bg).any(dim=1).sum()) > 0          # some faces show

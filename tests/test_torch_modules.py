@@ -292,7 +292,9 @@ def test_port_imports_no_jax():
     code = ('import sys, torchdrivesim_tpu_torch.benchmark, '
             'torchdrivesim_tpu_torch.convert, torchdrivesim_tpu_torch.imitation, '
             'torchdrivesim_tpu_torch.models, torchdrivesim_tpu_torch.ops.soft, '
-            'torchdrivesim_tpu_torch.ops.warp, torchdrivesim_tpu_torch.ops.fused; '
+            'torchdrivesim_tpu_torch.ops.warp, torchdrivesim_tpu_torch.ops.fused, '
+            'torchdrivesim_tpu_torch.ops.hard, torchdrivesim_tpu_torch.gym_env, '
+            'torchdrivesim_tpu_torch.rl; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "flax", "optax", "orbax", "torchdrivesim_tpu")]; '
             'assert not bad, bad')
@@ -307,14 +309,17 @@ def test_entry_points_default_to_the_card():
     from an argument without a default."""
     import inspect
 
-    from torchdrivesim_tpu_torch import benchmark, convert, imitation
+    from torchdrivesim_tpu_torch import benchmark, convert, gym_env, imitation, rl
     from torchdrivesim_tpu_torch.rendering.renderer import Renderer
     from torchdrivesim_tpu_torch.traffic_controls import BaseTrafficControl
     for fn in (benchmark.build_benchmark_scenario, benchmark.build_il_scenario,
-               convert.scenario_from_arrays, imitation.build_synthetic_batch):
+               convert.scenario_from_arrays, imitation.build_synthetic_batch,
+               benchmark.build_rl_env, gym_env.build_gym_sim,
+               gym_env.gym_sim_from_arrays, gym_env.VectorizedGymEnv, rl.build):
         assert inspect.signature(fn).parameters['device'].default == 'cuda', fn
-    for fn in (K.KinematicBicycle, K.SimpleKinematicModel, Renderer,
-               BaseTrafficControl, BakedLightSchedule):
+    assert "device='cuda'" in inspect.getsource(rl.main)
+    for fn in (K.KinematicBicycle, K.SimpleKinematicModel, K.BicycleNoReversing,
+               Renderer, BaseTrafficControl, BakedLightSchedule):
         default = inspect.signature(fn).parameters['device'].default
         assert default is inspect.Parameter.empty, fn
     if not torch.cuda.is_available():

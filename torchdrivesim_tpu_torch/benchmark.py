@@ -10,6 +10,10 @@ Also the imitation-learning gradient path (the reference's
 and :func:`make_il_grad_fn`, the gradient of a policy's rollout loss
 through the differentiable render and the dynamics.
 
+And the RL path (the reference's ``examples/rl_example.py`` at 1024
+environments): :func:`build_rl_env` and :func:`run_rl_benchmark`, which
+times PPO's rollout collection and its update.
+
 The map caches (texture, grids) are read from next to the map; baking them
 is not ported.
 """
@@ -313,4 +317,63 @@ def run_il_benchmark(scenario: BenchmarkScenario, policy: torch.nn.Module,
         'chunk_rollout_rates': rates,
         'batch_size': sim.batch_size,
         'horizon': horizon,
+    }
+
+
+def build_rl_env(batch_size: int = 1024, map_name: str = 'carla_Town02',
+                 agent_count: int = 4, res: int = 64, fov: float = 35.0,
+                 use_background_texture: bool = True, seed: int = 0,
+                 device='cuda'):
+    """The RL example's vectorized environment (``rl_example.py``'s
+    ``GymEnvConfig(agent_count=4, res=64)``) at ``batch_size``
+    environments on ``device``."""
+    from torchdrivesim_tpu_torch.gym_env import GymEnvConfig, VectorizedGymEnv
+    cfg = GymEnvConfig(map_name=map_name, agent_count=agent_count, res=res, fov=fov,
+                       use_background_texture=use_background_texture, seed=seed)
+    return VectorizedGymEnv(cfg, batch_size=batch_size, device=device)
+
+
+def run_rl_benchmark(venv, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                     rollout: int = 16, epochs: int = 2, n_chunks: int = 3) -> dict:
+    """
+    Time PPO on a CUDA device: each chunk is one rollout collection and
+    ``epochs`` PPO updates on it, each part timed by the host clock between
+    two ``torch.cuda.synchronize()`` calls. A first chunk warms up and is
+    not counted.
+
+    Returns:
+        env-steps/s of the collection (batch x rollout per collection) and
+        ms of the PPO iteration's updates (all epochs), per chunk and their
+        medians, and the median ms per update.
+    """
+    from torchdrivesim_tpu_torch.rl import collect, ppo_update
+    device = venv.device
+    if device.type != 'cuda':
+        raise RuntimeError(f'run_rl_benchmark times a CUDA device; the '
+                           f'environment is on {device}')
+    step_fn = venv.make_step_fn()
+    generator = torch.Generator(device=device).manual_seed(0)
+    state = venv.initial_state
+    rates, update_ms = [], []
+    for chunk in range(n_chunks + 1):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        state, batch = collect(model, step_fn, state, rollout, generator)
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        for _ in range(epochs):
+            ppo_update(model, optimizer, batch)
+        torch.cuda.synchronize(device)
+        t2 = time.perf_counter()
+        if chunk:
+            rates.append(venv.batch_size * rollout / (t1 - t0))
+            update_ms.append((t2 - t1) * 1e3)
+    return {
+        'collect_env_steps_per_sec_median': statistics.median(rates),
+        'ppo_iteration_ms_median': statistics.median(update_ms),
+        'ppo_update_ms_median': statistics.median(update_ms) / epochs,
+        'chunk_collect_rates': rates,
+        'chunk_ppo_iteration_ms': update_ms,
+        'batch_size': venv.batch_size,
+        'rollout': rollout,
     }

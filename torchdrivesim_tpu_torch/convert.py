@@ -1,9 +1,10 @@
 """
 Build the port's benchmark scenario from a scenario's data given as numpy
 arrays, such as the JAX package's scenario with ``np.asarray`` applied to
-its leaves, so both packages step the same world; and carry a flax
-``BirdviewCNNPolicy`` parameter tree across as the port's ``state_dict``
-(:func:`policy_state_dict_from_flax`).
+its leaves, so both packages step the same world; and carry flax
+``BirdviewCNNPolicy`` and ``ActorCritic`` parameter trees across as the
+port's ``state_dict`` (:func:`policy_state_dict_from_flax`,
+:func:`actor_critic_state_dict_from_flax`).
 
 The arrays (B environments, A agents, N traffic lights):
 
@@ -97,6 +98,18 @@ def scenario_from_arrays(a: Dict, device='cuda') -> BenchmarkScenario:
     return BenchmarkScenario(sim=sim, schedule=schedule, res=res, fov=fov, dt=dt)
 
 
+def _convs_from_flax(tree: Dict, t) -> Dict[str, torch.Tensor]:
+    """``Conv_i`` kernels HWIO -> OIHW, as ``convs.i.weight`` / ``bias``."""
+    out = {}
+    n_conv = sum(1 for k in tree if k.startswith('Conv_'))
+    for i in range(n_conv):
+        conv = tree[f'Conv_{i}']
+        out[f'convs.{i}.weight'] = t(np.transpose(np.asarray(conv['kernel']),
+                                                  (3, 2, 0, 1)))
+        out[f'convs.{i}.bias'] = t(conv['bias'])
+    return out
+
+
 def policy_state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
     """
     The port's ``BirdviewCNNPolicy`` state dict from a flax parameter tree
@@ -108,15 +121,27 @@ def policy_state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
     """
     tree = params.get('params', params)
     t = lambda x: torch.from_numpy(np.array(x, dtype=np.float32))
-    out = {}
-    n_conv = sum(1 for k in tree if k.startswith('Conv_'))
-    for i in range(n_conv):
-        conv = tree[f'Conv_{i}']
-        out[f'convs.{i}.weight'] = t(np.transpose(np.asarray(conv['kernel']),
-                                                  (3, 2, 0, 1)))
-        out[f'convs.{i}.bias'] = t(conv['bias'])
+    out = _convs_from_flax(tree, t)
     for i in range(2):
         dense = tree[f'Dense_{i}']
         out[f'dense_{i}.weight'] = t(np.asarray(dense['kernel']).T)
         out[f'dense_{i}.bias'] = t(dense['bias'])
+    return out
+
+
+def actor_critic_state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """
+    The port's ``ActorCritic`` state dict from a flax ``ActorCritic``
+    parameter tree ``{'params': {'Conv_i', 'Dense_0' (hidden), 'Dense_1'
+    (mean head), 'Dense_2' (value head), 'log_std'}}`` of numpy arrays, laid
+    out as :func:`policy_state_dict_from_flax` lays out its policy's.
+    """
+    tree = params.get('params', params)
+    t = lambda x: torch.from_numpy(np.array(x, dtype=np.float32))
+    out = _convs_from_flax(tree, t)
+    for flax_name, name in (('Dense_0', 'dense_0'), ('Dense_1', 'mean_head'),
+                            ('Dense_2', 'value_head')):
+        out[f'{name}.weight'] = t(np.asarray(tree[flax_name]['kernel']).T)
+        out[f'{name}.bias'] = t(tree[flax_name]['bias'])
+    out['log_std'] = t(tree['log_std'])
     return out

@@ -15,7 +15,7 @@
 //     chunk occupancy bit is set (starts at the sentinel 0x7FFFFFFF);
 //   * background: the texel the reference's two-pass warp picks -- row index
 //     v rounded first, column index h evaluated at the INTEGER v -- computed
-//     in one pass per pixel; on this card a gather from the L2-resident mip
+//     in one pass per pixel (warp_index.cuh, shared with warp_nearest.cu); on this card a gather from the L2-resident mip
 //     level (under 1 MB at the headline) is cheap, so there is no window copy
 //     and no transpose. Off-texture pixels take the packed background color;
 //   * composite: covered iff winner < 127<<24; the primitive pack is
@@ -44,25 +44,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_index.cuh"
+
 namespace {
 
+using tds::affine;
+using tds::kInv255;
+
 constexpr int kChunk = 8;
-constexpr int kWinRows = 128;
-constexpr int kWindow = 256;
 constexpr int kSentinel = 0x7FFFFFFF;
 constexpr int kCoveredBelow = 127 << 24;
-// float32(1 / 255), the reference's per-channel scale
-constexpr float kInv255 = 0x1.010102p-8f;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float affine(float a, float x, float b, float y,
-                                        float c) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(a, x), __fmul_rn(b, y)), c);
-}
-
-__device__ __forceinline__ float clampf(float v, float hi) {
-  return fminf(fmaxf(v, 0.0f), hi);
-}
 
 __global__ void __launch_bounds__(kThreads)
 fused_render_kernel(const float* __restrict__ fcoef,   // (B, 1, 14)
@@ -109,16 +101,7 @@ fused_render_kernel(const float* __restrict__ fcoef,   // (B, 1, 14)
   if (threadIdx.x < 4) s_icoef[threadIdx.x] = icoef[cam * 4 + threadIdx.x];
   __syncthreads();
 
-  const float va = s_fcoef[0], vb = s_fcoef[1], vc = s_fcoef[2];
-  const float ha = s_fcoef[3], hb = s_fcoef[4], hc = s_fcoef[5];
-  const float ty_a = s_fcoef[6], ty_b = s_fcoef[7], ty_c = s_fcoef[8];
-  const float tx_a = s_fcoef[9], tx_b = s_fcoef[10], tx_c = s_fcoef[11];
-  const float h_tex = s_fcoef[12], w_tex = s_fcoef[13];
-  const int oy = s_icoef[0], ox = s_icoef[1];
-  const bool flip = s_icoef[2] == 1;
-  const int bg_packed = s_icoef[3];
-  const float v_hi = flip ? (float)(kWindow - 1) : (float)(kWinRows - 1);
-  const float h_hi = flip ? (float)(kWinRows - 1) : (float)(kWindow - 1);
+  const tds::NearestWarp warp(s_fcoef, s_icoef);
   const size_t plane = (size_t)res * res;
 
   for (int idx = threadIdx.x; idx < rpb * res; idx += blockDim.x) {
@@ -154,18 +137,7 @@ fused_render_kernel(const float* __restrict__ fcoef,   // (B, 1, 14)
     }
 
     // background: nearest texel by the two-pass index arithmetic
-    const float fr = (float)r;
-    const float fc = (float)c;
-    const float v = clampf(floorf(__fadd_rn(affine(va, fr, vb, fc, vc), 0.5f)), v_hi);
-    const float h = clampf(floorf(__fadd_rn(affine(ha, v, hb, fc, hc), 0.5f)), h_hi);
-    const int vi = (int)v;
-    const int hi = (int)h;
-    const int ty_i = min(max(oy + (flip ? hi : vi), 0), tex_h - 1);
-    const int tx_i = min(max(ox + (flip ? vi : hi), 0), tex_w - 1);
-    const float ty = affine(ty_a, fr, ty_b, fc, ty_c);
-    const float tx = affine(tx_a, fr, tx_b, fc, tx_c);
-    const bool valid = ty >= 0.0f && ty < h_tex && tx >= 0.0f && tx < w_tex;
-    const int bg = valid ? __ldg(tex + (size_t)ty_i * tex_w + tx_i) : bg_packed;
+    const int bg = warp.texel(tex, tex_h, tex_w, r, c);
 
     const bool covered = best < kCoveredBelow;
     const size_t pix = (size_t)r * res + c;

@@ -1,7 +1,8 @@
 """
 Kinematic models as pure functions over batched agent tensors (counterpart
 of ``torchdrivesim_tpu/kinematic.py``; the single-model bicycle path of the
-env step and the simple model of the behaviour-cloning example).
+env step, the no-reversing bicycle of the RL environment and the simple
+model of the behaviour-cloning example).
 
 Agent state is a ``(..., 4)`` tensor ``(x, y, psi, v)``. Bicycle actions are
 normalized ``(accel, steering)``; simple-model actions are the normalized
@@ -18,6 +19,7 @@ import torch
 
 SIMPLE = 1           #: model id of the simple model, as in the reference
 BICYCLE = 3          #: model id of the kinematic bicycle, as in the reference
+BICYCLE_NO_REVERSING = 4   #: the bicycle that stops rather than reversing
 ACTION_BUF = 4       #: unified action buffer width
 
 
@@ -56,6 +58,17 @@ def bicycle_step(state: torch.Tensor, action: torch.Tensor,
                          action[..., 1] * params.max_steering, params, dt)
 
 
+def bicycle_no_reversing_step(state: torch.Tensor, action: torch.Tensor,
+                              params: KinematicParams, dt: float) -> torch.Tensor:
+    """The bicycle, with an acceleration that would reverse the agent
+    replaced by the one that stops it (``-v / dt``)."""
+    acc = action[..., 0] * params.max_acceleration
+    v = state[..., 3]
+    acc = torch.where(v + acc * dt < 0, -v / dt, acc)
+    return _bicycle_core(state, acc, action[..., 1] * params.max_steering,
+                         params, dt)
+
+
 def simple_step(state: torch.Tensor, action: torch.Tensor,
                 params: KinematicParams, dt: float) -> torch.Tensor:
     """The action is the normalized state derivative (dx, dy, dpsi, dv)."""
@@ -64,7 +77,8 @@ def simple_step(state: torch.Tensor, action: torch.Tensor,
     return state + deriv * dt
 
 
-_STEP_FNS = {SIMPLE: simple_step, BICYCLE: bicycle_step}
+_STEP_FNS = {SIMPLE: simple_step, BICYCLE: bicycle_step,
+             BICYCLE_NO_REVERSING: bicycle_no_reversing_step}
 
 
 def _pad_action(action: torch.Tensor) -> torch.Tensor:
@@ -81,8 +95,9 @@ def step(state: torch.Tensor, action: torch.Tensor, params: KinematicParams,
     """
     Advance agent states one step with one model for every agent.
 
-    The simple model and the bicycle are ported; the other models and the
-    heterogeneous (per-agent model id) dispatch of the reference are not.
+    The simple model, the bicycle and the no-reversing bicycle are ported;
+    the other models and the heterogeneous (per-agent model id) dispatch of
+    the reference are not.
     """
     if single_model not in _STEP_FNS:
         raise NotImplementedError(f"kinematic model {single_model} is not ported")
@@ -109,6 +124,14 @@ class KinematicModel:
 
     def get_state(self) -> torch.Tensor:
         return self.state
+
+    def extend(self, n: int) -> None:
+        """Repeat every batch element of the state and of a batched ``lr``
+        ``n`` times contiguously."""
+        self.state = torch.repeat_interleave(self.state, n, dim=0)
+        if self.params.lr.dim() > 0:
+            self.params = dataclasses.replace(
+                self.params, lr=torch.repeat_interleave(self.params.lr, n, dim=0))
 
 
 class SimpleKinematicModel(KinematicModel):
@@ -138,3 +161,8 @@ class KinematicBicycle(KinematicModel):
         self.params = dataclasses.replace(
             self.params, lr=torch.as_tensor(lr, dtype=torch.float32,
                                             device=self.device))
+
+
+class BicycleNoReversing(KinematicBicycle):
+    """The kinematic bicycle that stops at zero speed instead of reversing."""
+    model_id = BICYCLE_NO_REVERSING

@@ -199,6 +199,11 @@ class RGBMesh:
         rep = lambda x: torch.repeat_interleave(x, size, dim=0)
         return RGBMesh(rep(self.verts), rep(self.faces), rep(self.attrs))
 
+    def broadcast_to(self, size: int) -> "RGBMesh":
+        """A batch-1 mesh as a batch of ``size`` (views, no copy)."""
+        grow = lambda x: x.expand((size,) + tuple(x.shape[1:]))
+        return RGBMesh(grow(self.verts), grow(self.faces), grow(self.attrs))
+
     def to(self, device) -> "RGBMesh":
         """The mesh as tensors on ``device`` (faces int64)."""
         return RGBMesh(torch.as_tensor(self.verts, dtype=torch.float32, device=device),

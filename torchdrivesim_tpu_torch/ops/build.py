@@ -55,9 +55,13 @@ class KernelLibrary:
         return os.path.splitext(os.path.basename(self.source))[0]
 
     def path(self) -> str:
-        """Where the built library lives for the current source and flags."""
-        with open(self.source, 'rb') as f:
-            digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+        """Where the built library lives for the current source, the
+        headers under ``csrc/`` and the flags."""
+        digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+        headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith('.cuh'))
+        for path in [self.source] + [os.path.join(CSRC_DIR, h) for h in headers]:
+            with open(path, 'rb') as f:
+                digest.update(f.read())
         return os.path.join(BUILD_DIR, f'{self.name}_{digest.hexdigest()[:16]}.so')
 
     def _start(self):

@@ -1,8 +1,9 @@
 """
-Screen-space primitive preparation for the fused render, and the plain
-softmax-blend soft raster (counterpart of the parts of
-``torchdrivesim_tpu/ops/rasterize.py`` and ``ops/pallas_rasterize.py`` that
-the textured primitive path and the differentiable path run).
+Screen-space primitive preparation for the fused render, the view cull of
+the hard mesh render, and the plain softmax-blend soft raster (counterpart
+of the parts of ``torchdrivesim_tpu/ops/rasterize.py`` and
+``ops/pallas_rasterize.py`` that the textured primitive path, the hard mesh
+path and the differentiable path run).
 
 Screen convention: the camera's forward axis points up in the image, its
 left axis points left; ``left_handed`` mirrors columns. Pixel (r, c) has its
@@ -90,6 +91,37 @@ def face_arrays(verts: torch.Tensor, faces: torch.Tensor, attrs: torch.Tensor
     color = torch.gather(attrs, 1, faces[..., 0].long()[..., None].expand(
         b, n_faces, attrs.shape[-1]))
     return tri[..., :2], tri[..., 0, 2], color
+
+
+def cull_faces_to_view(corners: torch.Tensor, z: torch.Tensor, color: torch.Tensor,
+                       res: int, max_faces: int):
+    """
+    Keep the ``max_faces`` faces whose screen centroid is nearest each
+    camera's image center; degenerate faces sort last. Equal distances keep
+    index order (a stable sort), as the reference's ``lax.top_k`` does.
+
+    Args:
+        corners: (B, F, 3, 2) screen-space corners; z: (B, F); color: (B, F, 3).
+    Returns:
+        (corners (B, K, 3, 2), z (B, K), color (B, K, 3)), K = ``max_faces``,
+        or the inputs when F <= ``max_faces``.
+    """
+    f = corners.shape[1]
+    if f <= max_faces:
+        return corners, z, color
+    # the mean as the reference's compiled code evaluates it, the sum in
+    # order times float32(1/3), on every device (a rounding can move a tie)
+    center = (corners[:, :, 0] + corners[:, :, 1] + corners[:, :, 2]) * (1.0 / 3.0)
+    d2 = ((center - res / 2.0) ** 2).sum(dim=-1)
+    e = torch.roll(corners, -1, dims=-2) - corners
+    area = torch.abs(e[..., 0, 0] * (corners[..., 2, 1] - corners[..., 0, 1])
+                     - e[..., 0, 1] * (corners[..., 2, 0] - corners[..., 0, 0]))
+    d2 = torch.where(area > DEGENERATE_AREA_EPS, d2, torch.inf)
+    idx = torch.sort(d2, dim=1, stable=True).indices[:, :max_faces]   # (B, K)
+    corners = torch.gather(corners, 1, idx[..., None, None].expand(-1, -1, 3, 2))
+    z = torch.gather(z, 1, idx)
+    color = torch.gather(color, 1, idx[..., None].expand(-1, -1, color.shape[-1]))
+    return corners, z, color
 
 
 def edge_functions(corners: torch.Tensor, px: torch.Tensor, py: torch.Tensor):

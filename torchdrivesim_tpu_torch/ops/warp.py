@@ -1,9 +1,9 @@
 """
 Background warp of the baked map texture (counterpart of
 ``torchdrivesim_tpu/ops/pallas_warp.py``): mip pyramid, level selection,
-per-camera affine coefficients, the plain PyTorch version of the
-nearest-texel lookup that the fused render kernel inlines, and the bilinear
-warp with its differentiable wrapper :func:`warp_background_diff`.
+per-camera affine coefficients, the nearest-texel warp (inlined by the fused
+render kernel, and standalone as :func:`warp_background_nearest`), and the
+bilinear warp with its differentiable wrapper :func:`warp_background_diff`.
 
 An orthographic camera view is an affine warp of the texture. The reference
 resamples a 128 x 256 texel window in two axis-aligned passes (row index
@@ -11,9 +11,11 @@ first, then the column index evaluated at the ROUNDED row); this module
 reproduces that index arithmetic in one pass, per pixel, so the texel
 chosen is the reference's exactly.
 
-:func:`warp_view_bilinear` launches the hand-written CUDA kernel
-(``csrc/warp_bilinear.cu``) for CUDA tensors and runs the plain PyTorch
-version :func:`warp_view_bilinear_reference` for CPU tensors.
+:func:`warp_view_nearest` and :func:`warp_view_bilinear` launch the
+hand-written CUDA kernels (``csrc/warp_nearest.cu``,
+``csrc/warp_bilinear.cu``) for CUDA tensors and run the plain PyTorch
+versions :func:`warp_view_nearest_reference` and
+:func:`warp_view_bilinear_reference` for CPU tensors.
 """
 import ctypes
 from dataclasses import dataclass
@@ -35,6 +37,8 @@ _INV255 = 1.0 / 255.0
 #: bilinear-warp kernel launches since import (or the last reset by the
 #: caller): a run can show that its main path went through the kernel
 LAUNCHES = 0
+#: nearest-warp kernel launches, counted the same way
+NEAREST_LAUNCHES = 0
 
 
 @dataclass
@@ -234,6 +238,94 @@ def warp_view_packed_reference(tex: torch.Tensor, fcoef: torch.Tensor,
     return torch.where(valid, texel, i(3))
 
 
+def _bind_nearest(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry point's signature (see ``csrc/warp_nearest.cu``):
+    fcoef, icoef and texture pointers; tex_h, tex_w, batch, res; the output
+    pointer and the stream."""
+    fn = lib.tds_warp_nearest
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+NEAREST_LIBRARY = KernelLibrary('warp_nearest.cu', _bind_nearest)
+
+
+def _check_operands(tex: torch.Tensor, fcoef: torch.Tensor,
+                    icoef: torch.Tensor, res: int) -> None:
+    """Raise on operands the warp kernels do not take."""
+    b = fcoef.shape[0]
+    if res > RES or res < 1:
+        raise ValueError(f'res must be in [1, {RES}], got {res}')
+    for name, t, dtype, shape in (('fcoef', fcoef, torch.float32, (b, 1, 14)),
+                                  ('icoef', icoef, torch.int32, (b, 1, 4))):
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f'{name}: expected {dtype} {shape}, got '
+                             f'{t.dtype} {tuple(t.shape)}')
+        if t.device != tex.device:
+            raise ValueError(f'{name} is on {t.device}, the texture on {tex.device}')
+    if tex.dtype != torch.int32 or tex.dim() != 2:
+        raise ValueError('texture must be a 2D int32 tensor')
+    if tex.shape[0] < WIN_ROWS or tex.shape[1] < WINDOW:
+        raise ValueError(f'texture must be at least {WIN_ROWS}x{WINDOW} '
+                         f'(padded mip level), got {tuple(tex.shape)}')
+    if tex.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'no warp for device {tex.device}')
+    if b > 65535:
+        raise ValueError(f'at most 65535 cameras per launch, got {b}')
+
+
+def warp_view_nearest_reference(tex: torch.Tensor, fcoef: torch.Tensor,
+                                icoef: torch.Tensor, res: int) -> torch.Tensor:
+    """
+    Plain PyTorch version of the nearest warp kernel: the texels of
+    :func:`warp_view_packed_reference` unpacked to (B, 3, res, res) float32
+    channels in [0, 1], channel k = ((t >> 8k) & 255) * float32(1/255).
+    """
+    packed = warp_view_packed_reference(tex, fcoef, icoef, res)
+    return torch.stack([_channel(packed, ch) for ch in range(3)], dim=1)
+
+
+def warp_view_nearest(tex: torch.Tensor, fcoef: torch.Tensor,
+                      icoef: torch.Tensor, res: int) -> torch.Tensor:
+    """
+    Each camera's nearest-texel (3, res, res) view of the packed mip level
+    ``tex`` by the coefficients of :func:`warp_coefficients`: the CUDA
+    kernel for CUDA tensors, :func:`warp_view_nearest_reference` for CPU
+    tensors.
+    """
+    global NEAREST_LAUNCHES
+    _check_operands(tex, fcoef, icoef, res)
+    if tex.device.type == 'cpu':
+        return warp_view_nearest_reference(tex, fcoef, icoef, res)
+    b = fcoef.shape[0]
+    fcoef, icoef, tex = fcoef.contiguous(), icoef.contiguous(), tex.contiguous()
+    out = torch.empty((b, 3, res, res), dtype=torch.float32, device=tex.device)
+    with torch.cuda.device(tex.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = NEAREST_LIBRARY.load().tds_warp_nearest(
+            fcoef.data_ptr(), icoef.data_ptr(), tex.data_ptr(), tex.shape[0],
+            tex.shape[1], b, res, out.data_ptr(), stream)
+    check_launch(err, 'nearest warp')
+    NEAREST_LAUNCHES += 1
+    return out
+
+
+def warp_background_nearest(mip: MipLevel, cam_xy: torch.Tensor,
+                            cam_sc: torch.Tensor, scale: float,
+                            background_color: torch.Tensor,
+                            left_handed: bool = False,
+                            res: int = RES) -> torch.Tensor:
+    """Per-camera (B, 3, res, res) nearest-texel background views of
+    ``mip``, channels in [0, 1] (the reference's
+    ``warp_background_pallas``); off-texture pixels take
+    ``background_color``."""
+    fcoef, icoef = warp_coefficients(mip, cam_xy, cam_sc, scale,
+                                     background_color, left_handed, res=res)
+    return warp_view_nearest(mip.data, fcoef, icoef, res)
+
+
 def _bind_bilinear(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry point's signature (see ``csrc/warp_bilinear.cu``):
     fcoef, icoef and texture pointers; tex_h, tex_w, batch, res; the output
@@ -326,27 +418,10 @@ def warp_view_bilinear(tex: torch.Tensor, fcoef: torch.Tensor,
     CUDA tensors, :func:`warp_view_bilinear_reference` for CPU tensors.
     """
     global LAUNCHES
-    b = fcoef.shape[0]
-    if res > RES or res < 1:
-        raise ValueError(f'res must be in [1, {RES}], got {res}')
-    for name, t, dtype, shape in (('fcoef', fcoef, torch.float32, (b, 1, 14)),
-                                  ('icoef', icoef, torch.int32, (b, 1, 4))):
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f'{name}: expected {dtype} {shape}, got '
-                             f'{t.dtype} {tuple(t.shape)}')
-        if t.device != tex.device:
-            raise ValueError(f'{name} is on {t.device}, the texture on {tex.device}')
-    if tex.dtype != torch.int32 or tex.dim() != 2:
-        raise ValueError('texture must be a 2D int32 tensor')
-    if tex.shape[0] < WIN_ROWS or tex.shape[1] < WINDOW:
-        raise ValueError(f'texture must be at least {WIN_ROWS}x{WINDOW} '
-                         f'(padded mip level), got {tuple(tex.shape)}')
+    _check_operands(tex, fcoef, icoef, res)
     if tex.device.type == 'cpu':
         return warp_view_bilinear_reference(tex, fcoef, icoef, res)
-    if tex.device.type != 'cuda':
-        raise ValueError(f'no bilinear warp for device {tex.device}')
-    if b > 65535:
-        raise ValueError(f'at most 65535 cameras per launch, got {b}')
+    b = fcoef.shape[0]
     fcoef, icoef, tex = fcoef.contiguous(), icoef.contiguous(), tex.contiguous()
     out = torch.empty((b, 3, res, res), dtype=torch.float32, device=tex.device)
     with torch.cuda.device(tex.device):

@@ -14,16 +14,19 @@ import torch
 @dataclass
 class RendererConfig:
     """Switches of the port's renderer (the reference's ``JaxRendererConfig``
-    fields that the textured primitive path and the differentiable mesh path
-    read)."""
+    fields that the textured primitive path and the hard and differentiable
+    mesh paths read)."""
     render_agent_direction: bool = True
     left_handed_coordinates: bool = False
     #: per-camera primitive cap PER TYPE (quads / triangles); 56 is the
     #: packed-rank maximum (2 x 56 < 127)
     band_budget: int = 56
-    #: mesh renders: soft (differentiable) coverage; the hard mesh path is
-    #: not ported
+    #: mesh renders: soft (differentiable) coverage instead of the hard
+    #: z-priority raster
     differentiable: bool = False
+    #: hard mesh renders over the texture: per-camera face budget, the faces
+    #: nearest the view's center (0 keeps every face)
+    cull_max_faces: int = 64
     #: edge softness in pixels of the soft raster
     soft_sigma: float = 0.5
     #: soft blend: 'softmax' (z-weighted, order-independent); the painter's

@@ -1,15 +1,17 @@
 """
 The port's bird's-eye-view renderer (counterpart of
-``torchdrivesim_tpu/rendering/jax_renderer.py``): typed primitives
-composited over the baked map texture by the fused render, on the textured
-path at resolutions that are multiples of 16 up to 128; and the
-differentiable mesh render, soft-rasterized over the bilinear mip warp of
-the texture or over the constant background color.
+``torchdrivesim_tpu/rendering/jax_renderer.py``), at resolutions that are
+multiples of 16 up to 128: typed primitives composited over the baked map
+texture by the fused render; the hard mesh render, the z-priority raster
+over the nearest mip warp of the texture (faces culled to the view) or over
+the constant background color (every face); and the differentiable mesh
+render, soft-rasterized over the bilinear mip warp of the texture or over
+the constant background color.
 
 Not ported yet: pad-and-crop for other resolutions and the sub-camera tiling
-above 128 (ROADMAP A10), the untextured primitive path, the hard mesh render
-(kernel B6), the painter's soft blend and the full-resolution bilinear
-background of the differentiable render.
+above 128 (ROADMAP A10), the untextured primitive path, the face-soup render
+``render_faces_chw``, the painter's soft blend and the full-resolution
+bilinear background of the differentiable render.
 """
 from __future__ import annotations
 
@@ -21,13 +23,15 @@ import torch
 from torchdrivesim_tpu_torch.mesh import RGBMesh
 from torchdrivesim_tpu_torch.ops.fused import render_coefs_fused
 from torchdrivesim_tpu_torch.ops.grids import Grid2D
+from torchdrivesim_tpu_torch.ops.hard import hard_operands, raster
 from torchdrivesim_tpu_torch.ops.rasterize import (
-    camera_rows_cols, n_bands_for, prep_sorted_prim_coefs,
+    camera_rows_cols, cull_faces_to_view, face_arrays, n_bands_for,
+    prep_sorted_prim_coefs,
 )
 from torchdrivesim_tpu_torch.ops.soft import rasterize_softmax_chw
 from torchdrivesim_tpu_torch.ops.warp import (
     MIP_FACTOR, MipLevel, RES, build_mip_pyramid, select_mip, warp_background_diff,
-    warp_coefficients,
+    warp_coefficients, warp_view_nearest,
 )
 from torchdrivesim_tpu_torch.rendering.base import (
     Cameras, RendererConfig, get_default_color_map, get_default_rendering_levels,
@@ -141,21 +145,27 @@ class Renderer:
                             cameras: Cameras) -> torch.Tensor:
         """
         Render a per-camera RGB mesh (world-space (x, y, priority z)
-        vertices, as from ``BirdviewRGBMeshGenerator.generate``) with the
-        differentiable soft raster: over the bilinear mip warp of the
-        background texture when one is set (pose gradients by
-        ``warp_background_diff``), else over the background color.
+        vertices, as from ``BirdviewRGBMeshGenerator.generate``).
+
+        Hard mode (the default): the z-priority raster (``ops/hard.py``) over
+        the nearest mip warp of the background texture, the faces culled to
+        the ``cfg.cull_max_faces`` nearest the view's center, or, with no
+        texture, over the background color with every face.
+
+        Differentiable mode (``cfg.differentiable``): the soft raster over
+        the bilinear mip warp of the background texture when one is set
+        (pose gradients by ``warp_background_diff``), else over the
+        background color.
 
         Returns:
-            (B, 3, H, W) float image in [0, 255], differentiable w.r.t. the
-            mesh vertices and colors and the camera pose.
+            (B, 3, H, W) float image in [0, 255]; in differentiable mode
+            differentiable w.r.t. the mesh vertices and colors and the
+            camera pose.
         """
         assert res.width == res.height, "only square resolutions are supported"
         size = res.width
         if not self.cfg.differentiable:
-            raise NotImplementedError(
-                "the hard mesh render (kernel B6, ROADMAP A14) is not ported; "
-                "set cfg.differentiable for the soft render")
+            return self._render_hard(mesh, size, cameras)
         if self.cfg.soft_blend != 'softmax':
             raise NotImplementedError(
                 f"soft_blend={self.cfg.soft_blend!r}: only the softmax blend is "
@@ -188,3 +198,71 @@ class Renderer:
         image = rasterize_softmax_chw(sv, mesh.faces, mesh.attrs, size,
                                       background, sigma=self.cfg.soft_sigma)
         return image * 255.0
+
+    def _render_hard(self, mesh: RGBMesh, size: int, cameras: Cameras
+                     ) -> torch.Tensor:
+        """The hard branch of :meth:`render_rgb_mesh_chw`."""
+        background, ops, _ = self.hard_frame_operands(mesh, size, cameras)
+        return raster(ops, background, size) * 255.0
+
+    def hard_frame_operands(self, mesh: RGBMesh, size: int, cameras: Cameras):
+        """
+        The hard render's operands for one frame: the background and the
+        z-priority raster's operands, as :meth:`render_rgb_mesh_chw` passes
+        them to the kernels.
+
+        Returns:
+            ``(background, ops, warp)``: the (B, 3, size, size) background
+            in [0, 1] (the nearest mip warp of the texture, or the
+            background color without one); the operands of
+            ``ops.hard.hard_operands`` for the faces culled to the
+            ``cfg.cull_max_faces`` nearest the view's center (every face
+            without a texture); ``(mip, fcoef, icoef)``, the nearest warp's
+            operands, or None without a texture.
+        """
+        if size % 16 or size > RES:
+            raise NotImplementedError(
+                f"res {size}: the hard render serves multiples of 16 up to {RES}; "
+                "pad-and-crop and tiling are not ported (ROADMAP A10)")
+        lh = self.cfg.left_handed_coordinates
+        b = cameras.xy.shape[0]
+        warp = None
+        if self._mip_pyramid is not None:
+            mip = self._warp_mip(cameras.scale, size)
+            if mip is None:
+                raise NotImplementedError(
+                    f"no mip level covers a view of fov {2.0 / cameras.scale} at "
+                    f"res {size}; tiling is not ported (ROADMAP A10)")
+            fcoef, icoef = warp_coefficients(mip, cameras.xy, cameras.sc,
+                                             cameras.scale, self._background_color,
+                                             left_handed=lh, res=size)
+            warp = (mip, fcoef, icoef)
+            background = warp_view_nearest(mip.data, fcoef, icoef, size)
+            cull = self.cfg.cull_max_faces
+        else:
+            background = self._background_color[None, :, None, None].expand(
+                b, 3, size, size)
+            cull = 0
+        rc = camera_rows_cols(mesh.verts[..., :2], cameras.xy, cameras.sc,
+                              cameras.scale, size, left_handed=lh)
+        sv = torch.cat([rc, mesh.verts[..., 2:3]], dim=-1)
+        corners, z, color = face_arrays(sv, mesh.faces, mesh.attrs)
+        if cull:
+            corners, z, color = cull_faces_to_view(corners, z, color, size, cull)
+        return background, hard_operands(corners, z, color), warp
+
+    def render_rgb_mesh(self, mesh: RGBMesh, res: Resolution,
+                        cameras: Cameras) -> torch.Tensor:
+        """(B, H, W, 3) float image in [0, 255] (the channels-last layout)."""
+        return self.render_rgb_mesh_chw(mesh, res, cameras).permute(0, 2, 3, 1)
+
+    def render_frame(self, rgb_mesh: RGBMesh, camera_xy: torch.Tensor,
+                     camera_sc: torch.Tensor, res: Optional[Resolution] = None,
+                     fov: Optional[float] = None) -> torch.Tensor:
+        """(B*Nc, 3, H, W) image of cameras given as (..., 2) centers and
+        (..., 2) (sin, cos) headings, at ``res`` and ``fov`` or the
+        renderer's defaults."""
+        scale = (2.0 / fov) if fov is not None else self.scale
+        return self.render_rgb_mesh_chw(
+            rgb_mesh, res if res is not None else self.res,
+            Cameras(camera_xy.reshape(-1, 2), camera_sc.reshape(-1, 2), scale))

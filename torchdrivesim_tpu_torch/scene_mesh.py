@@ -147,6 +147,23 @@ class BirdviewRGBMeshGenerator:
         else:
             self.light_quads = None
 
+    def extend(self, n: int) -> "BirdviewRGBMeshGenerator":
+        """A copy with every batch element's templates repeated ``n`` times
+        contiguously. A background mesh of batch 1 is shared by every
+        environment as it is (:meth:`generate` broadcasts it)."""
+        other = self.__class__.__new__(self.__class__)
+        other.__dict__.update(self.__dict__)
+        rep = lambda x: None if x is None else torch.repeat_interleave(x, n, dim=0)
+        other.actor_verts = rep(self.actor_verts)
+        other.actor_attrs = rep(self.actor_attrs)
+        other.actor_z = rep(self.actor_z)
+        other.light_quads = rep(self.light_quads)
+        mesh = self.background_mesh
+        if mesh is not None and mesh.batch_size > 1:
+            other.background_mesh = mesh.expand(n)
+            other._constants = {}
+        return other
+
     def _light_colors(self, traffic_light_state: torch.Tensor) -> torch.Tensor:
         """(B, Nl) light states -> (B, Nl, 3) colors."""
         return self.light_color_table[traffic_light_state.long()]
@@ -259,8 +276,13 @@ class BirdviewRGBMeshGenerator:
         device = next(t.device for t in (agent_state, traffic_light_state, waypoints)
                       if t is not None)
         if include_background and self.background_rgb is not None:
-            meshes.append(self._on('background', device,
-                                   self.background_rgb.to).expand(num_cameras))
+            background = self._on('background', device, self.background_rgb.to)
+            batch = next(t.shape[0] for t in (agent_state, traffic_light_state, waypoints)
+                         if t is not None)
+            if background.verts.shape[0] == 1 and batch > 1:
+                # one map mesh shared by every environment
+                background = background.broadcast_to(batch)
+            meshes.append(background.expand(num_cameras))
 
         if agent_state is not None and self.actor_verts is not None:
             b, nc, n_all = agent_state.shape[:3]

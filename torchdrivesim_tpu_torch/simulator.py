@@ -1,7 +1,8 @@
 """
 Simulator state and the pure env step (counterpart of
 ``torchdrivesim_tpu/simulator.py``; the state, ``functional_step``, the
-static NPC controller and the facade subset the benchmark uses).
+static NPC controller, the batch ``extend``, ``render`` and the facade
+subset the benchmark uses).
 
 :class:`SimulatorState` is a dataclass of tensors on one device, time
 included, so a step launches device work without waiting on the host.
@@ -10,6 +11,7 @@ PyTorch runs eagerly: a rollout is a Python loop over
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, Optional
@@ -19,10 +21,11 @@ import torch
 from torchdrivesim_tpu_torch import kinematic as K
 from torchdrivesim_tpu_torch.goals import WaypointGoalState, step_waypoints
 from torchdrivesim_tpu_torch.map_grids import MapGrids
-from torchdrivesim_tpu_torch.rendering.base import RendererConfig
+from torchdrivesim_tpu_torch.rendering.base import Cameras, RendererConfig
 from torchdrivesim_tpu_torch.rendering.renderer import Renderer
 from torchdrivesim_tpu_torch.scene_mesh import BirdviewRGBMeshGenerator
 from torchdrivesim_tpu_torch.traffic_controls import BaseTrafficControl
+from torchdrivesim_tpu_torch.utils import Resolution
 
 
 @dataclass
@@ -67,6 +70,12 @@ class NPCController:
                 time: torch.Tensor):
         """(state, mask, time) -> (state, mask); static NPCs hold."""
         return npc_state, npc_present_mask
+
+    def extend(self, n: int) -> "NPCController":
+        """A copy with every batch element repeated ``n`` times."""
+        rep = lambda x: torch.repeat_interleave(x, n, dim=0)
+        return NPCController(rep(self.npc_size), rep(self.initial_npc_state),
+                             rep(self.initial_npc_present_mask))
 
     @classmethod
     def empty(cls, batch_size: int, *, device) -> "NPCController":
@@ -156,6 +165,44 @@ class Simulator:
     def get_all_agent_size(self) -> torch.Tensor:
         return torch.cat([self.agent_size, self.npc_controller.npc_size], dim=-2)
 
+    def extend(self, n: int, in_place: bool = True) -> "Simulator":
+        """
+        Multiply the batch dimension: every environment repeated ``n`` times
+        contiguously (sizes, kinematic state and parameters, controls, mesh
+        generator, NPC controller, waypoints and the state). A road mesh of
+        batch 1 is shared by every environment as it is.
+
+        Returns:
+            this simulator, or with ``in_place=False`` an extended copy (the
+            renderer, the configuration and the map grids, which hold no
+            batch, are shared).
+        """
+        target = self if in_place else copy.copy(self)
+        rep = lambda x: None if x is None else torch.repeat_interleave(x, n, dim=0)
+        if self.road_mesh is not None and self.road_mesh.batch_size > 1:
+            target.road_mesh = self.road_mesh.expand(n)
+        target.agent_size = rep(self.agent_size)
+        target._batch_size = self._batch_size * n
+        target.kinematic_model = copy.copy(self.kinematic_model)
+        target.kinematic_model.extend(n)
+        if self.traffic_controls is not None:
+            target.traffic_controls = {k: v.extend(n)
+                                       for k, v in self.traffic_controls.items()}
+        target.waypoints = rep(self.waypoints)
+        target.npc_controller = self.npc_controller.extend(n)
+        target.birdview_mesh_generator = self.birdview_mesh_generator.extend(n)
+        st = self.state
+        wp = st.waypoint_state
+        target.state = SimulatorState(
+            agent_state=rep(st.agent_state), present_mask=rep(st.present_mask),
+            npc_state=rep(st.npc_state), npc_present_mask=rep(st.npc_present_mask),
+            traffic_control_state={k: rep(v) for k, v in
+                                   st.traffic_control_state.items()},
+            waypoint_state=None if wp is None else WaypointGoalState(
+                state=rep(wp.state), mask=rep(wp.mask)),
+            time=st.time, npc_time=st.npc_time)
+        return target
+
     def functional_step(self, state: SimulatorState, agent_action: torch.Tensor
                         ) -> SimulatorState:
         """
@@ -180,6 +227,68 @@ class Simulator:
             npc_state=npc_state, npc_present_mask=npc_mask,
             traffic_control_state=tc_state, waypoint_state=wp_state,
             time=time, npc_time=npc_time)
+
+    def render(self, camera_xy: torch.Tensor, camera_psi: torch.Tensor,
+               res: Optional[Resolution] = None,
+               rendering_mask: Optional[torch.Tensor] = None,
+               fov: Optional[float] = None,
+               waypoints: Optional[torch.Tensor] = None,
+               waypoints_rendering_mask: Optional[torch.Tensor] = None,
+               custom_agent_colors: Optional[torch.Tensor] = None,
+               noisy_perception: bool = False) -> torch.Tensor:
+        """
+        Bird's-eye views of the current state from arbitrary cameras: with a
+        background texture, the typed primitives by the fused render; else
+        the frame's mesh (the map mesh, the actors and the lights) by the
+        renderer's mesh render (hard by default).
+
+        Args:
+            camera_xy: (B, Nc, 2) or (B, 2) centers; camera_psi: (B, Nc, 1)
+                or (B, 1) headings.
+            rendering_mask: (B, Nc, All) which agents each camera shows.
+            waypoints: (B, Nc, M, 2) discs to draw (mesh render only);
+                waypoints_rendering_mask: (B, Nc, M).
+        Returns:
+            (B, Nc, 3, H, W) float images in [0, 255].
+        """
+        if custom_agent_colors is not None or noisy_perception:
+            raise NotImplementedError(
+                "custom agent colors and noisy perception are not ported")
+        camera_sc = torch.cat([torch.sin(camera_psi), torch.cos(camera_psi)], dim=-1)
+        if camera_xy.dim() == 2:
+            camera_xy, camera_sc = camera_xy[:, None], camera_sc[:, None]
+        b, n_cameras = camera_xy.shape[0], camera_xy.shape[1]
+        state = self.state
+        all_state = torch.cat([state.agent_state, state.npc_state], dim=-2)
+        present = torch.cat([state.present_mask, state.npc_present_mask], dim=-1)
+        n_all = present.shape[-1]
+        present = present[:, None].expand(b, n_cameras, n_all)
+        rendering_mask = present if rendering_mask is None \
+            else present & rendering_mask
+        light_state = state.traffic_control_state.get('traffic_light')
+        res_used = res or self.renderer.res
+        generator = self.birdview_mesh_generator
+        if self.renderer.background_texture is not None:
+            if waypoints is not None:
+                raise NotImplementedError(
+                    "waypoint discs are not ported to the primitive render")
+            flat = lambda x: torch.repeat_interleave(x, n_cameras, dim=0)
+            prims = generator.generate_prims(
+                flat(all_state), present_mask=rendering_mask.reshape(b * n_cameras, n_all),
+                traffic_light_state=None if light_state is None else flat(light_state))
+            scale = (2.0 / fov) if fov is not None else self.renderer.scale
+            image = self.renderer.render_prims_chw(
+                *prims, res_used, Cameras(camera_xy.reshape(-1, 2),
+                                          camera_sc.reshape(-1, 2), scale))
+        else:
+            mesh = generator.generate(
+                n_cameras, agent_state=all_state[:, None].expand(b, n_cameras, n_all, 4),
+                present_mask=rendering_mask, traffic_light_state=light_state,
+                waypoints=waypoints, waypoints_rendering_mask=waypoints_rendering_mask,
+                include_background=True)
+            image = self.renderer.render_frame(mesh, camera_xy, camera_sc,
+                                               res=res, fov=fov)
+        return image.reshape(b, n_cameras, 3, res_used.height, res_used.width)
 
     def set_light_schedule(self, schedule) -> None:
         """
