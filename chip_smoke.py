@@ -1,6 +1,6 @@
 """
 Smoke run of the PyTorch port on one CUDA card. Builds every kernel from the
-checkout (one ``nvcc`` per source, all at once), then drives three paths:
+checkout (one ``nvcc`` per source, all at once), then drives four paths:
 
 * the headline env step (carla_Town02, 256 environments, 20 vehicles,
   128 x 128 render plus all metrics): the fused render kernel against its
@@ -22,7 +22,14 @@ checkout (one ``nvcc`` per source, all at once), then drives three paths:
   frame those iterations ended on, three steps of the untextured
   environment (the whole map mesh, the chunked kernel, whose launches the
   JSON line reports) and the chunked kernel on its last frame, times,
-  device profile and peak memory.
+  device profile and peak memory;
+* the primitive raster (the headline scenario without its texture, and
+  its wide view): the banded and unbanded kernels against their plain
+  versions on random scenes and on the headline's frame, a small run of
+  both renders against the CPU path, 100 untextured steps at B = 256,
+  res 128 counting launches, ``Simulator.render`` of a 400 m view at
+  res 64 (the full-resolution background), the unbanded kernel at full
+  width, times and bounds.
 
     python3 chip_smoke.py
 
@@ -46,6 +53,7 @@ COMPARE_BATCH, COMPARE_STEPS = 4, 3
 IL_BATCH, IL_AGENTS, IL_RES, IL_HORIZON, IL_FEATURES = 16, 8, 64, 40, (16, 32)
 RL_BATCH, RL_RES, RL_ROLLOUT, RL_EPOCHS, RL_ITERATIONS = 1024, 64, 16, 2, 2
 RL_UNTEXTURED_BATCH, RL_UNTEXTURED_STEPS = 16, 3
+UNTEXTURED_STEPS, WIDE_RES, WIDE_FOV = 100, 64, 400.0
 
 #: the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
 #: at 3.35 TB/s; float32 at 67 TFLOP/s outside the tensor cores, which
@@ -69,9 +77,16 @@ SOFT_BWD_OPS, SOFT_BWD_SFU = 39 + 25 + 50, 12
 #: per pixel of the bilinear warp: 3 positions (4 each), 2 pass-1 taps of
 #: 4 + 6 and 3 lerps (3 each), the final 3 lerps and the validity test (4)
 WARP_OPS = 12 + 2 * (10 + 9) + 9 + 4
+#: per (pixel, primitive) of the primitive winner (csrc/prim_winner.cuh): a
+#: quad's two affine values (4 each), their two bounds tests and the
+#: minimum; a triangle's three edge values, three tests and the minimum
+PRIM_QUAD_OPS, PRIM_TRI_OPS = 11, 15
 #: per pixel of the fused render: the warp index arithmetic and the texel
-#: (~20), and per live 8-primitive chunk 8 quads x 11 or 8 triangles x 15
-FUSED_PIXEL_OPS, FUSED_QUAD_OPS, FUSED_TRI_OPS = 20, 8 * 11, 8 * 15
+#: (~20), and per live 8-primitive chunk 8 quads or 8 triangles
+FUSED_PIXEL_OPS, FUSED_QUAD_OPS, FUSED_TRI_OPS = 20, 8 * PRIM_QUAD_OPS, 8 * PRIM_TRI_OPS
+#: per pixel of the prim raster (csrc/prim_raster.cu) beside its prims:
+#: the covered test, three channel unpacks (shift, mask) and products
+PRIM_PIXEL_OPS = 1 + 3 * 3
 #: per pixel of the nearest warp (csrc/warp_index.cuh, warp_nearest.cu): the
 #: row and column indices (affine 4, round 2, clamp 2 each), the texture
 #: coordinates (2 x 4), the validity test (4) and the unpack (3)
@@ -155,34 +170,34 @@ def texel_bytes(mip, b: int, fov: float) -> float:
 def step_operands(scenario, state):
     """The fused render's operands for the frame of ``state``, built the
     way the renderer builds them."""
-    from torchdrivesim_tpu_torch.ops.rasterize import (
-        camera_rows_cols, n_bands_for, prep_sorted_prim_coefs)
+    from torchdrivesim_tpu_torch.ops.rasterize import n_bands_for, prep_sorted_prim_coefs
     from torchdrivesim_tpu_torch.ops.warp import warp_coefficients
-    from torchdrivesim_tpu_torch.rendering.base import Cameras
-    sim = scenario.sim
-    renderer = sim.renderer
-    all_state = torch.cat([state.agent_state, state.npc_state], dim=-2)
-    present = torch.cat([state.present_mask, state.npc_present_mask], dim=-1)
-    ego = state.agent_state[:, 0]
-    cams = Cameras(ego[:, :2], torch.stack([torch.sin(ego[:, 2]),
-                                            torch.cos(ego[:, 2])], -1),
-                   2.0 / scenario.fov)
-    quads, qz, qc, tris, tz, tc = sim.birdview_mesh_generator.generate_prims(
-        all_state, present_mask=present,
-        traffic_light_state=state.traffic_control_state['traffic_light'])
-    b, q, t = qz.shape[0], qz.shape[1], tz.shape[1]
-    lh = renderer.cfg.left_handed_coordinates
-    sq = camera_rows_cols(quads.reshape(b, q * 4, 2), cams.xy, cams.sc,
-                          cams.scale, scenario.res, lh).reshape(b, q, 4, 2)
-    st = camera_rows_cols(tris.reshape(b, t * 3, 2), cams.xy, cams.sc,
-                          cams.scale, scenario.res, lh).reshape(b, t, 3, 2)
+    renderer = scenario.sim.renderer
+    (quads, qz, qc, tris, tz, tc), cams = prim_frame(scenario, state, scenario.fov)
+    sq, st = renderer.screen_prims(quads, tris, scenario.res, cams)
     qcoef, qpk, qmask, tcoef, tpk, tmask = prep_sorted_prim_coefs(
         sq, qz, qc, st, tz, tc, scenario.res, 56, n_bands_for(scenario.res))
     mip = renderer._warp_mip(cams.scale, scenario.res)
     fcoef, icoef = warp_coefficients(mip, cams.xy, cams.sc, cams.scale,
                                      renderer._background_color,
-                                     left_handed=lh, res=scenario.res)
+                                     left_handed=renderer.cfg.left_handed_coordinates,
+                                     res=scenario.res)
     return mip, (fcoef, icoef, qcoef, qpk, tcoef, tpk, qmask, tmask)
+
+
+def prim_frame(scenario, state, fov):
+    """The frame of ``state`` from the egos' cameras, as the step builds
+    it: (world-space prims of ``generate_prims``, cameras at ``fov``)."""
+    from torchdrivesim_tpu_torch.rendering.base import Cameras
+    all_state = torch.cat([state.agent_state, state.npc_state], dim=-2)
+    present = torch.cat([state.present_mask, state.npc_present_mask], dim=-1)
+    ego = state.agent_state[:, 0]
+    cams = Cameras(ego[:, :2], torch.stack([torch.sin(ego[:, 2]),
+                                            torch.cos(ego[:, 2])], -1), 2.0 / fov)
+    prims = scenario.sim.birdview_mesh_generator.generate_prims(
+        all_state, present_mask=present,
+        traffic_light_state=state.traffic_control_state['traffic_light'])
+    return prims, cams
 
 
 def random_operands(seed: int, b: int, res: int, device):
@@ -286,7 +301,8 @@ def fused_bound(mip, ops, res, fov):
 
 
 def headline(device, card):
-    """The headline phases; returns the fused kernel's JSON entry."""
+    """The headline phases; returns the fused kernel's JSON entry, the
+    scenario and the state its main path ended on."""
     from torchdrivesim_tpu_torch.benchmark import (
         build_benchmark_scenario, run_benchmark)
     from torchdrivesim_tpu_torch.ops import fused
@@ -349,12 +365,13 @@ def headline(device, card):
     print(f'env step B={BATCH} res={RES} render+metrics: '
           f'{bench["env_steps_per_sec_median"]:.1f} env-steps/s median of '
           f'chunks {[round(r, 1) for r in bench["chunk_rates"]]} [{card}]')
-    return {'name': 'fused_render', 'route': 'cuda',
-            'source': 'torchdrivesim_tpu_torch/csrc/fused_render.cu',
-            'replaces': 'torchdrivesim_tpu/ops/pallas_fused.py:69',
-            'launches': launches, 'max_abs_err': max_err, 'ms': kernel_ms,
-            'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
-            'library_ms': None}
+    entry = {'name': 'fused_render', 'route': 'cuda',
+             'source': 'torchdrivesim_tpu_torch/csrc/fused_render.cu',
+             'replaces': 'torchdrivesim_tpu/ops/pallas_fused.py:69',
+             'launches': launches, 'max_abs_err': max_err, 'ms': kernel_ms,
+             'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
+             'library_ms': None}
+    return entry, scenario, state
 
 
 # --- the imitation-learning gradient step ------------------------------------
@@ -718,22 +735,27 @@ def compare_hard(hard, ops, bg, res, label):
                                f'{label} {kind} F={ops[1].shape[1]} B={bg.shape[0]}')
 
 
-def hard_tile_pairs(venv, mesh, cams, valid, res) -> int:
-    """(face, tile) pairs of a raster that tests a face only in the
-    BOUND_TILE x BOUND_TILE pixel tiles its bounding box overlaps: the
-    faces the view needs. ``valid`` (B, F) excludes the degenerate faces,
-    which never win."""
-    from torchdrivesim_tpu_torch.ops.rasterize import camera_rows_cols, face_arrays
-    rc = camera_rows_cols(mesh.verts[..., :2], cams.xy, cams.sc, cams.scale, res,
-                          left_handed=venv.sim.renderer.cfg.left_handed_coordinates)
-    corners, _, _ = face_arrays(torch.cat([rc, mesh.verts[..., 2:3]], dim=-1),
-                                mesh.faces, mesh.attrs)
+def tile_pairs(corners, valid, res) -> int:
+    """(primitive, tile) pairs of a raster that tests a primitive only in
+    the BOUND_TILE x BOUND_TILE pixel tiles its bounding box overlaps: the
+    primitives the view needs. ``corners`` (B, N, K, 2) in screen space;
+    ``valid`` (B, N) excludes the degenerate ones, which never win."""
     corners = torch.nan_to_num(corners, nan=-1e9)
     # the first and last pixel row (col) whose center the box covers
     lo = torch.ceil(corners.amin(dim=2) - 0.5).clamp(0, res).long()
     hi = torch.floor(corners.amax(dim=2) - 0.5).clamp(-1, res - 1).long()
     tiles = torch.where(lo <= hi, hi // BOUND_TILE - lo // BOUND_TILE + 1, 0).prod(dim=-1)
     return int((tiles * valid).sum())
+
+
+def hard_tile_pairs(venv, mesh, cams, valid, res) -> int:
+    """:func:`tile_pairs` of the hard raster's faces."""
+    from torchdrivesim_tpu_torch.ops.rasterize import camera_rows_cols, face_arrays
+    rc = camera_rows_cols(mesh.verts[..., :2], cams.xy, cams.sc, cams.scale, res,
+                          left_handed=venv.sim.renderer.cfg.left_handed_coordinates)
+    corners, _, _ = face_arrays(torch.cat([rc, mesh.verts[..., 2:3]], dim=-1),
+                                mesh.faces, mesh.attrs)
+    return tile_pairs(corners, valid, res)
 
 
 def rl_compare_with_cpu(device):
@@ -960,11 +982,254 @@ def rl_path(device, card):
     return entries
 
 
+
+# --- the primitive raster: untextured and wide-view renders ------------------
+
+def untextured_renderer(scenario, device):
+    """A renderer like the scenario's, without its texture."""
+    from torchdrivesim_tpu_torch.rendering.renderer import Renderer
+    r = scenario.sim.renderer
+    return Renderer(r.cfg, device, color_map=r.color_map,
+                    rendering_levels=r.rendering_levels, res=r.res,
+                    fov=2.0 / r.scale)
+
+
+def prim_compare_with_cpu(device):
+    """At B = 4 on the card and on the CPU: three steps of the untextured
+    primitive render at res 128 and the wide view of ``Simulator.render``
+    at res 64, fov 400 m; images >= 99.9% identical pixels."""
+    from torchdrivesim_tpu_torch.benchmark import build_benchmark_scenario
+    from torchdrivesim_tpu_torch.utils import Resolution
+    runs = {}
+    for dev in (device, torch.device('cpu')):
+        scn = build_benchmark_scenario(batch_size=COMPARE_BATCH, agent_count=AGENTS,
+                                       res=RES, fov=FOV, device=dev)
+        plain = untextured_renderer(scn, dev)
+        step = scn.make_step_fn(render=False, metrics=False)
+        state = scn.sim.state
+        action = torch.zeros((COMPARE_BATCH, AGENTS, 2), device=dev)
+        images = []
+        for _ in range(COMPARE_STEPS):
+            state, _ = step(state, action)
+            prims, cams = prim_frame(scn, state, FOV)
+            images.append(plain.render_prims_chw(*prims, Resolution(RES, RES), cams).cpu())
+        ego = scn.sim.state.agent_state[:, 0]
+        images.append(scn.sim.render(ego[:, :2], ego[:, 2:3], res=Resolution(WIDE_RES, WIDE_RES),
+                                     fov=WIDE_FOV)[:, 0].cpu())
+        runs[dev.type] = images
+    for i, (g, c) in enumerate(zip(runs['cuda'], runs['cpu'])):
+        label = f'untextured step {i}' if i < COMPARE_STEPS else 'wide view'
+        same = float((g == c).all(dim=1).float().mean())
+        print(f'prim compare {label}: {same * 100:.4f}% of pixels identical on the '
+              'card and the CPU')
+        if same < 0.999:
+            raise AssertionError(f'prim compare {label}: images differ')
+
+
+def prim_bound(ops, scene, res, background_bytes):
+    """Bound of the prim raster on the screen-space ``scene``: the image
+    written, the background and the operands ``ops`` read; per pixel the
+    composite, and each quad's or triangle's test only in the tiles its
+    bounding box overlaps (:func:`tile_pairs`), with or without masks."""
+    quads, tris = scene[0], scene[3]
+    b = quads.shape[0]
+
+    def valid(corners):                 # the prep's degenerate test
+        e1 = corners[:, :, 1] - corners[:, :, 0]
+        e2 = corners[:, :, -1] - corners[:, :, 0]
+        return (e1[..., 0] * e2[..., 1] - e1[..., 1] * e2[..., 0]).abs() > 1e-9
+
+    tile = BOUND_TILE ** 2
+    q_pairs = tile_pairs(quads, valid(quads), res)
+    t_pairs = tile_pairs(tris, valid(tris), res)
+    n_ops = b * res * res * PRIM_PIXEL_OPS \
+        + tile * (PRIM_QUAD_OPS * q_pairs + PRIM_TRI_OPS * t_pairs)
+    n_bytes = b * 3 * res * res * 4 + background_bytes + nbytes(*ops)
+    n_tiles = b * (res // BOUND_TILE) ** 2
+    print(f'  bound: {q_pairs / n_tiles:.2f} quads and {t_pairs / n_tiles:.2f} triangles '
+          f'per {BOUND_TILE} x {BOUND_TILE} tile overlap it by bounding box; '
+          f'{n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.1f} M float32 ALU operations')
+    return bound(n_bytes, n_ops)
+
+
+def compare_prims(prims_mod, scene, bg, res, label):
+    """B7 on the scene row-major sorted with its masks and B8 on the scene
+    as given, against the plain versions, and B8 on the sorted scene
+    against B7; returns the largest differences (B7, B8)."""
+    from torchdrivesim_tpu_torch.ops.rasterize import (
+        n_bands_for, sort_prims_rowmajor_with_masks)
+    n_bands = n_bands_for(res)
+    sq, sqz, sqc, qm = sort_prims_rowmajor_with_masks(*scene[:3], res, 56, n_bands)
+    st, stz, stc, tm = sort_prims_rowmajor_with_masks(*scene[3:], res, 56, n_bands)
+    banded = (sq, sqz, sqc, st, stz, stc, res, bg, qm, tm)
+    b7 = prims_mod.rasterize_hard_prims_banded(*banded)
+    e7 = compare_exact(b7, prims_mod.rasterize_hard_prims_banded_reference(*banded),
+                       f'{label} prim_raster_banded B={bg.shape[0]} res {res}')
+    e8 = compare_exact(prims_mod.rasterize_hard_prims(*scene, res, bg),
+                       prims_mod.rasterize_hard_prims_reference(*scene, res, bg),
+                       f'{label} prim_raster B={bg.shape[0]} res {res}')
+    compare_exact(prims_mod.rasterize_hard_prims(*banded[:8]), b7,
+                  f'{label} prim_raster on the sorted prims against prim_raster_banded')
+    return e7, e8
+
+
+def prim_path(device, card, scenario, state):
+    """The primitive raster's phases on the headline scenario and the state
+    its main path ended on; returns the JSON entries of B7 and B8."""
+    from torchdrivesim_tpu_torch.ops import fused
+    from torchdrivesim_tpu_torch.ops import prims as P
+    from torchdrivesim_tpu_torch.ops.rasterize import n_bands_for
+    from torchdrivesim_tpu_torch.utils import Resolution
+    errs = {'b7': [], 'b8': []}
+
+    def record(e):
+        errs['b7'].append(e[0])
+        errs['b8'].append(e[1])
+
+    # 1. the kernels against their plain versions: random scenes (ties on
+    # one z level, dense bands, an expanded color background), then the
+    # headline's frame
+    for res, b, q, t, kind in ((16, 8, 10, 6, 'random'), (64, 64, 30, 12, 'one z level'),
+                               (128, 16, 44, 20, 'random'), (128, 8, 56, 8, 'dense band'),
+                               (256, 4, 44, 20, 'color background')):
+        *scene, bg = P.random_prims(res + q, b, q, t, res, device,
+                                    z_levels=1 if kind == 'one z level' else 4,
+                                    rows=(40.0, 52.0) if kind == 'dense band' else None)
+        if kind == 'color background':
+            bg = torch.rand(b, 3, device=device)[:, :, None, None].expand(b, 3, res, res)
+        record(compare_prims(P, scene, bg, res, f'random ({kind})'))
+    plain = untextured_renderer(scenario, device)
+    headline_world, headline_cams = prim_frame(scenario, state, FOV)
+    quads, qz, qc, tris, tz, tc = headline_world
+    sq, st = plain.screen_prims(quads, tris, RES, headline_cams)
+    print(f'headline prims: {qz.shape[1]} quads, {tz.shape[1]} triangles per camera, '
+          f'B={qz.shape[0]}')
+    headline_scene = (sq, qz, qc, st, tz, tc)
+    scene_h, bg, hqm, htm = plain.banded_frame_operands(*headline_world, RES,
+                                                        headline_cams)
+    record(compare_prims(P, headline_scene, bg, RES, 'headline frame'))
+
+    # 2. a small run on the card against the CPU
+    prim_compare_with_cpu(device)
+
+    # 3. the untextured primitive render, 100 steps at full width
+    step = scenario.make_step_fn(render=False, metrics=False)
+    action = torch.zeros((BATCH, AGENTS, 2), device=device)
+    st_u = scenario.sim.state
+    stage_s = 0.0
+    P.B7_LAUNCHES = P.B8_LAUNCHES = fused.LAUNCHES = 0
+    for _ in range(UNTEXTURED_STEPS):
+        st_u, _ = step(st_u, action)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        world, cams = prim_frame(scenario, st_u, FOV)
+        image = plain.render_prims_chw(*world, Resolution(RES, RES), cams)
+        torch.cuda.synchronize()
+        stage_s += time.perf_counter() - t0
+    launches_u = {'b7': P.B7_LAUNCHES, 'b8': P.B8_LAUNCHES, 'fused': fused.LAUNCHES}
+    print(f'untextured prim render: {UNTEXTURED_STEPS} steps at B={BATCH} res {RES}, '
+          f'generate_prims + render_prims_chw {stage_s * 1e3 / UNTEXTURED_STEPS:.3f} ms '
+          f'per step (host clock between syncs); launches {launches_u} [{card}]')
+    if launches_u != {'b7': UNTEXTURED_STEPS, 'b8': 0, 'fused': 0}:
+        raise AssertionError(f'untextured launches {launches_u}')
+    if image.shape != (BATCH, 3, RES, RES) or not torch.isfinite(image).all():
+        raise AssertionError('untextured images not finite or of the wrong shape')
+    vehicle = torch.tensor(plain.color_map['vehicle'], dtype=torch.float32, device=device)
+    on_car = ((image - vehicle[None, :, None, None]).abs() < 0.5).all(dim=1)
+    with_car = float((on_car.sum(dim=(1, 2)) >= 10).float().mean())
+    print(f'{with_car * 100:.1f}% of untextured views show vehicle pixels')
+    if with_car < 0.9:
+        raise AssertionError('untextured images do not show the vehicles')
+
+    # 4. the wide view through Simulator.render: full-resolution background
+    sim = scenario.sim
+    ego = sim.state.agent_state[:, 0]
+    P.B7_LAUNCHES = P.B8_LAUNCHES = fused.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wide = sim.render(ego[:, :2], ego[:, 2:3], res=Resolution(WIDE_RES, WIDE_RES),
+                      fov=WIDE_FOV)
+    torch.cuda.synchronize()
+    wide_ms = (time.perf_counter() - t0) * 1e3
+    launches_w = {'b7': P.B7_LAUNCHES, 'b8': P.B8_LAUNCHES, 'fused': fused.LAUNCHES}
+    color = torch.tensor(sim.renderer.get_color('background'), dtype=torch.float32,
+                         device=device)
+    bg_share = float((wide[:, 0] == color[None, :, None, None]).all(dim=1).float().mean())
+    print(f'wide view Simulator.render B={BATCH} res {WIDE_RES} fov {WIDE_FOV:g} m: '
+          f'{wide_ms:.3f} ms (host clock, first call); launches {launches_w}; '
+          f'{bg_share * 100:.1f}% of pixels in the background color [{card}]')
+    if launches_w != {'b7': 1, 'b8': 0, 'fused': 0}:
+        raise AssertionError(f'wide-view launches {launches_w}')
+    if not torch.isfinite(wide).all() or not 0.0 < bg_share < 1.0:
+        raise AssertionError('wide view: non-finite, or all or none in the background color')
+
+    # 5. B8 at full width on the headline's unsorted prims
+    P.B7_LAUNCHES = P.B8_LAUNCHES = 0
+    b8_image = P.rasterize_hard_prims(*headline_scene, RES, bg)
+    torch.cuda.synchronize()
+    launches_b8 = P.B8_LAUNCHES
+    print(f'prim_raster on the headline frame: {launches_b8} launch')
+    if launches_b8 != 1 or P.B7_LAUNCHES != 0 or not torch.isfinite(b8_image).all():
+        raise AssertionError('B8 run')
+
+    # 6. times and bounds, on this card
+    # B7 at the last untextured step's frame, B8 at the headline frame
+    scene_u, bg_u, qm, tm = plain.banded_frame_operands(*world, RES, cams)
+    ops7 = P.prep_prims(*scene_u) + (qm, tm)
+    ops8 = P.prep_prims(*headline_scene)
+    wide_world, wide_cams = prim_frame(scenario, sim.state, WIDE_FOV)
+    wide_scene, wide_bg, wqm, wtm = sim.renderer.banded_frame_operands(
+        *wide_world, WIDE_RES, wide_cams)
+    ops_w = P.prep_prims(*wide_scene) + (wqm, wtm)
+    live = float(((qm != 0).sum() + (tm != 0).sum()) / qm.shape[0] / qm.shape[1])
+    print(f'untextured frame: {n_bands_for(RES)} bands, {live:.2f} live chunks per band '
+          f'of {qm.shape[3] + tm.shape[3]}')
+    entries = []
+    for name, fn, plain_fn, ops, scene, bg_bytes, source, replaces, err, n in (
+            ('prim_raster_banded',
+             lambda: P.raster_prims(*ops7[:4], bg_u, RES, *ops7[4:]),
+             lambda: P.raster_prims_reference(*ops7[:4], bg_u, RES, *ops7[4:]),
+             ops7, scene_u, BATCH * 3 * 4,
+             'torchdrivesim_tpu_torch/csrc/prim_raster.cu',
+             'torchdrivesim_tpu/ops/pallas_rasterize.py:336', max(errs['b7']),
+             launches_u['b7']),
+            ('prim_raster',
+             lambda: P.raster_prims(*ops8, bg, RES),
+             lambda: P.raster_prims_reference(*ops8, bg, RES),
+             ops8, headline_scene, BATCH * 3 * 4,
+             'torchdrivesim_tpu_torch/csrc/prim_raster.cu',
+             'torchdrivesim_tpu/ops/pallas_rasterize.py:303', max(errs['b8']),
+             launches_b8)):
+        ms, call_ms = graph_ms(fn, 50), cuda_ms(fn, 50)
+        plain_ms = cuda_ms(plain_fn, 5)
+        bound_ms, bound_by = prim_bound(ops, scene, RES, bg_bytes)
+        print(f'{name} kernel B={BATCH} res={RES}: {ms:.4f} ms (device, graph replay); '
+              f'eager call {call_ms:.4f} ms; plain version {plain_ms:.3f} ms; bound '
+              f'{bound_ms * 1e3:.3f} us by {bound_by} [{card}]')
+        entries.append({'name': name, 'route': 'cuda', 'source': source,
+                        'replaces': replaces, 'launches': n, 'max_abs_err': err,
+                        'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+                        'bound_by': bound_by, 'library_ms': None})
+    # B7 on the headline frame, whose fused render (B1) headline() timed,
+    # and on the wide view
+    ops_h = P.prep_prims(*scene_h) + (hqm, htm)
+    for label, ops, scene, res, bgx, bg_bytes in (
+            ('the headline frame', ops_h, scene_h, RES, bg, BATCH * 3 * 4),
+            ('the wide view', ops_w, wide_scene, WIDE_RES, wide_bg, nbytes(wide_bg))):
+        ms = graph_ms(lambda: P.raster_prims(*ops[:4], bgx, res, *ops[4:]), 50)
+        bound_ms, bound_by = prim_bound(ops, scene, res, bg_bytes)
+        live = float(((ops[4] != 0).sum() + (ops[5] != 0).sum()) / BATCH / ops[4].shape[1])
+        print(f'prim_raster_banded on {label} B={BATCH} res {res}: {ms:.4f} ms (device, '
+              f'graph replay), {live:.2f} live chunks per band; bound '
+              f'{bound_ms * 1e3:.3f} us by {bound_by} [{card}]')
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 1
-    from torchdrivesim_tpu_torch.ops import fused, hard, soft, warp
+    from torchdrivesim_tpu_torch.ops import fused, hard, prims, soft, warp
     from torchdrivesim_tpu_torch.ops.build import build_all
 
     device = torch.device('cuda', 0)
@@ -973,14 +1238,16 @@ def main() -> int:
     print(f'device: {name}')
     print(card)                  # name, power.limit as nvidia-smi gives them
     libraries = [fused.LIBRARY, warp.LIBRARY, soft.LIBRARY, warp.NEAREST_LIBRARY,
-                 hard.LIBRARY]
+                 hard.LIBRARY, prims.LIBRARY]
     secs = build_all(libraries)
     print(f'kernel build ({", ".join(lib.name for lib in libraries)} in parallel): '
           f'{secs:.2f} s (nvcc sm_90a)')
 
-    kernels = [headline(device, card)]
+    entry, scenario, state = headline(device, card)
+    kernels = [entry]
     kernels += il_path(device, card)
     kernels += rl_path(device, card)
+    kernels += prim_path(device, card, scenario, state)
 
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

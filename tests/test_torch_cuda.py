@@ -1,24 +1,28 @@
 """
 The port's CUDA kernels against their plain PyTorch versions on a CUDA card
 (skips without one): the fused render, the nearest and bilinear background
-warps, the soft raster's forward and backward, and the hard raster's packed
-and chunked kernels. Imports neither JAX nor the JAX package,
-so it also runs where JAX is absent:
+warps, the soft raster's forward and backward, the hard raster's packed
+and chunked kernels, and the primitive raster, banded and unbanded.
+Imports neither JAX nor the JAX package, so it also runs where JAX is
+absent:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-The fused render, the warps and the hard raster must match their plain
-versions exactly (the same operations, each rounded on its own). The soft raster is judged
-through its plain version in float64: the kernel's error may exceed the
-plain version's by at most 1e-5 (forward) or 1e-4 relative plus 1e-6 of
-the largest value (backward), since its per-face sums run in another order.
+The fused render, the warps and the hard and primitive rasters must match
+their plain versions exactly (the same operations, each rounded on its
+own). The soft raster is judged through its plain version in float64: the
+kernel's error may exceed the plain version's by at most 1e-5 (forward)
+or 1e-4 relative plus 1e-6 of the largest value (backward), since its
+per-face sums run in another order.
 """
 import numpy as np
 import pytest
 import torch
 
-from torchdrivesim_tpu_torch.ops import fused, hard, soft, warp
-from torchdrivesim_tpu_torch.ops.rasterize import n_bands_for, prep_sorted_prim_coefs
+from torchdrivesim_tpu_torch.ops import fused, hard, prims, soft, warp
+from torchdrivesim_tpu_torch.ops.rasterize import (
+    n_bands_for, prep_sorted_prim_coefs, sort_prims_rowmajor_with_masks,
+)
 from torchdrivesim_tpu_torch.ops.warp import (
     build_mip_pyramid, select_mip, warp_coefficients,
 )
@@ -169,3 +173,36 @@ def test_hard_raster_kernels_match_plain_versions(cuda, n_faces, b, res):
         before[0] + packed, before[1] + (not packed))
     assert int((got != want).sum()) == 0
     assert int((got != bg).any(dim=1).sum()) > 0          # some faces show
+
+
+@pytest.mark.depends_on_cuda
+@pytest.mark.parametrize('res,b,q,t,case', [
+    (16, 8, 10, 6, 'random'), (64, 64, 30, 12, 'one_z_level'),
+    (128, 16, 44, 20, 'random'), (128, 8, 56, 8, 'dense_band'),
+    (256, 4, 44, 20, 'color_background'), (96, 8, 0, 12, 'random')])
+def test_prim_raster_kernels_match_plain_versions(cuda, res, b, q, t, case):
+    """B7 on row-major-sorted prims with their masks and B8 on the unsorted
+    prims, against the plain versions; B8 on the sorted prims equals B7."""
+    *scene, bg = prims.random_prims(res + q, b, q, t, res, cuda,
+                                    z_levels=1 if case == 'one_z_level' else 4,
+                                    rows=(40.0, 52.0) if case == 'dense_band' else None)
+    if case == 'color_background':
+        bg = torch.rand(b, 3, device=cuda)[:, :, None, None].expand(b, 3, res, res)
+    n_bands = n_bands_for(res)
+    sq, sqz, sqc, qm = sort_prims_rowmajor_with_masks(*scene[:3], res, 56, n_bands)
+    st, stz, stc, tm = sort_prims_rowmajor_with_masks(*scene[3:], res, 56, n_bands)
+    banded = (sq, sqz, sqc, st, stz, stc, res, bg, qm, tm)
+    before = (prims.B7_LAUNCHES, prims.B8_LAUNCHES)
+    got = prims.rasterize_hard_prims_banded(*banded)
+    want = prims.rasterize_hard_prims_banded_reference(*banded)
+    got8 = prims.rasterize_hard_prims(*scene, res, bg)
+    want8 = prims.rasterize_hard_prims_reference(*scene, res, bg)
+    same8 = prims.rasterize_hard_prims(*banded[:8])
+    torch.cuda.synchronize()
+    assert (prims.B7_LAUNCHES, prims.B8_LAUNCHES) == (before[0] + 1, before[1] + 2)
+    assert int((got != want).sum()) == 0
+    assert int((got8 != want8).sum()) == 0
+    assert int((same8 != got).sum()) == 0
+    assert int((got != bg).any(dim=1).sum()) > 0          # some prims show
+    if n_bands > 1:
+        assert int(qm.sum() + tm.sum()) < qm.numel() + tm.numel()   # chunks skipped

@@ -39,6 +39,7 @@ from torchdrivesim_tpu_torch.map_grids import (
 )
 from torchdrivesim_tpu_torch.ops.grids import Grid2D
 from torchdrivesim_tpu_torch.rendering.base import Cameras
+from torchdrivesim_tpu_torch.rendering.renderer import pack_rgb8_chw
 from torchdrivesim_tpu_torch.simulator import Simulator, TorchDriveConfig
 from torchdrivesim_tpu_torch.traffic_controls import red_light_violations
 from torchdrivesim_tpu_torch.traffic_lights import BakedLightSchedule
@@ -78,8 +79,9 @@ class BenchmarkScenario:
                      packed_image: bool = False):
         """
         One env step as a function (state, action) -> (state, outputs dict):
-        ``image`` (B, 3, res, res) float in [0, 255] or, with
-        ``packed_image``, (B, res, res) int32 0x00BBGGRR; ``collision``,
+        ``image`` (B, 3, res, res) float in [0, 255] (the primitive render
+        over the texture, or the frame's mesh, map included, without one)
+        or, with ``packed_image``, (B, res, res) int32 0x00BBGGRR; ``collision``,
         ``offroad``, ``wrong_way``, ``light_violation`` per agent.
         """
         sim = self.sim
@@ -102,10 +104,20 @@ class BenchmarkScenario:
                 cameras = Cameras(ego[:, :2], torch.stack(
                     [torch.sin(ego[:, 2]), torch.cos(ego[:, 2])], dim=-1),
                     2.0 / self.fov)
-                prims = gen.generate_prims(all_state, present_mask=present,
-                                           traffic_light_state=light_state)
-                outputs['image'] = renderer.render_prims_chw(
-                    *prims, Resolution(res, res), cameras, packed=packed_image)
+                if renderer.background_texture is not None:
+                    prims = gen.generate_prims(all_state, present_mask=present,
+                                               traffic_light_state=light_state)
+                    outputs['image'] = renderer.render_prims_chw(
+                        *prims, Resolution(res, res), cameras, packed=packed_image)
+                else:
+                    # without a texture the frame's mesh, map included
+                    mesh = gen.generate(1, agent_state=all_state[:, None],
+                                        present_mask=present[:, None],
+                                        traffic_light_state=light_state,
+                                        include_background=True)
+                    image = renderer.render_rgb_mesh_chw(mesh, Resolution(res, res),
+                                                         cameras)
+                    outputs['image'] = pack_rgb8_chw(image) if packed_image else image
             if metrics:
                 boxes = torch.cat([all_state[..., :2], sizes, all_state[..., 2:3]],
                                   dim=-1)

@@ -12,7 +12,8 @@
 //   * winner: the minimum packed value zrank<<24 | R<<16 | G<<8 | B over the
 //     quads with max(|e0|, |e1|) <= 0.5 and the triangles whose three edge
 //     values are all >= 0, visiting only 8-primitive chunks whose band x
-//     chunk occupancy bit is set (starts at the sentinel 0x7FFFFFFF);
+//     chunk occupancy bit is set (starts at the sentinel 0x7FFFFFFF); the
+//     loop is prim_winner.cuh's, shared with prim_raster.cu;
 //   * background: the texel the reference's two-pass warp picks -- row index
 //     v rounded first, column index h evaluated at the INTEGER v -- computed
 //     in one pass per pixel (warp_index.cuh, shared with warp_nearest.cu); on this card a gather from the L2-resident mip
@@ -37,23 +38,22 @@
 // instead, a third of the bytes.
 //
 // Layout: one block per (band, camera); the camera's coefficients, packs
-// and the band's mask bits are staged in shared memory; each thread walks
+// and the band's mask bits (prim_winner.cuh) and warp coefficients are
+// staged in shared memory; each thread walks
 // the band's pixels with a block-wide stride, so neighbouring threads store
 // neighbouring columns.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "prim_winner.cuh"
 #include "warp_index.cuh"
 
 namespace {
 
-using tds::affine;
+using tds::kCoveredBelow;
 using tds::kInv255;
 
-constexpr int kChunk = 8;
-constexpr int kSentinel = 0x7FFFFFFF;
-constexpr int kCoveredBelow = 127 << 24;
 constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
@@ -70,33 +70,14 @@ fused_render_kernel(const float* __restrict__ fcoef,   // (B, 1, 14)
                     int packed, float* __restrict__ out_f,
                     int* __restrict__ out_i) {
   const int band = blockIdx.x;
-  const int n_bands = gridDim.x;
   const int cam = blockIdx.y;
-  const int cq = qp / kChunk;
-  const int ct = tp / kChunk;
 
   extern __shared__ float smem[];
-  float* s_qcoef = smem;                         // 6 * qp
-  float* s_tcoef = s_qcoef + 6 * qp;             // 9 * tp
-  float* s_fcoef = s_tcoef + 9 * tp;             // 14
-  int* s_qpk = reinterpret_cast<int*>(s_fcoef + 14);   // qp
-  int* s_tpk = s_qpk + qp;                       // tp
-  int* s_qm = s_tpk + tp;                        // cq
-  int* s_tm = s_qm + cq;                         // ct
-  int* s_icoef = s_tm + ct;                      // 4
-
-  for (int i = threadIdx.x; i < 6 * qp; i += blockDim.x)
-    s_qcoef[i] = qcoef[(size_t)cam * 6 * qp + i];
-  for (int i = threadIdx.x; i < 9 * tp; i += blockDim.x)
-    s_tcoef[i] = tcoef[(size_t)cam * 9 * tp + i];
-  for (int i = threadIdx.x; i < qp; i += blockDim.x)
-    s_qpk[i] = qpk[(size_t)cam * qp + i];
-  for (int i = threadIdx.x; i < tp; i += blockDim.x)
-    s_tpk[i] = tpk[(size_t)cam * tp + i];
-  for (int i = threadIdx.x; i < cq; i += blockDim.x)
-    s_qm[i] = qmask[((size_t)cam * n_bands + band) * cq + i];
-  for (int i = threadIdx.x; i < ct; i += blockDim.x)
-    s_tm[i] = tmask[((size_t)cam * n_bands + band) * ct + i];
+  const tds::PrimTable prims(smem, cam, band, gridDim.x, qp, tp, qcoef, qpk,
+                             tcoef, tpk, qmask, tmask);
+  float* s_fcoef = reinterpret_cast<float*>(
+      reinterpret_cast<char*>(smem) + tds::prim_table_bytes(qp, tp));   // 14
+  int* s_icoef = reinterpret_cast<int*>(s_fcoef + 14);                // 4
   if (threadIdx.x < 14) s_fcoef[threadIdx.x] = fcoef[cam * 14 + threadIdx.x];
   if (threadIdx.x < 4) s_icoef[threadIdx.x] = icoef[cam * 4 + threadIdx.x];
   __syncthreads();
@@ -107,34 +88,7 @@ fused_render_kernel(const float* __restrict__ fcoef,   // (B, 1, 14)
   for (int idx = threadIdx.x; idx < rpb * res; idx += blockDim.x) {
     const int r = band * rpb + idx / res;
     const int c = idx % res;
-    const float px = (float)r + 0.5f;
-    const float py = (float)c + 0.5f;
-
-    int best = kSentinel;
-    for (int ci = 0; ci < cq; ++ci) {
-      if (s_qm[ci] == 0) continue;
-      for (int p = ci * kChunk; p < (ci + 1) * kChunk; ++p) {
-        const float* k0 = s_qcoef + p * 3;
-        const float* k1 = s_qcoef + (qp + p) * 3;
-        const float e0 = affine(k0[0], px, k0[1], py, k0[2]);
-        const float e1 = affine(k1[0], px, k1[1], py, k1[2]);
-        // == max(|e0|, |e1|) <= 0.5, false on NaN like the reference
-        if (fabsf(e0) <= 0.5f && fabsf(e1) <= 0.5f) best = min(best, s_qpk[p]);
-      }
-    }
-    for (int ci = 0; ci < ct; ++ci) {
-      if (s_tm[ci] == 0) continue;
-      for (int p = ci * kChunk; p < (ci + 1) * kChunk; ++p) {
-        const float* k0 = s_tcoef + p * 3;
-        const float* k1 = s_tcoef + (tp + p) * 3;
-        const float* k2 = s_tcoef + (2 * tp + p) * 3;
-        const float e0 = affine(k0[0], px, k0[1], py, k0[2]);
-        const float e1 = affine(k1[0], px, k1[1], py, k1[2]);
-        const float e2 = affine(k2[0], px, k2[1], py, k2[2]);
-        // == min(e0, e1, e2) >= 0, false on NaN like the reference
-        if (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f) best = min(best, s_tpk[p]);
-      }
-    }
+    const int best = prims.winner((float)r + 0.5f, (float)c + 0.5f);
 
     // background: nearest texel by the two-pass index arithmetic
     const int bg = warp.texel(tex, tex_h, tex_w, r, c);
@@ -168,8 +122,8 @@ extern "C" int tds_fused_render(const float* fcoef, const int* icoef,
                                 int batch, int res, int rpb, int qp, int tp,
                                 int packed, void* out, void* stream) {
   const int n_bands = res / rpb;
-  const size_t smem = sizeof(float) * (6 * qp + 9 * tp + 14)
-                      + sizeof(int) * (qp + tp + qp / kChunk + tp / kChunk + 4);
+  const size_t smem = tds::prim_table_bytes(qp, tp) + sizeof(float) * 14
+                      + sizeof(int) * 4;
   dim3 grid(n_bands, batch);
   fused_render_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       fcoef, icoef, qmask, tmask, qcoef, qpk, tcoef, tpk, tex, tex_h, tex_w,

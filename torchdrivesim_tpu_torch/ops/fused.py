@@ -15,7 +15,8 @@ import ctypes
 import torch
 
 from torchdrivesim_tpu_torch.ops.build import KernelLibrary, check_launch
-from torchdrivesim_tpu_torch.ops.rasterize import CHUNK, SENTINEL, band_rows
+from torchdrivesim_tpu_torch.ops.prims import prim_winner_reference
+from torchdrivesim_tpu_torch.ops.rasterize import CHUNK, band_rows
 from torchdrivesim_tpu_torch.ops import warp
 from torchdrivesim_tpu_torch.ops.warp import RES, WINDOW, WIN_ROWS, MipLevel
 
@@ -136,37 +137,13 @@ def render_coefs_fused_reference(mip: MipLevel, fcoef: torch.Tensor,
                                  tmask: torch.Tensor, res: int,
                                  packed: bool = False) -> torch.Tensor:
     """
-    Plain PyTorch version of the kernel, vectorised over (B, res, res) and
-    looping over primitives in chunks of 8 (a full (B, P, res, res)
-    broadcast would be a gigabyte at B = 256). Same contract and same bits
-    as :func:`render_coefs_fused`; the occupancy masks are honoured exactly
-    as the kernel honours them.
+    Plain PyTorch version of the kernel: the prim winner of
+    ``ops.prims.prim_winner_reference`` (chunks of 8 primitives; a full
+    (B, P, res, res) broadcast would be a gigabyte at B = 256) over the
+    nearest warp. Same contract and same bits as :func:`render_coefs_fused`;
+    the occupancy masks are honoured exactly as the kernel honours them.
     """
-    dev = fcoef.device
-    b = fcoef.shape[0]
-    rpb = band_rows(res)
-    px = (torch.arange(res, dtype=torch.float32, device=dev) + 0.5)[:, None]
-    py = (torch.arange(res, dtype=torch.float32, device=dev) + 0.5)[None, :]
-    row_band = torch.arange(res, device=dev) // rpb
-
-    def edge(coef, e, s):
-        k = lambda j: coef[:, e, s:s + CHUNK, j][:, :, None, None]
-        return warp.affine(k(0), px, k(1), py, k(2))     # (B, CHUNK, res, res)
-
-    best = torch.full((b, res, res), SENTINEL, dtype=torch.int32, device=dev)
-    for coef, pk, mask, n_edges in ((qcoef, qpk, qmask, 2),
-                                    (tcoef, tpk, tmask, 3)):
-        for s in range(0, pk.shape[1], CHUNK):
-            e = [edge(coef, k, s) for k in range(n_edges)]
-            if n_edges == 2:
-                inside = torch.maximum(e[0].abs(), e[1].abs()) <= 0.5
-            else:
-                inside = torch.minimum(torch.minimum(e[0], e[1]), e[2]) >= 0
-            vals = torch.where(inside, pk[:, s:s + CHUNK, 0][:, :, None, None],
-                               SENTINEL).amin(dim=1)
-            live = mask[:, :, 0, s // CHUNK][:, row_band] != 0     # (B, res)
-            best = torch.where(live[:, :, None], torch.minimum(best, vals), best)
-
+    best = prim_winner_reference(qcoef, qpk, tcoef, tpk, qmask, tmask, res)
     bg = warp.warp_view_packed_reference(mip.data, fcoef, icoef, res)
     covered = best < (127 << 24)
     if packed:

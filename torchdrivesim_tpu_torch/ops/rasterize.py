@@ -1,9 +1,11 @@
 """
-Screen-space primitive preparation for the fused render, the view cull of
-the hard mesh render, and the plain softmax-blend soft raster (counterpart
-of the parts of ``torchdrivesim_tpu/ops/rasterize.py`` and
-``ops/pallas_rasterize.py`` that the textured primitive path, the hard mesh
-path and the differentiable path run).
+Screen-space primitive preparation for the fused render, the row-major
+sort and band masks of the banded primitive raster, the view cull of the
+hard mesh render, the full-resolution nearest background of views no mip
+level covers, and the plain softmax-blend soft raster (counterpart of the
+parts of ``torchdrivesim_tpu/ops/rasterize.py`` and
+``ops/pallas_rasterize.py`` that the primitive paths, the hard mesh path
+and the differentiable path run).
 
 Screen convention: the camera's forward axis points up in the image, its
 left axis points left; ``left_handed`` mirrors columns. Pixel (r, c) has its
@@ -11,6 +13,7 @@ center at (r + 0.5, c + 0.5).
 """
 from typing import Tuple
 
+import numpy as np
 import torch
 
 DEGENERATE_AREA_EPS = 1e-9
@@ -20,6 +23,9 @@ PIXELS_PER_TILE = 4096
 CHUNK = 8
 #: packed-pack sentinel: loses every min, never covers a pixel
 SENTINEL = 0x7FFFFFFF
+#: float32(1 / 255), the reference's per-channel scale (its compiled
+#: ``x / 255.0`` is this product)
+_INV255 = 1.0 / 255.0
 
 
 def band_rows(res: int) -> int:
@@ -279,6 +285,12 @@ def _stable_order(key: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return order, rank
 
 
+def _gather_rows(vals: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """``out[b, r] = vals[b, order[b, r]]`` for (B, N, ...) ``vals``."""
+    idx = order.reshape(order.shape + (1,) * (vals.dim() - 2))
+    return torch.gather(vals, 1, idx.expand(order.shape + vals.shape[2:]))
+
+
 def prep_sorted_prim_coefs(quads: torch.Tensor, qz: torch.Tensor,
                            qcolors: torch.Tensor, tris: torch.Tensor,
                            tz: torch.Tensor, tcolors: torch.Tensor,
@@ -328,11 +340,6 @@ def prep_sorted_prim_coefs(quads: torch.Tensor, qz: torch.Tensor,
     c8 = torch.clamp(torch.round(colors * 255.0), 0, 255).to(torch.int32)
     packed = (zrank << 24) | (c8[..., 0] << 16) | (c8[..., 1] << 8) | c8[..., 2]
 
-    def gather_rows(vals, order):
-        # out[b, r] = vals[b, order[b, r]]
-        idx = order.reshape(order.shape + (1,) * (vals.dim() - 2))
-        return torch.gather(vals, 1, idx.expand(order.shape + vals.shape[2:]))
-
     if q:
         c0 = quads[:, :, 0]
         e1 = quads[:, :, 1] - c0
@@ -351,8 +358,8 @@ def prep_sorted_prim_coefs(quads: torch.Tensor, qz: torch.Tensor,
                                affine_coords(-perp(e1))], dim=2)  # (B, Q, 2, 3)
         qpk_u = torch.where(q_valid & q_alive, packed[:, :q], SENTINEL)
         qp = max(8, -(-q // 8) * 8)
-        qcoef = _pad_prims(gather_rows(qcoef_u, q_order), q, qp).transpose(1, 2)
-        qpk = _pad_prims(gather_rows(qpk_u, q_order), q, qp, SENTINEL)[..., None]
+        qcoef = _pad_prims(_gather_rows(qcoef_u, q_order), q, qp).transpose(1, 2)
+        qpk = _pad_prims(_gather_rows(qpk_u, q_order), q, qp, SENTINEL)[..., None]
         qmask = prim_band_chunk_masks(q_rmin, q_rmax, q_alive, q_rank, res,
                                       n_bands, max(1, -(-qp // chunk)), chunk)
     else:
@@ -368,9 +375,9 @@ def prep_sorted_prim_coefs(quads: torch.Tensor, qz: torch.Tensor,
         t_valid = torch.abs(area) > 1e-9
         tpk_u = torch.where(t_valid & t_alive, packed[:, q:], SENTINEL)
         tp = max(8, -(-t // 8) * 8)
-        tcoef = _pad_prims(gather_rows(tcoef_u.transpose(1, 2), t_order), t, tp
+        tcoef = _pad_prims(_gather_rows(tcoef_u.transpose(1, 2), t_order), t, tp
                            ).transpose(1, 2)
-        tpk = _pad_prims(gather_rows(tpk_u, t_order), t, tp, SENTINEL)[..., None]
+        tpk = _pad_prims(_gather_rows(tpk_u, t_order), t, tp, SENTINEL)[..., None]
         tmask = prim_band_chunk_masks(t_rmin, t_rmax, t_alive, t_rank, res,
                                       n_bands, max(1, -(-tp // chunk)), chunk)
     else:
@@ -382,3 +389,156 @@ def prep_sorted_prim_coefs(quads: torch.Tensor, qz: torch.Tensor,
 
     return (qcoef.contiguous(), qpk.contiguous(), qmask, tcoef.contiguous(),
             tpk.contiguous(), tmask)
+
+
+def supports_res(res: int) -> bool:
+    """Whether the banded kernels tile ``res`` directly (any multiple of 16
+    up to 4096 has a band tiling)."""
+    try:
+        band_rows(res)
+        return True
+    except ValueError:
+        return False
+
+
+def _mean_corners(corners: torch.Tensor) -> torch.Tensor:
+    """(B, N, K, 2) -> (B, N, 2): the corners summed in order times
+    float32(1 / K), as the reference's compiled mean evaluates it."""
+    k = corners.shape[2]
+    total = corners[:, :, 0]
+    for i in range(1, k):
+        total = total + corners[:, :, i]
+    return total * (1.0 / k)
+
+
+def _sort_rowmajor(corners: torch.Tensor, z: torch.Tensor, color: torch.Tensor,
+                   res: int, cap: int):
+    """:func:`sort_prims_rowmajor` with the sorted prims' screen stats:
+    (corners, z, color, (rmin, rmax, alive)), N >= 1."""
+    n = z.shape[1]
+    rmin, rmax, alive = _prim_screen_stats(corners, res)
+    arrays = (corners, z, color, rmin, rmax, alive)
+    if n > cap:
+        d2 = ((_mean_corners(corners) - res / 2.0) ** 2).sum(dim=-1)
+        order = torch.sort(torch.where(alive, d2, 3e38), dim=1, stable=True).indices
+        arrays = [_gather_rows(a, order[:, :cap]) for a in arrays]
+        rmin, alive = arrays[3], arrays[5]
+    order = torch.sort(torch.where(alive, rmin, 3e38), dim=1, stable=True).indices
+    corners, z, color, rmin, rmax, alive = [_gather_rows(a, order) for a in arrays]
+    # dropped and invisible prims go last and are zeroed: degenerate, they
+    # never cover a pixel
+    live = torch.arange(corners.shape[1], device=z.device)[None] \
+        < alive.sum(dim=1, keepdim=True)
+    corners = torch.where(live[..., None, None], corners, 0.0)
+    return corners, z, color, (rmin, rmax, alive)
+
+
+def sort_prims_rowmajor(corners: torch.Tensor, z: torch.Tensor,
+                        color: torch.Tensor, res: int, cap: int):
+    """
+    Order primitives for the banded raster: visible prims first, ascending
+    by top screen row (a stable sort, so ties keep index order), capped at
+    ``cap``; over the cap the prims nearest the view center are kept.
+    Same outputs as the reference's ``sort_prims_rowmajor``.
+
+    Args:
+        corners: (B, N, K, 2) screen-space corners; z: (B, N); color (B, N, 3).
+    Returns:
+        (corners (B, min(N, cap), K, 2), z, color), invisible prims zeroed.
+    """
+    if z.shape[1] == 0:
+        return corners, z, color
+    return _sort_rowmajor(corners, z, color, res, cap)[:3]
+
+
+def sort_prims_rowmajor_with_masks(corners: torch.Tensor, z: torch.Tensor,
+                                   color: torch.Tensor, res: int, cap: int,
+                                   n_bands: int, chunk: int = CHUNK):
+    """
+    :func:`sort_prims_rowmajor` and the band x chunk occupancy of the sorted
+    prims (:func:`prim_band_chunk_masks`), as the reference's
+    ``sort_prims_rowmajor_with_masks``.
+
+    Returns:
+        (corners (B, min(N, cap), K, 2), z, color,
+         mask (B, n_bands, 1, max(1, ceil(min(N, cap) / chunk))) int32).
+    """
+    b, n = z.shape
+    n_chunks = max(1, -(-min(n, cap) // chunk))
+    if n == 0:
+        return corners, z, color, torch.zeros((b, n_bands, 1, n_chunks),
+                                              dtype=torch.int32, device=z.device)
+    corners, z, color, (rmin, rmax, alive) = _sort_rowmajor(corners, z, color,
+                                                            res, cap)
+    rank = torch.arange(corners.shape[1], device=z.device).expand(b, -1)
+    mask = prim_band_chunk_masks(rmin, rmax, alive, rank, res, n_bands, n_chunks,
+                                 chunk)
+    return corners, z, color, mask
+
+
+def pack_texture_rgb8(data: np.ndarray) -> np.ndarray:
+    """(H, W, 3) float RGB texture in [0, 1] -> (H, W) int32 texels
+    0x00BBGGRR (host numpy), one gather per sampled pixel."""
+    q = np.round(np.clip(np.asarray(data, np.float32), 0.0, 1.0) * np.float32(255.0)
+                 ).astype(np.uint32)
+    return (q[..., 0] | (q[..., 1] << 8) | (q[..., 2] << 16)).astype(np.int32)
+
+
+def _pixel_world_coords(cam_xy: torch.Tensor, cam_sc: torch.Tensor, scale: float,
+                       res: int, left_handed: bool) -> torch.Tensor:
+    """World coordinates of every output pixel center, (B, res, res, 2): the
+    inverse of :func:`camera_rows_cols`."""
+    coords = torch.arange(res, dtype=torch.float32, device=cam_xy.device) + 0.5
+    half = res / 2.0
+    px_per_m = scale * half
+    forward = ((half - coords[:, None]) / px_per_m).expand(res, res)
+    left = (((coords[None, :] - half) if left_handed else (half - coords[None, :]))
+            / px_per_m).expand(res, res)
+    s = cam_sc[:, 0, None, None]
+    c = cam_sc[:, 1, None, None]
+    dx = c * forward - s * left
+    dy = s * forward + c * left
+    return torch.stack([dx + cam_xy[:, 0, None, None],
+                        dy + cam_xy[:, 1, None, None]], dim=-1)
+
+
+def sample_background_packed(texture: torch.Tensor, origin, cell_size: float,
+                             cam_xy: torch.Tensor, cam_sc: torch.Tensor,
+                             scale: float, res: int,
+                             background_color: torch.Tensor,
+                             left_handed: bool = False,
+                             downsample: int = 1) -> torch.Tensor:
+    """
+    Nearest-texel view of the full-resolution packed texture, one gather
+    per pixel (the reference's ``sample_background_packed`` with
+    ``chw=True``): pixel centers map to world coordinates, to texel
+    coordinates rounded half to even; a texel outside the texture takes the
+    background color.
+
+    Args:
+        texture: (H, W) int32 0x00BBGGRR from :func:`pack_texture_rgb8`,
+            unpadded: its shape is the texture's extent.
+        origin: (2,) world coordinates of texel (0, 0); cell_size in meters.
+        background_color: (3,) float in [0, 1].
+        downsample: only 1 (sampling at a lower resolution and the
+            bilinear upsample are not ported).
+    Returns:
+        (B, 3, res, res) float32 in [0, 1].
+    """
+    if downsample != 1:
+        raise NotImplementedError(
+            f'background_downsample={downsample}: the bilinear upsample of a '
+            'subsampled background is not ported (ROADMAP A10)')
+    world = _pixel_world_coords(cam_xy, cam_sc, scale, res, left_handed)
+    origin = torch.as_tensor(origin, dtype=torch.float32, device=world.device)
+    uv = (world - origin) / cell_size
+    xi = torch.round(uv[..., 0]).to(torch.int32)
+    yi = torch.round(uv[..., 1]).to(torch.int32)
+    h, w = texture.shape
+    valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+    idx = yi.clamp(0, h - 1).long() * w + xi.clamp(0, w - 1).long()
+    packed = texture.reshape(-1)[idx]
+    img = torch.stack([(packed >> s) & 0xFF for s in (0, 8, 16)], dim=1
+                      ).to(torch.float32) * _INV255
+    return torch.where(valid[:, None], img,
+                       background_color.to(torch.float32)[None, :, None, None])

@@ -14,8 +14,8 @@ import torch
 @dataclass
 class RendererConfig:
     """Switches of the port's renderer (the reference's ``JaxRendererConfig``
-    fields that the textured primitive path and the hard and differentiable
-    mesh paths read)."""
+    fields that the primitive path and the hard and differentiable mesh
+    paths read)."""
     render_agent_direction: bool = True
     left_handed_coordinates: bool = False
     #: per-camera primitive cap PER TYPE (quads / triangles); 56 is the
@@ -36,6 +36,10 @@ class RendererConfig:
     #: finite-difference pose gradients; the full-resolution bilinear
     #: gather (False) is not ported
     diff_fast_background: bool = True
+    #: the full-resolution nearest background (views no mip level covers)
+    #: sampled at res / background_downsample; only 1 is ported (the
+    #: bilinear upsample is not)
+    background_downsample: int = 1
 
 
 @dataclass

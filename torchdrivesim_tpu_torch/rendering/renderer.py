@@ -1,17 +1,28 @@
 """
 The port's bird's-eye-view renderer (counterpart of
-``torchdrivesim_tpu/rendering/jax_renderer.py``), at resolutions that are
-multiples of 16 up to 128: typed primitives composited over the baked map
-texture by the fused render; the hard mesh render, the z-priority raster
-over the nearest mip warp of the texture (faces culled to the view) or over
-the constant background color (every face); and the differentiable mesh
-render, soft-rasterized over the bilinear mip warp of the texture or over
-the constant background color.
+``torchdrivesim_tpu/rendering/jax_renderer.py``):
 
-Not ported yet: pad-and-crop for other resolutions and the sub-camera tiling
-above 128 (ROADMAP A10), the untextured primitive path, the face-soup render
-``render_faces_chw``, the painter's soft blend and the full-resolution
-bilinear background of the differentiable render.
+* typed primitives (``render_prims_chw``): composited over the baked map
+  texture by the fused render where a mip level covers the view (up to
+  128 pixels); over the background color without a texture, or over the
+  full-resolution nearest sample of the texture where no mip level covers
+  the view, by the banded primitive raster (any multiple of 16);
+* the hard mesh render: the z-priority raster over the nearest mip warp of
+  the texture, or its full-resolution nearest sample where no mip level
+  covers the view (faces culled to the view), or over the constant
+  background color (every face);
+* the differentiable mesh render: the soft raster over the bilinear mip
+  warp of the texture or over the constant background color.
+
+A square resolution that is not a multiple of 16 renders the primitive and
+hard mesh paths at the next multiple of 16, at the same pixels per meter,
+and returns the top-left crop.
+
+Not ported yet: the sub-camera tiling of textured primitive renders above
+128 (ROADMAP A10), the face-soup render ``render_faces_chw``, the XLA
+fallbacks (``rasterize_hard_faces``, ``cull_prims_to_view``), the grouped
+soft raster of large face sets (B5), the painter's soft blend, pad-and-crop
+of the differentiable render and its full-resolution bilinear background.
 """
 from __future__ import annotations
 
@@ -24,9 +35,11 @@ from torchdrivesim_tpu_torch.mesh import RGBMesh
 from torchdrivesim_tpu_torch.ops.fused import render_coefs_fused
 from torchdrivesim_tpu_torch.ops.grids import Grid2D
 from torchdrivesim_tpu_torch.ops.hard import hard_operands, raster
+from torchdrivesim_tpu_torch.ops.prims import rasterize_hard_prims_banded
 from torchdrivesim_tpu_torch.ops.rasterize import (
     camera_rows_cols, cull_faces_to_view, face_arrays, n_bands_for,
-    prep_sorted_prim_coefs,
+    pack_texture_rgb8, prep_sorted_prim_coefs, sample_background_packed,
+    sort_prims_rowmajor_with_masks, supports_res,
 )
 from torchdrivesim_tpu_torch.ops.soft import rasterize_softmax_chw
 from torchdrivesim_tpu_torch.ops.warp import (
@@ -37,6 +50,25 @@ from torchdrivesim_tpu_torch.rendering.base import (
     Cameras, RendererConfig, get_default_color_map, get_default_rendering_levels,
 )
 from torchdrivesim_tpu_torch.utils import Resolution
+
+
+def pack_rgb8_chw(image: torch.Tensor) -> torch.Tensor:
+    """(B, 3, H, W) float [0, 255] -> (B, H, W) int32 0x00BBGGRR."""
+    q = torch.clamp(torch.round(image), 0, 255).to(torch.int32)
+    return q[:, 0] | (q[:, 1] << 8) | (q[:, 2] << 16)
+
+
+def _pad_camera_shift(cam_xy: torch.Tensor, cam_sc: torch.Tensor, size: int,
+                      size_pad: int, ppm: float, left_handed: bool) -> torch.Tensor:
+    """Camera centers for pad-and-crop: the TOP-LEFT ``size`` x ``size``
+    crop of a ``size_pad``-pixel render at the same pixels per meter shows
+    exactly the requested view."""
+    lh = -1.0 if left_handed else 1.0
+    d = (size_pad - size) / 2.0 / ppm
+    sin, cos = cam_sc[:, 0], cam_sc[:, 1]
+    cx = cam_xy[:, 0] - (cos * d - sin * lh * d)
+    cy = cam_xy[:, 1] - (sin * d + cos * lh * d)
+    return torch.stack([cx, cy], dim=-1)
 
 
 class Renderer:
@@ -65,6 +97,7 @@ class Renderer:
             device=self.device) / 255.0
         self._background_texture: Optional[Grid2D] = None
         self._mip_pyramid: Optional[List[MipLevel]] = None
+        self._packed_texture: Optional[Grid2D] = None
 
     def get_color(self, element_type: str) -> Tuple[int, int, int]:
         return self.color_map[element_type]
@@ -76,26 +109,89 @@ class Renderer:
     @background_texture.setter
     def background_texture(self, texture: Optional[Grid2D]):
         """Set the (H, W, 3) float texture (host numpy data); builds the
-        packed mip pyramid on the host and moves it to the device."""
+        packed mip pyramid and the packed full-resolution texture (the
+        background of views no mip level covers) on the host and moves them
+        to the device."""
         self._background_texture = texture
         self._mip_pyramid = None
+        self._packed_texture = None
         if texture is not None:
             self._mip_pyramid = [
                 level.to(self.device) for level in build_mip_pyramid(
                     np.asarray(texture.data), np.asarray(texture.origin),
                     texture.cell_size)]
+            self._packed_texture = Grid2D(
+                data=torch.from_numpy(pack_texture_rgb8(texture.data)[..., None]
+                                      ).to(self.device),
+                origin=torch.as_tensor(np.asarray(texture.origin, np.float32),
+                                       device=self.device),
+                cell_size=float(texture.cell_size))
 
     def _warp_mip(self, scale: float, size: int) -> Optional[MipLevel]:
-        """The mip level for the fused render, or None when the fused path
-        cannot serve this camera (resolution above 128 or not a multiple of
-        16, or a view too wide for the coarsest mip)."""
-        if self._mip_pyramid is None or size > RES or size % 16:
+        """The mip level for the fused render and the nearest warp, or None
+        when they cannot serve this camera (no texture, a resolution above
+        128 or not a multiple of 16, or a view too wide for the coarsest
+        mip)."""
+        if self._mip_pyramid is None or size > RES or not supports_res(size):
             return None
         fov = 2.0 / scale
         mip = select_mip(self._mip_pyramid, fov=fov, res=size)
         if mip.cell_size < fov * MIP_FACTOR / size:
             return None
         return mip
+
+    @property
+    def _prim_cap(self) -> int:
+        """Per-type primitive cap of the primitive render: at most 56, as
+        both types share the 7-bit rank."""
+        return min(max(8, self.cfg.band_budget), 56)
+
+    def _tiles_texture(self, scale: float, size: int) -> bool:
+        """Whether the reference renders this textured primitive view above
+        128 pixels as n x n sub-camera tiles over a mip level (its
+        ``_tiled_mip``), which is not ported."""
+        if self._mip_pyramid is None or size <= RES:
+            return False
+        n = next((k for k in range(2, size // 16 + 1)
+                  if size % k == 0 and size // k <= RES and supports_res(size // k)),
+                 None)
+        if n is None:
+            return False
+        fov = 2.0 / scale
+        mip = select_mip(self._mip_pyramid, fov=fov, res=size)
+        return not mip.cell_size < fov * MIP_FACTOR / size
+
+    @staticmethod
+    def _pad_res_target(size: int) -> Optional[int]:
+        """The resolution a square ``size`` that the banded kernels cannot
+        tile (not a multiple of 16, e.g. 100) renders at: the next multiple
+        of 16, or None when ``size`` is served as it is."""
+        if size < 4 or supports_res(size):
+            return None
+        pad = -(-size // 16) * 16
+        return pad if supports_res(pad) else None
+
+    def _pad_cameras(self, cameras: Cameras, size: int, pad_to: int) -> Cameras:
+        """``cameras`` moved and rescaled so that the top-left ``size``
+        pixels of a ``pad_to`` render show their ``size`` view."""
+        ppm = cameras.scale * size / 2.0
+        cam_xy = _pad_camera_shift(cameras.xy, cameras.sc, size, pad_to, ppm,
+                                   self.cfg.left_handed_coordinates)
+        return Cameras(cam_xy, cameras.sc, cameras.scale * size / pad_to)
+
+    def _full_background(self, cameras: Cameras, size: int) -> torch.Tensor:
+        """(B, 3, size, size) background in [0, 1] for views no mip level
+        serves: the nearest full-resolution sample of the texture, or the
+        background color, expanded (never written out), without one."""
+        if self._packed_texture is not None:
+            tex = self._packed_texture
+            return sample_background_packed(
+                tex.data[..., 0], tex.origin, tex.cell_size, cameras.xy, cameras.sc,
+                cameras.scale, size, self._background_color,
+                left_handed=self.cfg.left_handed_coordinates,
+                downsample=self.cfg.background_downsample)
+        return self._background_color[None, :, None, None].expand(
+            cameras.xy.shape[0], 3, size, size)
 
     def render_prims_chw(self, quads: torch.Tensor, qz: torch.Tensor,
                          qcolors: torch.Tensor, tris: torch.Tensor,
@@ -104,7 +200,10 @@ class Renderer:
                          packed: bool = False) -> torch.Tensor:
         """
         Render world-space quads (cycle order) and triangles from
-        ``BirdviewRGBMeshGenerator.generate_prims`` over the baked texture.
+        ``BirdviewRGBMeshGenerator.generate_prims`` over the baked texture
+        (the fused render where a mip level covers the view, else the
+        banded raster over its full-resolution nearest sample), or over the
+        background color without a texture (the banded raster).
 
         Returns:
             (B, 3, H, W) float image in [0, 255], or (B, H, W) int32 packed
@@ -112,34 +211,77 @@ class Renderer:
         """
         assert res.width == res.height, "only square resolutions are supported"
         size = res.width
+        pad_to = self._pad_res_target(size)
+        if pad_to is not None:
+            image = self.render_prims_chw(
+                quads, qz, qcolors, tris, tz, tcolors, Resolution(pad_to, pad_to),
+                self._pad_cameras(cameras, size, pad_to), packed=packed)
+            return image[..., :size, :size]
+        if not supports_res(size):
+            raise NotImplementedError(
+                f"res {size}: the primitive render serves sizes the banded "
+                "kernels tile (multiples of 16) and pads others from 4 up")
         mip = self._warp_mip(cameras.scale, size)
-        if mip is None:
+        if mip is not None:
+            sq, st = self.screen_prims(quads, tris, size, cameras)
+            prep = prep_sorted_prim_coefs(sq, qz, qcolors, st, tz, tcolors, size,
+                                          self._prim_cap, n_bands_for(size))
+            if prep is None:
+                raise NotImplementedError(
+                    f"{qz.shape[1]} quads / {tz.shape[1]} triangles exceed the "
+                    f"per-type cap {self._prim_cap} or the 127-primitive rank "
+                    "space; the fused render's sorting fallback is not ported")
+            qcoef, qpk, qmask, tcoef, tpk, tmask = prep
+            fcoef, icoef = warp_coefficients(
+                mip, cameras.xy, cameras.sc, cameras.scale, self._background_color,
+                left_handed=self.cfg.left_handed_coordinates, res=size)
+            image = render_coefs_fused(mip, fcoef, icoef, qcoef, qpk, tcoef, tpk,
+                                       qmask, tmask, size, packed)
+            return image if packed else image * 255.0
+        if self._tiles_texture(cameras.scale, size):
             raise NotImplementedError(
-                f"only the textured fused path is ported (res {size} must be a "
-                f"multiple of 16 up to {RES}, with a background texture set)")
-        b, q = qz.shape
-        t = tz.shape[1]
-        lh = self.cfg.left_handed_coordinates
-        sq = camera_rows_cols(quads.reshape(b, q * 4, 2), cameras.xy, cameras.sc,
-                              cameras.scale, size, left_handed=lh
-                              ).reshape(b, q, 4, 2)
-        st = camera_rows_cols(tris.reshape(b, t * 3, 2), cameras.xy, cameras.sc,
-                              cameras.scale, size, left_handed=lh
-                              ).reshape(b, t, 3, 2)
-        cap = min(max(8, self.cfg.band_budget), 56)
-        prep = prep_sorted_prim_coefs(sq, qz, qcolors, st, tz, tcolors, size,
-                                      cap, n_bands_for(size))
-        if prep is None:
-            raise NotImplementedError(
-                f"{q} quads / {t} triangles exceed the per-type cap {cap} or "
-                "the 127-primitive rank space; trimming is not ported")
-        qcoef, qpk, qmask, tcoef, tpk, tmask = prep
-        fcoef, icoef = warp_coefficients(mip, cameras.xy, cameras.sc,
-                                         cameras.scale, self._background_color,
-                                         left_handed=lh, res=size)
-        image = render_coefs_fused(mip, fcoef, icoef, qcoef, qpk, tcoef, tpk,
-                                   qmask, tmask, size, packed)
-        return image if packed else image * 255.0
+                f"res {size} over a texture: the sub-camera tiling above {RES} "
+                "is not ported (ROADMAP A10)")
+        scene, background, qmask, tmask = self.banded_frame_operands(
+            quads, qz, qcolors, tris, tz, tcolors, size, cameras)
+        image = rasterize_hard_prims_banded(*scene, size, background, qmask,
+                                            tmask) * 255.0
+        return pack_rgb8_chw(image) if packed else image
+
+    def screen_prims(self, quads: torch.Tensor, tris: torch.Tensor, size: int,
+                     cameras: Cameras):
+        """World-space quads (B, Q, 4, 2) and triangles (B, T, 3, 2) ->
+        their (row, col) screen corners in a ``size`` view."""
+        def rows_cols(p):
+            b, n, k = p.shape[:3]
+            return camera_rows_cols(
+                p.reshape(b, n * k, 2), cameras.xy, cameras.sc, cameras.scale, size,
+                left_handed=self.cfg.left_handed_coordinates).reshape(b, n, k, 2)
+        return rows_cols(quads), rows_cols(tris)
+
+    def banded_frame_operands(self, quads, qz, qcolors, tris, tz, tcolors,
+                              size: int, cameras: Cameras):
+        """
+        The banded raster's operands for a frame that no mip level serves,
+        as :meth:`render_prims_chw` passes them to
+        ``ops.prims.rasterize_hard_prims_banded``: each type's screen-space
+        prims row-major sorted and capped (``cfg.band_budget``, at most 56)
+        with their band x chunk masks, over the background.
+
+        Returns:
+            ``((quads, qz, qcolors, tris, tz, tcolors), background, qmask,
+            tmask)``: the background (B, 3, size, size) in [0, 1], the
+            full-resolution nearest sample of the texture or the background
+            color expanded.
+        """
+        n_bands = n_bands_for(size)
+        sq, st = self.screen_prims(quads, tris, size, cameras)
+        sq, qz, qcolors, qmask = sort_prims_rowmajor_with_masks(
+            sq, qz, qcolors, size, self._prim_cap, n_bands)
+        st, tz, tcolors, tmask = sort_prims_rowmajor_with_masks(
+            st, tz, tcolors, size, self._prim_cap, n_bands)
+        return ((sq, qz, qcolors, st, tz, tcolors),
+                self._full_background(cameras, size), qmask, tmask)
 
     def render_rgb_mesh_chw(self, mesh: RGBMesh, res: Resolution,
                             cameras: Cameras) -> torch.Tensor:
@@ -148,9 +290,11 @@ class Renderer:
         vertices, as from ``BirdviewRGBMeshGenerator.generate``).
 
         Hard mode (the default): the z-priority raster (``ops/hard.py``) over
-        the nearest mip warp of the background texture, the faces culled to
-        the ``cfg.cull_max_faces`` nearest the view's center, or, with no
-        texture, over the background color with every face.
+        the nearest mip warp of the background texture (its full-resolution
+        nearest sample where no mip level covers the view), the faces culled
+        to the ``cfg.cull_max_faces`` nearest the view's center, or, with no
+        texture, over the background color with every face. A size that is
+        not a multiple of 16 renders padded and cropped.
 
         Differentiable mode (``cfg.differentiable``): the soft raster over
         the bilinear mip warp of the background texture when one is set
@@ -173,7 +317,8 @@ class Renderer:
         if size % 16 or size > RES:
             raise NotImplementedError(
                 f"res {size}: the soft render serves multiples of 16 up to {RES}; "
-                "pad-and-crop and tiling are not ported (ROADMAP A10)")
+                "its pad-and-crop is not ported (ROADMAP A10), nor the grouped "
+                "soft raster (B5) that larger views take (ROADMAP A12)")
         lh = self.cfg.left_handed_coordinates
         b = cameras.xy.shape[0]
         if self._mip_pyramid is not None:
@@ -185,7 +330,8 @@ class Renderer:
             if mip is None:
                 raise NotImplementedError(
                     f"no mip level covers a view of fov {2.0 / cameras.scale} at "
-                    f"res {size}; tiling is not ported (ROADMAP A10)")
+                    f"res {size}; the differentiable full-resolution bilinear "
+                    "background (sample_background_quad) is not ported (ROADMAP A12)")
             background = warp_background_diff(
                 mip, cameras.xy, cameras.sc, cameras.scale,
                 self._background_color, left_handed=lh, res=size)
@@ -201,7 +347,12 @@ class Renderer:
 
     def _render_hard(self, mesh: RGBMesh, size: int, cameras: Cameras
                      ) -> torch.Tensor:
-        """The hard branch of :meth:`render_rgb_mesh_chw`."""
+        """The hard branch of :meth:`render_rgb_mesh_chw`, padded and
+        cropped where ``size`` is not a multiple of 16."""
+        pad_to = self._pad_res_target(size)
+        if pad_to is not None:
+            return self._render_hard(mesh, pad_to, self._pad_cameras(
+                cameras, size, pad_to))[..., :size, :size]
         background, ops, _ = self.hard_frame_operands(mesh, size, cameras)
         return raster(ops, background, size) * 255.0
 
@@ -213,36 +364,30 @@ class Renderer:
 
         Returns:
             ``(background, ops, warp)``: the (B, 3, size, size) background
-            in [0, 1] (the nearest mip warp of the texture, or the
-            background color without one); the operands of
-            ``ops.hard.hard_operands`` for the faces culled to the
+            in [0, 1] (the nearest mip warp of the texture, or its
+            full-resolution nearest sample where no mip level covers the
+            view, or the background color without a texture); the operands
+            of ``ops.hard.hard_operands`` for the faces culled to the
             ``cfg.cull_max_faces`` nearest the view's center (every face
             without a texture); ``(mip, fcoef, icoef)``, the nearest warp's
-            operands, or None without a texture.
+            operands, or None without one.
         """
-        if size % 16 or size > RES:
+        if not supports_res(size):
             raise NotImplementedError(
-                f"res {size}: the hard render serves multiples of 16 up to {RES}; "
-                "pad-and-crop and tiling are not ported (ROADMAP A10)")
+                f"res {size}: the hard render's operands are for multiples of "
+                "16 (render_rgb_mesh_chw pads other sizes)")
         lh = self.cfg.left_handed_coordinates
-        b = cameras.xy.shape[0]
         warp = None
-        if self._mip_pyramid is not None:
-            mip = self._warp_mip(cameras.scale, size)
-            if mip is None:
-                raise NotImplementedError(
-                    f"no mip level covers a view of fov {2.0 / cameras.scale} at "
-                    f"res {size}; tiling is not ported (ROADMAP A10)")
+        mip = self._warp_mip(cameras.scale, size)
+        if mip is not None:
             fcoef, icoef = warp_coefficients(mip, cameras.xy, cameras.sc,
                                              cameras.scale, self._background_color,
                                              left_handed=lh, res=size)
             warp = (mip, fcoef, icoef)
             background = warp_view_nearest(mip.data, fcoef, icoef, size)
-            cull = self.cfg.cull_max_faces
         else:
-            background = self._background_color[None, :, None, None].expand(
-                b, 3, size, size)
-            cull = 0
+            background = self._full_background(cameras, size)
+        cull = self.cfg.cull_max_faces if self._background_texture is not None else 0
         rc = camera_rows_cols(mesh.verts[..., :2], cameras.xy, cameras.sc,
                               cameras.scale, size, left_handed=lh)
         sv = torch.cat([rc, mesh.verts[..., 2:3]], dim=-1)
