@@ -1,6 +1,6 @@
 """
 Smoke run of the PyTorch port on one CUDA card. Builds every kernel from the
-checkout (one ``nvcc`` per source, all at once), then drives four paths:
+checkout (one ``nvcc`` per source, all at once), then drives five paths:
 
 * the headline env step (carla_Town02, 256 environments, 20 vehicles,
   128 x 128 render plus all metrics): the fused render kernel against its
@@ -13,6 +13,14 @@ checkout (one ``nvcc`` per source, all at once), then drives four paths:
   CPU path, one full-width gradient step counting launches with a
   directional finite-difference check of its gradient, three steps of the
   behaviour-cloning loop, times and peak memory;
+* the imitation-learning gradient step over the untextured map (config 4's
+  widths without the texture: every frame draws the Town02 road mesh,
+  ~17,000 faces per camera, through the grouped soft raster): its two
+  kernels against their plain versions on random operands and on the
+  frame of the state the full-width rollout returns, a small gradient step
+  against the CPU path, one full-width gradient rollout counting launches
+  and peak memory, a directional finite-difference check at small size,
+  times, bounds and grad-rollouts/s;
 * the RL path (BASELINE config 5: PPO over 1024 vectorized environments of
   the same town, 4 vehicles, 64 x 64 hard mesh render, rollout 16, 2
   epochs): the nearest background warp and the hard raster's packed and
@@ -74,6 +82,10 @@ SFU_OPS_PER_S = 132 * 16 * 1.98e9
 #: face terms again (25 + 6 SFU) and forms and sums 13 gradient terms (~50)
 SOFT_FWD_OPS, SOFT_FWD_SFU = 39, 6
 SOFT_BWD_OPS, SOFT_BWD_SFU = 39 + 25 + 50, 12
+#: per (pixel, face) of the grouped backward (csrc/soft_accum.cu): pass 1 and
+#: the prefix pass each evaluate the face terms and the group's product
+#: (~29), the descending pass is the single-group backward's second pass
+SOFT_ACCUM_BWD_OPS, SOFT_ACCUM_BWD_SFU = 2 * 29 + 25 + 50, 18
 #: per pixel of the bilinear warp: 3 positions (4 each), 2 pass-1 taps of
 #: 4 + 6 and 3 lerps (3 each), the final 3 lerps and the validity test (4)
 WARP_OPS = 12 + 2 * (10 + 9) + 9 + 4
@@ -708,6 +720,355 @@ def il_path(device, card):
     return entries
 
 
+# --- the grouped soft raster: IL gradients over the untextured map ----------
+
+def accum_random_operands(seed: int, b: int, n_faces: int, res: int, device):
+    """:func:`random_soft_operands` padded to whole groups, and its random
+    background."""
+    from torchdrivesim_tpu_torch.ops import soft
+    (coef, zw, color, bg), _ = random_soft_operands(seed, b, n_faces, res, device)
+    return soft.pad_to_groups(coef, zw, color), bg
+
+
+def composite_cotangents(soft, totals, background, seed: int):
+    """The cotangents (gnum, gden, gtransp) that the grouped path's
+    composite (``soft.composite``) sends to the totals for a random image
+    cotangent: gnum = g * cover / den and so on, the scale at which each
+    face's z weight meets them in the backward."""
+    rng = np.random.RandomState(seed)
+    g = torch.as_tensor(rng.uniform(-1, 1, tuple(background.shape)).astype(np.float32),
+                        device=background.device)
+    leaves = [x.detach().requires_grad_(True) for x in totals]
+    with torch.enable_grad():
+        image = soft.composite(*leaves, background)
+        return torch.autograd.grad(image, leaves, g)
+
+
+def accum_rows(grads) -> torch.Tensor:
+    """B5b's output (gcoef, gzw, gcolor) as 13 values per face, (B, F, 13)."""
+    gcoef, gzw, gcolor = grads
+    b, n_faces = gcoef.shape[:2]
+    return torch.cat([gcoef.reshape(b, n_faces, 9), gzw.reshape(b, n_faces, 1), gcolor],
+                     dim=-1)
+
+
+def judge_rows(got, plain, exact, name, rtol=1e-4):
+    """B5b's gradients face by face: the kernel's error from the exact
+    (float64) value may be at most twice the plain version's largest
+    float32 error on the same face, plus rtol * |exact| + 1e-6 x the largest
+    of that face's 13 exact values. A face's z weight (e^10 for the road, up
+    to e^36 for the actors) scales all its terms, so a tolerance scaled by
+    the whole tensor's largest value would pass any value of a face of lower
+    weight. Each value is a float32 sum over the pixels, which can cancel to
+    a small part of its terms: the plain version's error shows how far
+    rounding goes on that face, and the kernel sums in another order (256
+    pixels a block, then over the blocks), so its error is of that size
+    but not bounded by it. Returns (max |kernel - plain|, values over
+    tolerance)."""
+    got, plain, exact = (accum_rows(x).double() for x in (got, plain, exact))
+    scale = exact.abs().amax(dim=-1, keepdim=True)
+    noise = (plain - exact).abs().amax(dim=-1, keepdim=True)
+    margin = 1e-6 * scale + rtol * exact.abs()
+    tol = 2.0 * noise + margin
+    err = (got - exact).abs()
+    over = int((err > tol).sum())
+    print(f'  {name}: max |kernel - plain| {float((got - plain).abs().max()):.3g}, '
+          f'{int((scale > 0).sum())} faces with a gradient, {over} of {got.numel()} '
+          f'values over tolerance')
+    # the value worst against this tolerance, and the one worst against the
+    # plain version's error at the same value alone
+    for label, slack in (('tolerance', tol),
+                         ('own plain error', (plain - exact).abs() + margin)):
+        ratio = torch.where(err > 0, err / slack, torch.zeros_like(err))
+        worst = int(ratio.argmax())
+        b, f, k = (int(i) for i in np.unravel_index(worst, tuple(ratio.shape)))
+        print(f'    worst against {label}: {float(ratio[b, f, k]):.3g} (camera {b}, face '
+              f'{f}, term {k}: exact {float(exact[b, f, k]):.9g}, kernel '
+              f'{float(got[b, f, k]):.9g}, plain {float(plain[b, f, k]):.9g}; face scale '
+              f'{float(scale[b, f, 0]):.3g}, plain error up to {float(noise[b, f, 0]):.3g})')
+    return float((got - plain).abs().max()), over
+
+
+def accum_bwd_transp_fault(soft, ops, gnum, gden, gtransp):
+    """The plain grouped backward with a planted fault: every group's transp
+    receives ``gtransp`` itself instead of ``P_g * S_g`` (each group run as
+    if it were the only one), for showing that :func:`judge_rows` sees it."""
+    coef, zw, color = ops
+    parts = [soft.soft_accum_bwd_reference(coef[:, lo:lo + soft.MAX_FACES],
+                                           zw[:, :, lo:lo + soft.MAX_FACES],
+                                           color[:, lo:lo + soft.MAX_FACES],
+                                           gnum, gden, gtransp)
+             for lo in range(0, coef.shape[1], soft.MAX_FACES)]
+    return tuple(torch.cat([p[i] for p in parts], dim=d)
+                 for i, d in ((0, 1), (1, 2), (2, 1)))
+
+
+def cuda_ms_once(fn):
+    """(result, milliseconds) of one call of ``fn``, by CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def compare_accum(soft, ops, background, res, seed, label):
+    """B5a (1e-5 absolute) and B5b (:func:`judge_rows`) against their plain
+    versions, judged through float64. B5b is judged twice: for the
+    cotangents the composite over ``background`` sends to the totals, and
+    for those with gnum = gden = 0, where only the transp chain flows; in
+    each, the planted fault of :func:`accum_bwd_transp_fault` must come out
+    over tolerance wherever it changes a value (it cannot where a single
+    group holds every face that reaches a pixel). Returns ((forward max
+    difference, over), (backward max difference, over), forward bit
+    mismatches, (plain forward ms, plain backward ms of the composite's
+    cotangents), those cotangents, the planted fault's values over
+    tolerance for each set)."""
+    b, n_faces = ops[0].shape[:2]
+    print(f'{label} grouped soft raster, {n_faces} faces ({n_faces // soft.MAX_FACES} '
+          f'groups), B={b}, res {res}:')
+    exact_in = [x.double() for x in ops]
+    got = soft.soft_accum_fwd(*ops, res)
+    plain, fwd_ms = cuda_ms_once(lambda: soft.soft_accum_fwd_reference(*ops, res))
+    exact = soft.soft_accum_fwd_reference(*exact_in, res)
+    torch.cuda.synchronize()
+    bits = sum(int((a != p).sum()) for a, p in zip(got, plain))
+    print(f'  forward: {bits} values differ from the plain version in any bit')
+    fwd = [judge(a, p, e, name, 0.0, 1e-5) for name, a, p, e in
+           zip(('num', 'den', 'transp'), got, plain, exact)]
+    grads = composite_cotangents(soft, plain, background, seed)
+    bwd, bwd_ms, caught = [], None, []
+    for kind, cot in (('composite', grads),
+                      ('transp only', (torch.zeros_like(grads[0]),
+                                       torch.zeros_like(grads[1]), grads[2]))):
+        got = soft.soft_accum_bwd(*ops, *cot)
+        plain, ms = cuda_ms_once(lambda: soft.soft_accum_bwd_reference(*ops, *cot))
+        bwd_ms = ms if bwd_ms is None else bwd_ms
+        exact = soft.soft_accum_bwd_reference(*exact_in, *(g.double() for g in cot))
+        torch.cuda.synchronize()
+        bwd.append(judge_rows(got, plain, exact, f'backward, {kind} cotangents'))
+        moved, over = judge_rows(accum_bwd_transp_fault(soft, ops, *cot), plain, exact,
+                                 f'planted fault (gtransp for every group), {kind}')
+        if moved > 0 and not over:
+            raise AssertionError(f'{label}: the backward check does not see a fault in '
+                                 'the transp chain')
+        caught.append(over)
+    worst = lambda parts: (max(d for d, _ in parts), sum(o for _, o in parts))
+    return worst(fwd), worst(bwd), bits, (fwd_ms, bwd_ms), grads, caught
+
+
+def soft_tile_pairs(coef, res) -> int:
+    """(camera, face, tile) triples of the BOUND_TILE x BOUND_TILE pixel
+    tiles in which a face can contribute: where one of its edge values is at
+    most -4 at all four extreme pixel centres of a tile (the values are
+    affine in the pixel, so then at every pixel of it), min_e t_e <= -4 puts
+    its window ramp, hence its alpha and all it adds, at exactly 0."""
+    coef = coef.double()
+    first = torch.arange(0, res, BOUND_TILE, dtype=torch.float64,
+                         device=coef.device) + 0.5
+    ends = torch.stack([first, first + BOUND_TILE - 1])          # (2, tiles)
+    a, b, c = coef[..., 0, None], coef[..., 1, None], coef[..., 2]
+    row = torch.maximum(a * ends[0], a * ends[1])                # (B, F, 3, tiles)
+    col = torch.maximum(b * ends[0], b * ends[1])
+    top = row[..., :, None] + col[..., None, :] + c[..., None, None]
+    return int((top > -4.0).all(dim=2).sum())
+
+
+def accum_bound(ops, res, backward: bool):
+    """B5a's or B5b's bound on one frame: each input read once, each output
+    written once, and the operations of the (pixel, face) pairs in which the
+    face can contribute (:func:`soft_tile_pairs`)."""
+    coef, zw, color = ops
+    b = coef.shape[0]
+    pairs = soft_tile_pairs(coef, res) * BOUND_TILE * BOUND_TILE
+    faces = nbytes(coef, zw, color)
+    if backward:
+        n_bytes = 2 * faces + b * 5 * res * res * 4
+        return bound(n_bytes, pairs * SOFT_ACCUM_BWD_OPS, pairs * SOFT_ACCUM_BWD_SFU), pairs
+    n_bytes = faces + b * 5 * res * res * 4
+    return bound(n_bytes, pairs * SOFT_FWD_OPS, pairs * SOFT_FWD_SFU), pairs
+
+
+def il_untextured_compare_with_cpu(device):
+    """The untextured IL gradient step at B = 2, horizon 3, res 32, float32
+    policy (cuDNN without TF32), on the card and on the CPU: losses and
+    gradients to rtol 1e-3 (atol 1e-6 x max|grad|)."""
+    from torchdrivesim_tpu_torch.benchmark import build_il_scenario, make_il_grad_fn
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = {}
+        for dev in (device, torch.device('cpu')):
+            scn = build_il_scenario(batch_size=2, agent_count=IL_AGENTS, res=32,
+                                    use_texture=False, device=dev)
+            policy = il_policy(IL_FEATURES, torch.float32, dev)
+            loss, grads = make_il_grad_fn(scn, policy, horizon=3)(scn.sim.state)
+            runs[dev.type] = (loss.cpu(), [x.cpu() for x in grads])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (lg, gg), (lc, gc) = runs['cuda'], runs['cpu']
+    print(f'untextured IL compare B=2 horizon 3 res 32: loss card {float(lg)!r}, '
+          f'CPU {float(lc)!r}')
+    torch.testing.assert_close(lg, lc, rtol=1e-3, atol=0)
+    worst = 0.0
+    for a, b in zip(gg, gc):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-6 * float(b.abs().max()))
+        worst = max(worst, float(((a - b).abs() / b.abs().max()).max()))
+    print(f'untextured IL compare: {len(gg)} gradients agree, max difference '
+          f'{worst:.3g} of each gradient\'s largest value')
+
+
+def grouped_soft_path(device, card):
+    """The grouped soft raster's phases (IL gradients over the untextured
+    Town02 road mesh); returns the JSON entries of B5a and B5b."""
+    from torchdrivesim_tpu_torch.benchmark import (
+        build_il_scenario, il_view, make_il_grad_fn, make_il_loss_fn,
+        make_il_rollout_fn, run_il_benchmark)
+    from torchdrivesim_tpu_torch.ops import soft, warp
+
+    # 1. the kernels against their plain versions on random operands: a
+    # partial last group and a degenerate face in each
+    errs, over, bits = {'fwd': [], 'bwd': []}, 0, 0
+    for seed, b, n_faces, res in ((11, 4, 129, 64), (12, 2, 300, 128), (13, 1, 2000, 256)):
+        (fd, fo), (bd, bo), nb, _, _, _ = compare_accum(
+            soft, *accum_random_operands(seed, b, n_faces, res, device), res, seed + 1,
+            f'random F={n_faces}')
+        errs['fwd'].append(fd)
+        errs['bwd'].append(bd)
+        over, bits = over + fo + bo, bits + nb
+    # B4a and B4b again, beside the header they now share
+    for label, (ops, g) in (('random F=128', random_soft_operands(6, 4, 128, 64, device)),
+                            ('random F=45 res 32', random_soft_operands(7, 8, 45, 32, device))):
+        (_, fo), bwd = compare_soft(soft, ops, g, label)
+        over += fo + sum(o for _, o in bwd)
+    if over:
+        raise AssertionError(f'{over} values over tolerance: the soft kernels disagree '
+                             'with their plain versions')
+
+    # 2. a small gradient step on the card against the CPU
+    il_untextured_compare_with_cpu(device)
+
+    # 3. the main path: one full-width gradient rollout over the road mesh
+    # a layout per environment: the last frame's check then sees 16 distinct
+    # views
+    scenario = build_il_scenario(batch_size=IL_BATCH, agent_count=IL_AGENTS, res=IL_RES,
+                                 use_texture=False, n_layouts=IL_BATCH, device=device)
+    policy = il_policy(IL_FEATURES, torch.bfloat16, device)
+    grad_fn = make_il_grad_fn(scenario, policy, horizon=IL_HORIZON)
+    state = scenario.sim.state
+    mesh, _ = il_view(scenario, state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    resident = torch.cuda.memory_allocated(device)
+    warp.LAUNCHES = soft.FWD_LAUNCHES = soft.BWD_LAUNCHES = 0
+    soft.ACCUM_FWD_LAUNCHES = soft.ACCUM_BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    loss, grads = grad_fn(state)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = {'warp_bilinear': warp.LAUNCHES, 'soft_raster_fwd': soft.FWD_LAUNCHES,
+                'soft_raster_bwd': soft.BWD_LAUNCHES,
+                'soft_accum_fwd': soft.ACCUM_FWD_LAUNCHES,
+                'soft_accum_bwd': soft.ACCUM_BWD_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated(device)
+    total = torch.cuda.get_device_properties(device).total_memory
+    print(f'untextured IL main path: one gradient rollout, B={IL_BATCH}, {IL_AGENTS} '
+          f'vehicles, res {IL_RES}, horizon {IL_HORIZON}, {mesh.faces.shape[1]} faces '
+          f'per camera ({-(-mesh.faces.shape[1] // soft.MAX_FACES)} groups), in '
+          f'{step_s:.2f} s; loss {float(loss)!r}; launches {launches}')
+    print(f'untextured IL peak memory: {peak / 2**30:.3f} GiB '
+          f'({(peak - resident) / 2**30:.3f} GiB above the resident scenario) of '
+          f'{total / 2**30:.1f} GiB [{card}]')
+    want = {'warp_bilinear': 0, 'soft_raster_fwd': 0, 'soft_raster_bwd': 0,
+            'soft_accum_fwd': IL_HORIZON, 'soft_accum_bwd': IL_HORIZON - 1}
+    if launches != want:
+        raise AssertionError(f'launches {launches}, expected {want}')
+    if not torch.isfinite(loss) or not all(torch.isfinite(x).all() for x in grads):
+        raise AssertionError('non-finite loss or gradient')
+    if not all(float(x.abs().max()) > 0 for x in grads):
+        raise AssertionError('a parameter gradient is zero')
+
+    # the kernels on the frame of the state the full-width rollout returns
+    with torch.no_grad():
+        last = make_il_rollout_fn(scenario, policy, IL_HORIZON)(state)
+    mesh, cams = il_view(scenario, last)
+    background, frame = scenario.sim.renderer.soft_frame_operands(mesh, IL_RES, cams)
+    frame = [x.contiguous() for x in soft.pad_to_groups(*frame)]
+    poses = len(torch.unique(torch.round(cams.xy * 100), dim=0))
+    image = scenario.sim.renderer.render_rgb_mesh_chw(
+        mesh, scenario.sim.renderer.res, cams).detach()
+    drawn = float((image > 0.5).any(dim=1).float().mean())
+    print(f'last frame: {IL_BATCH} cameras at {poses} distinct positions, '
+          f'{drawn * 100:.1f}% of pixels drawn over the black background')
+    if not torch.isfinite(image).all() or not drawn > 0.5:
+        raise AssertionError('the last frame does not show the map')
+    if poses != IL_BATCH:
+        raise AssertionError(f'{poses} distinct camera positions, expected {IL_BATCH}')
+    # the plain versions' times are those of this comparison's float32 runs
+    (fd, fo), (bd, bo), nb, plain_times, frame_grads, caught = compare_accum(
+        soft, frame, background, IL_RES, 21, 'last frame')
+    errs['fwd'].append(fd)
+    errs['bwd'].append(bd)
+    if fo + bo:
+        raise AssertionError(f'{fo + bo} values over tolerance on the last frame')
+    if not all(caught):
+        raise AssertionError(f'the planted fault went unseen on the last frame: {caught}')
+    print(f'grouped forward: {bits + nb} values differ from the plain version in any '
+          'bit, over all cases')
+
+    # 4. the directional finite-difference check at small size
+    small = build_il_scenario(batch_size=4, agent_count=IL_AGENTS, res=IL_RES,
+                              use_texture=False, device=device)
+    small_policy = il_policy(IL_FEATURES, torch.float32, device)
+    small_params = list(small_policy.parameters())
+    _, small_grads = make_il_grad_fn(small, small_policy, horizon=5)(small.sim.state)
+    rels, gnorm = directional_gradcheck(make_il_loss_fn(small, small_policy, 5),
+                                        small_params, small_grads, small.sim.state)
+    median_rel = statistics.median(rels)
+    print(f'untextured IL directional gradcheck (B=4, horizon 5, float32 policy): '
+          f'|g| {gnorm:.6g}, relative errors {[round(r, 5) for r in rels]} at eps '
+          f'3e-3 / 1e-2 / 3e-2, median {median_rel:.5f}')
+    if not median_rel < 0.05:
+        raise AssertionError(f'directional gradcheck median {median_rel}')
+
+    # 5. times, on this card, at the last frame
+    entries = []
+    for name, fn, plain_ms, reps, backward, source, replaces, err, n in (
+            ('soft_accum_fwd', lambda: soft.soft_accum_fwd(*frame, IL_RES),
+             plain_times[0], 20, False,
+             'torchdrivesim_tpu_torch/csrc/soft_accum.cu',
+             'torchdrivesim_tpu/ops/pallas_soft.py:393', max(errs['fwd']),
+             launches['soft_accum_fwd']),
+            ('soft_accum_bwd', lambda: soft.soft_accum_bwd(*frame, *frame_grads),
+             plain_times[1], 5, True,
+             'torchdrivesim_tpu_torch/csrc/soft_accum.cu',
+             'torchdrivesim_tpu/ops/pallas_soft.py:414', max(errs['bwd']),
+             launches['soft_accum_bwd'])):
+        ms, call_ms = graph_ms(fn, reps), cuda_ms(fn, reps)
+        (bound_ms, bound_by), pairs = accum_bound(frame, IL_RES, backward)
+        all_pairs = IL_BATCH * frame[0].shape[1] * IL_RES * IL_RES
+        print(f'{name} kernel B={IL_BATCH} res={IL_RES} F={frame[0].shape[1]}: '
+              f'{ms:.4f} ms (device, graph replay); eager call {call_ms:.4f} ms; '
+              f'plain version {plain_ms:.3f} ms (one call); bound {bound_ms * 1e3:.3f} us '
+              f'by {bound_by} ({pairs} of {all_pairs} (pixel, face) pairs can '
+              f'contribute) [{card}]')
+        entries.append({'name': name, 'route': 'cuda', 'source': source,
+                        'replaces': replaces, 'launches': n, 'max_abs_err': err,
+                        'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+                        'bound_by': bound_by, 'library_ms': None})
+    profile_step(lambda: grad_fn(state), 'untextured IL gradient step', card)
+    bench = run_il_benchmark(scenario, policy, horizon=IL_HORIZON,
+                             rollouts_per_chunk=2, n_chunks=3)
+    print(f'untextured IL gradient step B={IL_BATCH} horizon {IL_HORIZON}: '
+          f'{bench["grad_rollouts_per_sec_median"]:.3f} grad-rollouts/s, '
+          f'{bench["env_steps_per_sec_median"]:.1f} env-steps/s median of chunks '
+          f'{[round(r, 3) for r in bench["chunk_rollout_rates"]]} rollouts/s [{card}]')
+    return entries
+
+
 # --- the RL path (BASELINE config 5) -----------------------------------------
 
 def rl_frame(venv, state):
@@ -1237,8 +1598,8 @@ def main() -> int:
     card = card_label()
     print(f'device: {name}')
     print(card)                  # name, power.limit as nvidia-smi gives them
-    libraries = [fused.LIBRARY, warp.LIBRARY, soft.LIBRARY, warp.NEAREST_LIBRARY,
-                 hard.LIBRARY, prims.LIBRARY]
+    libraries = [fused.LIBRARY, warp.LIBRARY, soft.LIBRARY, soft.ACCUM_LIBRARY,
+                 warp.NEAREST_LIBRARY, hard.LIBRARY, prims.LIBRARY]
     secs = build_all(libraries)
     print(f'kernel build ({", ".join(lib.name for lib in libraries)} in parallel): '
           f'{secs:.2f} s (nvcc sm_90a)')
@@ -1246,6 +1607,7 @@ def main() -> int:
     entry, scenario, state = headline(device, card)
     kernels = [entry]
     kernels += il_path(device, card)
+    kernels += grouped_soft_path(device, card)
     kernels += rl_path(device, card)
     kernels += prim_path(device, card, scenario, state)
 

@@ -1,8 +1,9 @@
 """
 The port's CUDA kernels against their plain PyTorch versions on a CUDA card
 (skips without one): the fused render, the nearest and bilinear background
-warps, the soft raster's forward and backward, the hard raster's packed
-and chunked kernels, and the primitive raster, banded and unbanded.
+warps, the soft raster's forward and backward, single-group and grouped,
+the hard raster's packed and chunked kernels, and the primitive raster,
+banded and unbanded.
 Imports neither JAX nor the JAX package, so it also runs where JAX is
 absent:
 
@@ -13,7 +14,10 @@ their plain versions exactly (the same operations, each rounded on its
 own). The soft raster is judged through its plain version in float64: the
 kernel's error may exceed the plain version's by at most 1e-5 (forward)
 or 1e-4 relative plus 1e-6 of the largest value (backward), since its
-per-face sums run in another order.
+per-face sums run in another order. The grouped forward performs the plain
+version's operations in its order, so it must match it exactly; the
+grouped backward is judged face by face (``chip_smoke.judge_rows``), for
+the cotangents of the composite.
 """
 import numpy as np
 import pytest
@@ -139,6 +143,52 @@ def test_soft_backward_is_deterministic(cuda):
     ops, g = _soft_operands(3, 4, 128, 64, cuda)
     first = soft.soft_raster_bwd(*ops, g)
     second = soft.soft_raster_bwd(*ops, g)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _accum_operands(seed, b, n_faces, res, device):
+    """:func:`_soft_operands` padded to whole groups, the plain forward's
+    totals and the cotangents the composite over its background sends to
+    them."""
+    from chip_smoke import composite_cotangents
+    (coef, zw, color, bg), _ = _soft_operands(seed, b, n_faces, res, device)
+    ops = soft.pad_to_groups(coef, zw, color)
+    totals = soft.soft_accum_fwd_reference(*ops, res)
+    return ops, totals, composite_cotangents(soft, totals, bg, seed + 1)
+
+
+@pytest.mark.depends_on_cuda
+@pytest.mark.parametrize('b,n_faces,res', [(4, 129, 64), (2, 300, 128), (1, 2000, 256),
+                                           (16, 256, 64)])
+def test_grouped_soft_kernels_match_plain_versions(cuda, b, n_faces, res):
+    """B5a and B5b over every group in one launch each, a partial last
+    group included, against their plain versions: the forward bit for bit,
+    the backward face by face (``chip_smoke.judge_rows``) for the
+    composite's cotangents and for the transp chain alone."""
+    from chip_smoke import judge_rows
+    ops, plain, grads = _accum_operands(n_faces + res, b, n_faces, res, cuda)
+    assert ops[0].shape[1] % soft.MAX_FACES == 0 and ops[0].shape[1] >= n_faces
+    exact_in = [x.double() for x in ops]
+    before = (soft.ACCUM_FWD_LAUNCHES, soft.ACCUM_BWD_LAUNCHES)
+    for a, p in zip(soft.soft_accum_fwd(*ops, res), plain):
+        assert torch.equal(a, p)
+    for cot in (grads, (torch.zeros_like(grads[0]), torch.zeros_like(grads[1]), grads[2])):
+        out = soft.soft_accum_bwd(*ops, *cot)
+        want = soft.soft_accum_bwd_reference(*ops, *cot)
+        exact = soft.soft_accum_bwd_reference(*exact_in, *(x.double() for x in cot))
+        torch.cuda.synchronize()
+        assert [a.shape for a in out] == [p.shape for p in want]
+        assert judge_rows(out, want, exact, 'backward')[1] == 0
+    assert (soft.ACCUM_FWD_LAUNCHES, soft.ACCUM_BWD_LAUNCHES) == (before[0] + 1,
+                                                                  before[1] + 2)
+
+
+@pytest.mark.depends_on_cuda
+def test_grouped_soft_backward_is_deterministic(cuda):
+    ops, _, grads = _accum_operands(5, 2, 300, 64, cuda)
+    first = soft.soft_accum_bwd(*ops, *grads)
+    second = soft.soft_accum_bwd(*ops, *grads)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 

@@ -15,7 +15,8 @@ against the JAX package on the same inputs (made with numpy from a seed):
   rounding matches exactly and the reference's value is one of them at
   every pixel;
 * ``sample_background_packed`` against the reference under ``jit`` (whose
-  ``x / 255.0`` is a product by float32(1/255)): exact;
+  ``x / 255.0`` is a product by float32(1/255)): exact; sampled at res / 2
+  and upsampled bilinearly: within 1e-6;
 * ``Renderer.render_prims_chw`` and the hard mesh render against
   ``JaxRenderer`` under ``jit``, with ``jax_renderer._on_tpu`` patched to
   True before the texture is set (else no mip pyramid, and the JAX CPU path
@@ -23,7 +24,10 @@ against the JAX package on the same inputs (made with numpy from a seed):
   ``pallas_call`` in interpret mode: at least 99.9% of the pixels identical
   (under ``jit`` the screen transform may fuse into FMAs and move a
   primitive's edge by an ulp);
-* the benchmark step without a texture renders the frame's mesh.
+* the benchmark step without a texture renders the frame's mesh;
+* the differentiable primitive render (the reference's plain fallback:
+  ``cull_prims_to_view``, bit-identical to the reference run eagerly, and
+  ``rasterize_hard_faces``) against ``JaxRenderer`` as above.
 """
 import ctypes
 import functools
@@ -340,11 +344,20 @@ def test_sample_background_packed_matches_jax(town02_texture, res, fov, left_han
     np.testing.assert_array_equal(got, want)
     off = (got == BG_COLOR[None, :, None, None]).all(axis=1)
     assert off.any() and not off.all()
-    with pytest.raises(NotImplementedError):
-        rasterize.sample_background_packed(
-            torch.from_numpy(packed), tex.origin, tex.cell_size, torch.from_numpy(xy),
-            torch.from_numpy(sc), 2.0 / fov, res, torch.from_numpy(BG_COLOR),
-            downsample=2)
+    # sampled at res / 2 and upsampled bilinearly, as the benchmark scenario
+    # configures it: within 1e-6 of the reference (its compiled contraction
+    # fuses some products into FMAs, at some widths only)
+    want = np.asarray(jax.jit(lambda a, b: jax_rasterize.sample_background_packed(
+        jtex, a, b, 2.0 / fov, res, jnp.asarray(BG_COLOR), left_handed=left_handed,
+        downsample=2, chw=True))(xy, sc))
+    got = rasterize.sample_background_packed(
+        torch.from_numpy(packed), tex.origin, tex.cell_size, torch.from_numpy(xy),
+        torch.from_numpy(sc), 2.0 / fov, res, torch.from_numpy(BG_COLOR),
+        left_handed=left_handed, downsample=2).numpy()
+    print(f'res {res} downsample 2: {int((got != want).sum())} of {got.size} values '
+          f'differ, max {np.abs(got - want).max():.3g}')
+    assert got.shape == want.shape == (8, 3, res, res)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
 @pytest.fixture(scope='module')
@@ -451,6 +464,65 @@ def test_render_prims_tiling_above_128_over_a_texture_is_not_ported(renderers):
     scene = [torch.from_numpy(a) for a in _world_prims(0, xy.numpy(), 70.0)]
     with pytest.raises(NotImplementedError):
         p_tex.render_prims_chw(*scene, Resolution(256, 256), Cameras(xy, sc, 2.0 / 70.0))
+
+
+@pytest.mark.parametrize('k', [4, 3])
+def test_cull_prims_to_view_matches_jax_with_ties(k):
+    """The reference's ``cull_prims_to_view`` (run eagerly) for quads and
+    triangles: the prims kept and their order bit-identical, with distance
+    ties (a permuted copy shares the centroid, a mirrored one the distance)
+    and degenerate prims (area from corners 0 -> 1 and 0 -> K-1), which
+    sort last."""
+    rng = np.random.RandomState(k)
+    res, b, n, keep = 64, 3, 60, 32
+    corners = rng.uniform(-30, res + 30, (b, n, k, 2)).astype(np.float32)
+    corners[:, 10] = corners[:, 2, np.roll(np.arange(k), 1)]
+    corners[:, 11] = res - corners[:, 2]
+    corners[:, 12] = corners[:, 4]
+    corners[:, ::7, 1] = corners[:, ::7, 0]
+    z = rng.rand(b, n).astype(np.float32)
+    colors = rng.rand(b, n, 3).astype(np.float32)
+    want = jax_rasterize.cull_prims_to_view(*map(jnp.asarray, (corners, z, colors)),
+                                            res, keep)
+    got = rasterize.cull_prims_to_view(*map(torch.from_numpy, (corners, z, colors)),
+                                       res, keep)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    small = rasterize.cull_prims_to_view(*map(torch.from_numpy, (corners, z, colors)),
+                                         res, n)
+    assert small[0].shape == (b, n, k, 2)
+
+
+@pytest.mark.parametrize('textured', [False, True])
+def test_differentiable_render_prims_matches_jax(renderers, town02_texture, monkeypatch,
+                                                 textured):
+    """With ``cfg.differentiable`` the primitive render is the reference's
+    plain fallback (``jax_renderer.py:712-747``): each type culled to 32
+    prims, quads as triangle pairs, ``rasterize_hard_faces`` over the
+    full-resolution sample of the texture or the background color; no
+    kernel runs. Res 64, 40 quads and 40 triangles per camera."""
+    from torchdrivesim_tpu.rendering.base import Cameras as JaxCameras
+    from torchdrivesim_tpu.utils import Resolution as JaxResolution
+    from torchdrivesim_tpu_torch.ops import fused
+    from torchdrivesim_tpu_torch.rendering.base import Cameras
+    from torchdrivesim_tpu_torch.utils import Resolution
+    res, fov = 64, 35.0
+    j_tex, j_plain, p_tex, p_plain = renderers
+    jr, pr = (j_tex, p_tex) if textured else (j_plain, p_plain)
+    monkeypatch.setattr(jr.cfg, 'differentiable', True)
+    monkeypatch.setattr(pr.cfg, 'differentiable', True)
+    xy, sc = _cameras(11 + textured, 2, town02_texture)
+    scene = _world_prims(5 + textured, xy, fov, q=40, t=40)
+    want = np.asarray(jax.jit(lambda *a: jr.render_prims_chw(
+        *a[:6], JaxResolution(res, res), JaxCameras(a[6], a[7], 2.0 / fov)))(*scene, xy, sc))
+    before = (prims.B7_LAUNCHES, prims.B8_LAUNCHES, fused.LAUNCHES)
+    got = pr.render_prims_chw(*map(torch.from_numpy, scene), Resolution(res, res),
+                              Cameras(torch.from_numpy(xy), torch.from_numpy(sc),
+                                      2.0 / fov)).numpy()
+    assert (prims.B7_LAUNCHES, prims.B8_LAUNCHES, fused.LAUNCHES) == before
+    assert got.shape == want.shape == (2, 3, res, res)
+    assert _same_pixels(got, want, f'differentiable textured={textured}') >= 0.999
+    assert len(np.unique(got.transpose(1, 0, 2, 3).reshape(3, -1).T, axis=0)) >= 4
 
 
 def _world_mesh(seed, xy, fov, n_faces=80):

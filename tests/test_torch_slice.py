@@ -87,6 +87,7 @@ def _arrays(scn):
         direction_cell=grids.direction.cell_size, texture=tex.data,
         texture_origin=tex.origin, texture_cell=tex.cell_size, dt=scn.dt,
         res=scn.res, fov=scn.fov,
+        background_downsample=sim.renderer.cfg.background_downsample,
         left_handed=bool(sim.cfg.left_handed_coordinates))
     for name in ('durations_cum', 'colors', 'tail_end', 'period', 'offset',
                  'light_fsm', 'n_rows'):
@@ -162,3 +163,47 @@ def test_port_scenario_equals_jax_scenario(jax_scenario):
                                       want['schedule_' + name])
     np.testing.assert_allclose(sim.traffic_controls['traffic_light'].corners.numpy(),
                                want['light_corners'], atol=1e-4, rtol=0)
+
+
+def _render_both(jax_scenario, port, res, fov):
+    """``Simulator.render`` from each ego of the JAX scenario (under
+    ``jit``) and of the port's, as numpy."""
+    from torchdrivesim_tpu.utils import Resolution as JaxResolution
+    from torchdrivesim_tpu_torch.utils import Resolution
+    scn = jax_scenario[0]
+    ego = np.asarray(scn.sim.state.agent_state[:, 0])
+    want = np.asarray(jax.jit(lambda xy, psi: scn.sim.render(
+        xy, psi, res=JaxResolution(res, res), fov=fov))(ego[:, :2], ego[:, 2:3]))
+    got = port.sim.render(torch.from_numpy(ego[:, :2]), torch.from_numpy(ego[:, 2:3]),
+                          res=Resolution(res, res), fov=fov).numpy()
+    assert got.shape == want.shape == (B, 1, 3, res, res)
+    return got, want
+
+
+def test_wide_view_render_matches_jax(jax_scenario):
+    """A 400 m view at res 64, which no mip level covers: the background is
+    the texture sampled at res / 2 and upsampled bilinearly, the reference
+    scenario's default ``background_downsample=2``, under the banded
+    primitive raster; at least 99.9% of the pixels identical."""
+    port = scenario_from_arrays(_arrays(jax_scenario[0]), device='cpu')
+    assert port.sim.renderer.cfg.background_downsample == 2
+    assert build_benchmark_scenario(batch_size=1, agent_count=1, device='cpu'
+                                    ).sim.renderer.cfg.background_downsample == 2
+    got, want = _render_both(jax_scenario, port, 64, 400.0)
+    same = (got == want).all(axis=2)
+    print(f'wide view: {int(same.sum())} of {same.size} pixels identical')
+    assert same.mean() >= 0.999
+
+
+def test_differentiable_render_matches_jax(jax_scenario, monkeypatch):
+    """``Simulator.render`` of the textured scenario in differentiable mode
+    takes the reference's plain fallback of the primitive render; at least
+    99.9% of the pixels identical."""
+    port = scenario_from_arrays(_arrays(jax_scenario[0]), device='cpu')
+    monkeypatch.setattr(jax_scenario[0].sim.renderer.cfg, 'differentiable', True)
+    port.sim.renderer.cfg.differentiable = True
+    got, want = _render_both(jax_scenario, port, RES, 70.0)
+    same = (got == want).all(axis=2)
+    print(f'differentiable render: {int(same.sum())} of {same.size} pixels identical')
+    assert same.mean() >= 0.999
+    assert len(np.unique(got.transpose(2, 0, 1, 3, 4).reshape(3, -1).T, axis=0)) >= 4

@@ -264,15 +264,19 @@ def test_no_faces_returns_background_and_bounds_are_checked():
     verts = torch.zeros(1, 0, 3)
     faces = torch.zeros(1, 0, 3, dtype=torch.int64)
     assert soft.rasterize_softmax_chw(verts, faces, torch.zeros(1, 0, 3), 16, bg) is bg
+    # more than 128 faces take the grouped path: 129 degenerate faces
+    # leave the background
     faces = torch.zeros(1, 129, 3, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match='B5a/b'):
-        soft.rasterize_softmax_chw(torch.zeros(1, 3, 3), faces,
-                                   torch.zeros(1, 3, 3), 16, bg)
+    out = soft.rasterize_softmax_chw(torch.zeros(1, 3, 3), faces,
+                                     torch.zeros(1, 3, 3), 16, bg)
+    torch.testing.assert_close(out, bg, atol=0, rtol=0)
     coef, zw, color = torch.zeros(1, 2, 3, 3), torch.zeros(1, 1, 2), torch.zeros(1, 2, 3)
     with pytest.raises(ValueError):
         soft.soft_raster_fwd(coef, zw.double(), color, bg)
     with pytest.raises(ValueError):
         soft.soft_raster_fwd(coef, torch.zeros(1, 2), color, bg)
+    with pytest.raises(ValueError):          # not a whole number of groups
+        soft.soft_accum_fwd(coef, zw, color, 16)
 
 
 _STUB = r'''

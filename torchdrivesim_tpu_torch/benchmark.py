@@ -29,7 +29,7 @@ import torch
 
 import torchdrivesim_tpu_torch.kinematic as K
 from torchdrivesim_tpu_torch.behavior.heuristic import heuristic_initialize
-from torchdrivesim_tpu_torch.imitation import render_ego
+from torchdrivesim_tpu_torch.imitation import ego_view
 from torchdrivesim_tpu_torch.infractions import compute_collision_matrix
 from torchdrivesim_tpu_torch.map import (
     MapConfig, find_map_config, traffic_controls_from_map_config,
@@ -143,6 +143,8 @@ def build_benchmark_scenario(map_name: str = 'carla_Town02',
                              batch_size: int = 256, agent_count: int = 20,
                              res: int = 128, fov: float = 70.0,
                              dt: float = 0.1, seed: int = 0,
+                             use_texture: bool = True,
+                             background_downsample: int = 2,
                              n_layouts: int = 4,
                              device='cuda') -> BenchmarkScenario:
     """
@@ -150,8 +152,11 @@ def build_benchmark_scenario(map_name: str = 'carla_Town02',
     map, each with ``agent_count`` bicycle-model vehicles placed on lanelet
     centerlines (``n_layouts`` distinct layouts tiled over the batch), the
     traffic-light stack on its baked FSM schedule, the baked grids, and the
-    renderer. All randomness comes from one ``random.Random(seed)``, drawn
-    in the reference's order, so the scenario equals the reference's.
+    renderer: over the baked map texture with ``use_texture`` (views no mip
+    level covers sample it at ``res / background_downsample`` and upsample),
+    else over the map mesh. All randomness comes from one
+    ``random.Random(seed)``, drawn in the reference's order, so the scenario
+    equals the reference's.
     """
     device = torch.device(device)
     cfg_map = find_map_config(map_name)
@@ -172,6 +177,7 @@ def build_benchmark_scenario(map_name: str = 'carla_Town02',
     kin.set_params(lr=attrs[..., 2])
     kin.set_state(states)
     cfg = TorchDriveConfig(left_handed_coordinates=left_handed)
+    cfg.renderer.background_downsample = background_downsample
     controls = {k: v.extend(batch_size) for k, v in
                 traffic_controls_from_map_config(cfg_map, device=device).items()}
     sim = Simulator(
@@ -181,7 +187,8 @@ def build_benchmark_scenario(map_name: str = 'carla_Town02',
         map_grids=cfg_map.grids(device=device))
     sim.renderer.res = Resolution(res, res)
     sim.renderer.scale = 2.0 / fov
-    sim.renderer.background_texture = load_or_bake_texture(cfg_map)
+    if use_texture:
+        sim.renderer.background_texture = load_or_bake_texture(cfg_map)
 
     schedule = None
     controller = cfg_map.traffic_light_controller(rng)
@@ -242,38 +249,61 @@ def run_benchmark(scenario: BenchmarkScenario, steps_per_chunk: int = 100,
 
 
 def build_il_scenario(batch_size: int = 16, agent_count: int = 8, res: int = 64,
-                      fov: float = 70.0, seed: int = 0,
-                      device='cuda') -> BenchmarkScenario:
+                      fov: float = 70.0, seed: int = 0, use_texture: bool = True,
+                      n_layouts: int = 4, device='cuda') -> BenchmarkScenario:
     """The imitation-learning gradient configuration: the benchmark world
-    (carla_Town02 by default) with the renderer in differentiable mode."""
+    (carla_Town02 by default, ``n_layouts`` distinct layouts tiled over the
+    batch) with the renderer in differentiable mode; over the map texture
+    with ``use_texture``, else over the road mesh."""
     scenario = build_benchmark_scenario(batch_size=batch_size,
                                         agent_count=agent_count, res=res,
-                                        fov=fov, seed=seed, device=device)
+                                        fov=fov, seed=seed, use_texture=use_texture,
+                                        n_layouts=n_layouts, device=device)
     scenario.sim.renderer.cfg.differentiable = True
     return scenario
 
 
-def make_il_loss_fn(scenario: BenchmarkScenario, policy: torch.nn.Module,
-                    horizon: int = 40) -> Callable[..., torch.Tensor]:
+def il_view(scenario: BenchmarkScenario, state):
+    """The frame the imitation-learning rollout renders from ``state``:
+    (mesh, cameras) of :func:`imitation.ego_view`, the map mesh drawn when
+    the renderer has no texture, as ``Simulator.render`` decides."""
+    sim = scenario.sim
+    return ego_view(sim, state, 2.0 / scenario.fov,
+                    include_background=sim.renderer.background_texture is None)
+
+
+def make_il_rollout_fn(scenario: BenchmarkScenario, policy: torch.nn.Module,
+                       horizon: int = 40) -> Callable:
     """
-    ``loss_fn(state)``: roll the scenario ``horizon`` steps with the first
-    agent of each environment driven by ``policy`` on its differentiable
-    egocentric view (actors only, over the bilinear mip warp of the map
-    texture) and the others holding zero action; the loss is the mean
-    squared final position of the first agent.
+    ``rollout(state) -> state``: ``horizon`` steps of the scenario with the
+    first agent of each environment driven by ``policy`` on its
+    differentiable egocentric view (:func:`il_view`: the actors over the
+    bilinear mip warp of the map texture, or over the road mesh without a
+    texture) and the others holding zero action.
     """
     sim = scenario.sim
-    scale = 2.0 / scenario.fov
+    res = Resolution(scenario.res, scenario.res)
 
-    def loss_fn(state) -> torch.Tensor:
+    def rollout(state):
         b, n = state.agent_state.shape[:2]
         rest = torch.zeros((b, n - 1, 2), device=state.agent_state.device)
         for _ in range(horizon):
-            image = render_ego(sim, state, scenario.res, scale,
-                               include_background=False)
-            act = policy(image)
+            mesh, cameras = il_view(scenario, state)
+            act = policy(sim.renderer.render_rgb_mesh_chw(mesh, res, cameras))
             state = sim.functional_step(state, torch.cat([act[:, None], rest], dim=1))
-        return torch.mean(state.agent_state[:, 0, :2] ** 2)
+        return state
+
+    return rollout
+
+
+def make_il_loss_fn(scenario: BenchmarkScenario, policy: torch.nn.Module,
+                    horizon: int = 40) -> Callable[..., torch.Tensor]:
+    """``loss_fn(state)``: the mean squared final position of the first
+    agent after :func:`make_il_rollout_fn`'s rollout."""
+    rollout = make_il_rollout_fn(scenario, policy, horizon)
+
+    def loss_fn(state) -> torch.Tensor:
+        return torch.mean(rollout(state).agent_state[:, 0, :2] ** 2)
 
     return loss_fn
 

@@ -24,7 +24,8 @@ The arrays (B environments, A agents, N traffic lights):
   ``direction_cell``;
 * the texture: ``texture`` (H, W, 3) float in [0, 1], ``texture_origin``,
   ``texture_cell``;
-* scalars: ``dt``, ``res``, ``fov``, ``left_handed``.
+* scalars: ``dt``, ``res``, ``fov``, ``left_handed``, and optionally
+  ``background_downsample`` (the renderer's, 1 when absent).
 """
 from typing import Dict
 
@@ -66,6 +67,7 @@ def scenario_from_arrays(a: Dict, device='cuda') -> BenchmarkScenario:
     control.actor_ids = [int(i) for i in a['light_ids']]
 
     cfg = TorchDriveConfig(left_handed_coordinates=left_handed)
+    cfg.renderer.background_downsample = int(a.get('background_downsample', 1))
     npc = NPCController(t(a['npc_size']), t(a['npc_state']),
                         t(a['npc_present_mask'], torch.bool))
     grids = map_grids_from_arrays(

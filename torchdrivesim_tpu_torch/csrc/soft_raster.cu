@@ -31,7 +31,9 @@
 // cannot contract them into fused multiply-adds, and the logistic is
 // __frcp_rn(1 + expf(-t)) with the accurate expf; the plain PyTorch versions
 // (ops/soft.py) perform the same operations, so the forward and gbg agree
-// with them bit for bit and the reduced sums to summation order.
+// with them bit for bit and the reduced sums to summation order. The
+// per-face terms, the face staging and the gradient terms live in
+// soft_face.cuh, shared with the grouped kernels (soft_accum.cu).
 //
 // Bound: per face and pixel the forward evaluates 3 exp and 3 reciprocals
 // on the special-function units. At the IL configuration (16 cameras,
@@ -45,58 +47,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "soft_face.cuh"
+
 namespace {
+
+using namespace tds;
 
 constexpr int kMaxFaces = 128;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kFaceFloats = 13;   // coef[9], zw, color[3]
-
-__device__ __forceinline__ float affine(float a, float x, float b, float y,
-                                        float c) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(a, x), __fmul_rn(b, y)), c);
-}
-
-__device__ __forceinline__ float clampf(float v, float lo, float hi) {
-  return fminf(fmaxf(v, lo), hi);
-}
-
-// the per-face quantities of ops/pallas_soft.py:_accumulate_face
-struct FaceTerms {
-  float t[3];
-  float s[3];
-  float big_s;
-  float tmin;
-  float alpha;
-};
-
-__device__ __forceinline__ FaceTerms face_terms(const float* fc, float px,
-                                                float py) {
-  FaceTerms ft;
-#pragma unroll
-  for (int e = 0; e < 3; ++e) {
-    ft.t[e] = affine(fc[3 * e], px, fc[3 * e + 1], py, fc[3 * e + 2]);
-    ft.s[e] = __frcp_rn(__fadd_rn(1.0f, expf(-clampf(ft.t[e], -30.0f, 30.0f))));
-  }
-  ft.big_s = __fmul_rn(__fmul_rn(ft.s[0], ft.s[1]), ft.s[2]);
-  ft.tmin = fminf(fminf(ft.t[0], ft.t[1]), ft.t[2]);
-  const float window = clampf(__fadd_rn(ft.tmin, 4.0f), 0.0f, 1.0f);
-  ft.alpha = __fmul_rn(ft.big_s, window);
-  return ft;
-}
-
-// stage the camera's face table: per face coef[9], zw, color[3]
-__device__ __forceinline__ void load_faces(const float* coef, const float* zw,
-                                           const float* color, int cam,
-                                           int n_faces, float* s_face) {
-  const size_t base = (size_t)cam * n_faces;
-  for (int i = threadIdx.x; i < n_faces * 9; i += blockDim.x)
-    s_face[(i / 9) * kFaceFloats + i % 9] = coef[base * 9 + i];
-  for (int i = threadIdx.x; i < n_faces; i += blockDim.x)
-    s_face[i * kFaceFloats + 9] = zw[base + i];
-  for (int i = threadIdx.x; i < n_faces * 3; i += blockDim.x)
-    s_face[(i / 3) * kFaceFloats + 10 + i % 3] = color[base * 3 + i];
-}
 
 __global__ void __launch_bounds__(kThreads)
 soft_fwd_kernel(const float* __restrict__ coef, const float* __restrict__ zw,
@@ -104,7 +63,7 @@ soft_fwd_kernel(const float* __restrict__ coef, const float* __restrict__ zw,
                 int n_faces, int res, float* __restrict__ out) {
   extern __shared__ float s_face[];
   const int cam = blockIdx.y;
-  load_faces(coef, zw, color, cam, n_faces, s_face);
+  load_faces(coef, zw, color, (size_t)cam * n_faces, n_faces, s_face);
   __syncthreads();
 
   const int npix = res * res;
@@ -151,7 +110,7 @@ soft_bwd_kernel(const float* __restrict__ coef, const float* __restrict__ zw,
   const int cam = blockIdx.y;
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
-  load_faces(coef, zw, color, cam, n_faces, s_face);
+  load_faces(coef, zw, color, (size_t)cam * n_faces, n_faces, s_face);
   __syncthreads();
 
   const int npix = res * res;
@@ -214,31 +173,11 @@ soft_bwd_kernel(const float* __restrict__ coef, const float* __restrict__ zw,
     const float dl_dalpha = __fadd_rn(__fmul_rn(fc[9], dl_dw),
                                       __fmul_rn(dl_da, except_f));
     const FaceTerms ft = face_terms(fc, px, py);
-    const float wmask = (ft.tmin > -4.0f && ft.tmin < -3.0f) ? 1.0f : 0.0f;
-    const float sw = __fmul_rn(__fmul_rn(dl_dalpha, ft.big_s), wmask);
-
     float vals[kFaceFloats];
-#pragma unroll
-    for (int e = 0; e < 3; ++e) {
-      const float tie = ft.t[e] == ft.tmin ? 1.0f : 0.0f;
-      const float gt = __fadd_rn(
-          __fmul_rn(dl_dalpha, __fmul_rn(alpha, __fsub_rn(1.0f, ft.s[e]))),
-          __fmul_rn(sw, tie));
-      vals[3 * e + 0] = __fmul_rn(gt, px);
-      vals[3 * e + 1] = __fmul_rn(gt, py);
-      vals[3 * e + 2] = gt;
-    }
-    vals[9] = __fmul_rn(dl_dw, alpha);
-    const float w = __fmul_rn(alpha, fc[9]);
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) vals[10 + ch] = __fmul_rn(p[ch], w);
-
+    face_grad_terms(ft, alpha, dl_dalpha, dl_dw, p, fc[9], px, py, vals);
 #pragma unroll
     for (int k = 0; k < kFaceFloats; ++k) {
-      float v = live ? vals[k] : 0.0f;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, off));
+      const float v = warp_sum(live ? vals[k] : 0.0f);
       if (lane == 0) s_red[(warp * n_faces + f) * kFaceFloats + k] = v;
     }
   }

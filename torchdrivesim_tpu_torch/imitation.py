@@ -90,10 +90,11 @@ def build_synthetic_simulator(road: BirdviewMesh, states0: torch.Tensor,
     return sim
 
 
-def render_ego(sim: Simulator, state: SimulatorState, res: int, scale: float,
-               include_background: bool) -> torch.Tensor:
-    """Each environment's differentiable egocentric view from its first
-    agent, (B, 3, res, res) in [0, 255]."""
+def ego_view(sim: Simulator, state: SimulatorState, scale: float,
+             include_background: bool):
+    """Each environment's egocentric frame from its first agent: (the
+    frame's mesh, actors and, with ``include_background``, the map, as the
+    renderer takes it; the cameras at ``scale``)."""
     all_state = torch.cat([state.agent_state, state.npc_state], dim=-2)
     present = torch.cat([state.present_mask, state.npc_present_mask], dim=-1)
     mesh = sim.birdview_mesh_generator.generate(
@@ -103,20 +104,26 @@ def render_ego(sim: Simulator, state: SimulatorState, res: int, scale: float,
     cameras = Cameras(ego[:, :2], torch.stack([torch.sin(ego[:, 2]),
                                                torch.cos(ego[:, 2])], dim=-1),
                       scale)
+    return mesh, cameras
+
+
+def render_ego(sim: Simulator, state: SimulatorState, res: int, scale: float,
+               include_background: bool) -> torch.Tensor:
+    """Each environment's differentiable egocentric view from its first
+    agent (:func:`ego_view`), (B, 3, res, res) in [0, 255]."""
+    mesh, cameras = ego_view(sim, state, scale, include_background)
     return sim.renderer.render_rgb_mesh_chw(mesh, Resolution(res, res), cameras)
 
 
-def make_bc_train_step(sim: Simulator, policy: torch.nn.Module,
-                       optimizer: torch.optim.Optimizer, res: int
-                       ) -> Callable[[SimulatorState, torch.Tensor], torch.Tensor]:
+def make_bc_loss_fn(sim: Simulator, policy: torch.nn.Module, res: int
+                    ) -> Callable[[SimulatorState, torch.Tensor], torch.Tensor]:
     """
-    The behaviour-cloning training step: one rollout of T steps, each a
-    render, a policy call and a kinematic step, the loss against the expert
-    and one optimizer step on its gradient.
+    The behaviour-cloning loss: one rollout of T steps, each a render of the
+    road and the actors, a policy call and a kinematic step, and the mean
+    squared error of the positions against the expert's.
 
     Returns:
-        ``train_step(state0, expert) -> loss`` where ``expert`` is
-        (T, B, A, 4); the loss is returned detached, before the update.
+        ``loss_fn(state0, expert) -> loss`` where ``expert`` is (T, B, A, 4).
     """
     def loss_fn(state0: SimulatorState, expert: torch.Tensor) -> torch.Tensor:
         state, preds = state0, []
@@ -128,6 +135,22 @@ def make_bc_train_step(sim: Simulator, policy: torch.nn.Module,
             preds.append(state.agent_state)
         preds = torch.stack(preds)
         return torch.mean((preds[..., :2] - expert[..., :2]) ** 2)
+
+    return loss_fn
+
+
+def make_bc_train_step(sim: Simulator, policy: torch.nn.Module,
+                       optimizer: torch.optim.Optimizer, res: int
+                       ) -> Callable[[SimulatorState, torch.Tensor], torch.Tensor]:
+    """
+    The behaviour-cloning training step: the loss of :func:`make_bc_loss_fn`
+    and one optimizer step on its gradient.
+
+    Returns:
+        ``train_step(state0, expert) -> loss`` where ``expert`` is
+        (T, B, A, 4); the loss is returned detached, before the update.
+    """
+    loss_fn = make_bc_loss_fn(sim, policy, res)
 
     def train_step(state0: SimulatorState, expert: torch.Tensor) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)

@@ -1,8 +1,10 @@
 """
 Screen-space primitive preparation for the fused render, the row-major
-sort and band masks of the banded primitive raster, the view cull of the
-hard mesh render, the full-resolution nearest background of views no mip
-level covers, and the plain softmax-blend soft raster (counterpart of the
+sort and band masks of the banded primitive raster, the view culls of the
+hard mesh render and of the differentiable primitive render, the plain hard
+raster that render falls back to, the full-resolution nearest background of
+views no mip level covers, and the plain softmax-blend soft raster
+(counterpart of the
 parts of ``torchdrivesim_tpu/ops/rasterize.py`` and
 ``ops/pallas_rasterize.py`` that the primitive paths, the hard mesh path
 and the differentiable path run).
@@ -128,6 +130,75 @@ def cull_faces_to_view(corners: torch.Tensor, z: torch.Tensor, color: torch.Tens
     z = torch.gather(z, 1, idx)
     color = torch.gather(color, 1, idx[..., None].expand(-1, -1, color.shape[-1]))
     return corners, z, color
+
+
+def cull_prims_to_view(corners: torch.Tensor, z: torch.Tensor, color: torch.Tensor,
+                       res: int, keep: int):
+    """
+    :func:`cull_faces_to_view` for K-corner primitives (quads, triangles),
+    as the reference's ``cull_prims_to_view``: keep the ``keep`` prims whose
+    centroid (:func:`_mean_corners`) is nearest the image center, prims of
+    area ``|e1 x e2|`` (corners 0 -> 1 and 0 -> K-1) at most
+    ``DEGENERATE_AREA_EPS`` last, equal distances in index order.
+
+    Args:
+        corners: (B, N, K, 2) screen-space corners; z: (B, N); color (B, N, 3).
+    Returns:
+        (corners (B, keep, K, 2), z, color), or the inputs when N <= keep.
+    """
+    n, k = corners.shape[1], corners.shape[2]
+    if n <= keep:
+        return corners, z, color
+    d2 = ((_mean_corners(corners) - res / 2.0) ** 2).sum(dim=-1)
+    e1 = corners[:, :, 1] - corners[:, :, 0]
+    e2 = corners[:, :, -1] - corners[:, :, 0]
+    area = torch.abs(e1[..., 0] * e2[..., 1] - e1[..., 1] * e2[..., 0])
+    d2 = torch.where(area > DEGENERATE_AREA_EPS, d2, torch.inf)
+    idx = torch.sort(d2, dim=1, stable=True).indices[:, :keep]        # (B, keep)
+    corners = torch.gather(corners, 1, idx[..., None, None].expand(-1, -1, k, 2))
+    z = torch.gather(z, 1, idx)
+    color = torch.gather(color, 1, idx[..., None].expand(-1, -1, color.shape[-1]))
+    return corners, z, color
+
+
+BIG_Z = 1e9
+
+#: faces whose edge functions are evaluated together by rasterize_hard_faces
+_HARD_FACE_CHUNK = 16
+
+
+def rasterize_hard_faces(corners: torch.Tensor, z: torch.Tensor, color: torch.Tensor,
+                         res: int, background: torch.Tensor) -> torch.Tensor:
+    """
+    The reference's plain hard raster of per-face arrays
+    (``rasterize_hard_faces``), channels first: a pixel takes the color of
+    the covering face of least z, the first in face order among equal z
+    (a strict ``<`` against the running minimum, which starts at
+    ``BIG_Z``), else the background. A face covers a pixel center where its
+    three edge functions share a sign and its area exceeds
+    ``DEGENERATE_AREA_EPS``.
+
+    Args:
+        corners: (B, F, 3, 2) screen corners (row, col); z: (B, F);
+        color: (B, F, 3); background: (B, 3, res, res).
+    Returns:
+        (B, 3, res, res).
+    """
+    coords = torch.arange(res, dtype=corners.dtype, device=corners.device) + 0.5
+    px = coords[:, None].expand(res, res)
+    py = coords[None, :].expand(res, res)
+    best_z = corners.new_full((corners.shape[0], res, res), BIG_Z)
+    best = background
+    for lo in range(0, corners.shape[1], _HARD_FACE_CHUNK):
+        e, area = edge_functions(corners[:, lo:lo + _HARD_FACE_CHUNK], px, py)
+        cover = ((e >= 0).all(dim=2) | (e <= 0).all(dim=2)) \
+            & (torch.abs(area) > DEGENERATE_AREA_EPS)[..., None, None]
+        for f in range(cover.shape[1]):
+            zval = torch.where(cover[:, f], z[:, lo + f, None, None], BIG_Z)
+            better = zval < best_z
+            best_z = torch.where(better, zval, best_z)
+            best = torch.where(better[:, None], color[:, lo + f, :, None, None], best)
+    return best
 
 
 def edge_functions(corners: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
@@ -502,6 +573,45 @@ def _pixel_world_coords(cam_xy: torch.Tensor, cam_sc: torch.Tensor, scale: float
                         dy + cam_xy[:, 1, None, None]], dim=-1)
 
 
+def _resize_taps(n_in: int, n_out: int, device):
+    """
+    The reference's bilinear resize weights along one dimension
+    (``jax.image.resize(..., 'bilinear')`` upsampling: half-pixel centers,
+    a triangle kernel, each output's weights divided by their sum, which
+    amounts to clamping at the border), computed in float32 as it computes
+    them. Returns each output's first and last input index and their
+    weights (the last weight 0 where a single input serves the output).
+    """
+    f32 = dict(dtype=torch.float32, device=device)
+    inv = torch.tensor(1.0, **f32) / torch.tensor(n_out / n_in, **f32)
+    sample = (torch.arange(n_out, **f32) + 0.5) * inv - 0.5
+    weights = torch.clamp(1 - torch.abs(sample[None, :]
+                                        - torch.arange(n_in, **f32)[:, None]), min=0)
+    total = weights.sum(dim=0, keepdim=True)
+    weights = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                          weights / torch.where(total != 0, total, 1.0), 0.0)
+    nonzero = weights > 0
+    rows = torch.arange(n_in, device=device)[:, None]
+    lo = torch.where(nonzero, rows, n_in).amin(dim=0)
+    hi = torch.where(nonzero, rows, -1).amax(dim=0)
+    cols = torch.arange(n_out, device=device)
+    w_hi = torch.where(hi > lo, weights[hi, cols], 0.0)
+    return lo, hi, weights[lo, cols], w_hi
+
+
+def _resize_dim(img: torch.Tensor, dim: int, n_out: int) -> torch.Tensor:
+    """One dimension of the bilinear resize, summed as the reference's
+    compiled contraction sums it: the first tap's product rounded, then the
+    second tap's product added with a single rounding (a fused multiply-add,
+    exact here in float64 before the one rounding to float32)."""
+    lo, hi, w_lo, w_hi = _resize_taps(img.shape[dim], n_out, img.device)
+    shape = [1] * img.dim()
+    shape[dim] = n_out
+    first = img.index_select(dim, lo) * w_lo.reshape(shape)
+    second = img.index_select(dim, hi).double() * w_hi.reshape(shape).double()
+    return (first.double() + second).to(img.dtype)
+
+
 def sample_background_packed(texture: torch.Tensor, origin, cell_size: float,
                              cam_xy: torch.Tensor, cam_sc: torch.Tensor,
                              scale: float, res: int,
@@ -513,23 +623,20 @@ def sample_background_packed(texture: torch.Tensor, origin, cell_size: float,
     per pixel (the reference's ``sample_background_packed`` with
     ``chw=True``): pixel centers map to world coordinates, to texel
     coordinates rounded half to even; a texel outside the texture takes the
-    background color.
+    background color. With ``downsample`` k > 1 the view is sampled at
+    ``res // k`` and resized to ``res`` bilinearly, rows then columns, as the
+    reference's ``jax.image.resize`` does.
 
     Args:
         texture: (H, W) int32 0x00BBGGRR from :func:`pack_texture_rgb8`,
             unpadded: its shape is the texture's extent.
         origin: (2,) world coordinates of texel (0, 0); cell_size in meters.
         background_color: (3,) float in [0, 1].
-        downsample: only 1 (sampling at a lower resolution and the
-            bilinear upsample are not ported).
     Returns:
         (B, 3, res, res) float32 in [0, 1].
     """
-    if downsample != 1:
-        raise NotImplementedError(
-            f'background_downsample={downsample}: the bilinear upsample of a '
-            'subsampled background is not ported (ROADMAP A10)')
-    world = _pixel_world_coords(cam_xy, cam_sc, scale, res, left_handed)
+    sample_res = res // downsample
+    world = _pixel_world_coords(cam_xy, cam_sc, scale, sample_res, left_handed)
     origin = torch.as_tensor(origin, dtype=torch.float32, device=world.device)
     uv = (world - origin) / cell_size
     xi = torch.round(uv[..., 0]).to(torch.int32)
@@ -540,5 +647,8 @@ def sample_background_packed(texture: torch.Tensor, origin, cell_size: float,
     packed = texture.reshape(-1)[idx]
     img = torch.stack([(packed >> s) & 0xFF for s in (0, 8, 16)], dim=1
                       ).to(torch.float32) * _INV255
-    return torch.where(valid[:, None], img,
-                       background_color.to(torch.float32)[None, :, None, None])
+    img = torch.where(valid[:, None], img,
+                      background_color.to(torch.float32)[None, :, None, None])
+    if downsample > 1:
+        img = _resize_dim(_resize_dim(img, 2, res), 3, res)
+    return img

@@ -1,7 +1,9 @@
 """
-Differentiable softmax-blend soft rasterization of up to 128 faces per camera
-(counterpart of the single-group path of
-``torchdrivesim_tpu/ops/pallas_soft.py``).
+Differentiable softmax-blend soft rasterization of any number of faces per
+camera (counterpart of ``torchdrivesim_tpu/ops/pallas_soft.py``): up to
+``MAX_FACES`` faces at up to 128 pixels through one kernel pair that also
+composites (the reference's single-group path), more faces or larger views
+through the grouped accumulators (its grouped path).
 
 Per pixel each face contributes soft coverage ``alpha = prod_e sigmoid(t_e)
 * ramp(min_e t_e)``, with ``t_e`` the signed pixel distance to edge ``e``
@@ -14,8 +16,17 @@ z weights, colors, background). Everything upstream (vertex gather, edge
 normalisation, degenerate-face masking: :func:`soft_coefficients`) is plain
 differentiable PyTorch, so gradients flow to vertices and camera pose.
 :func:`soft_raster_fwd` and :func:`soft_raster_bwd` launch the hand-written
-CUDA kernels (``csrc/soft_raster.cu``) for CUDA tensors and run the plain
-PyTorch versions for CPU tensors.
+CUDA kernels (``csrc/soft_raster.cu``), :func:`soft_accum_fwd` and
+:func:`soft_accum_bwd` those of the grouped path (``csrc/soft_accum.cu``),
+for CUDA tensors, and run the plain PyTorch versions for CPU tensors.
+
+The grouped path pads the faces to whole ``MAX_FACES`` groups (padding rows:
+coefficients 0 except C = -1e9, z weight 0, color 0, so alpha is exactly 0)
+and maps them to the totals (num, den, transp): each group's partials start
+from 0, 0, 1 and take its faces in ascending order, and the groups combine
+as the reference's XLA does, ``num + n_g``, ``den + d_g``, ``transp * t_g``
+for g = 0, 1, ... One kernel launch covers every group. The composite is
+plain differentiable PyTorch, as in the reference.
 """
 import ctypes
 from typing import Tuple
@@ -26,15 +37,19 @@ from torchdrivesim_tpu_torch.ops.build import KernelLibrary, check_launch
 from torchdrivesim_tpu_torch.ops.rasterize import DEGENERATE_AREA_EPS, face_arrays
 from torchdrivesim_tpu_torch.ops.warp import affine
 
-#: faces per camera the kernels take; more faces need the grouped path
+#: faces per camera the single-group kernels take, and the group size of
+#: the grouped path (the reference's constant)
 MAX_FACES = 128
 
 #: kernel launches since import (or the last reset by the caller): a run can
 #: show that its main path went through the kernels
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+ACCUM_FWD_LAUNCHES = 0
+ACCUM_BWD_LAUNCHES = 0
 
 _THREADS = 128      #: pixels per block in csrc/soft_raster.cu
+_ACCUM_BWD_THREADS = 256    #: pixels per block of the grouped backward
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -54,6 +69,26 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 LIBRARY = KernelLibrary('soft_raster.cu', _bind)
+
+
+def _bind_accum(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the grouped entry points' signatures (see
+    ``csrc/soft_accum.cu``): forward: coef, zw, color pointers; batch,
+    faces, group, res; num, den, transp, stream; backward: coef, zw, color,
+    gnum, gden, gtransp pointers; batch, faces, group, res; scratch,
+    partial, stream."""
+    fwd = lib.tds_soft_accum_fwd
+    fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p] * 4
+    fwd.restype = ctypes.c_int
+    bwd = lib.tds_soft_accum_bwd
+    bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p] * 3
+    bwd.restype = ctypes.c_int
+    return lib
+
+
+ACCUM_LIBRARY = KernelLibrary('soft_accum.cu', _bind_accum)
 
 
 def soft_coefficients(verts: torch.Tensor, faces: torch.Tensor,
@@ -183,8 +218,27 @@ def soft_raster_bwd_reference(coef: torch.Tensor, zw: torch.Tensor,
         q = q - p[ch] * cface[ch] * dmask
     gbg = torch.stack([gch[ch] * transp for ch in range(3)], dim=1)
 
+    sums = _face_rows(coef, zw, color, kept, p, q, dl_da, px, py)
+    return (sums[..., :9].reshape(b, n_faces, 3, 3), sums[..., 9][:, None, :],
+            sums[..., 10:13], gbg)
+
+
+def _face_rows(coef, zw, color, kept, chan, offset, k, px, py) -> torch.Tensor:
+    """
+    Pass 2 of the backward over one run of faces, in descending order with a
+    running suffix product: per face ``dl/dw = sum_c chan_c * color_c +
+    offset`` and ``dl/dalpha = zw * dl/dw + k * prod_{f' != f} (1 -
+    alpha_f')``, then the 13 gradient terms summed over the pixels.
+
+    Args:
+        kept: each face's (alpha, exclusive prefix product) from pass 1.
+        chan: the three per-channel cotangents of the weighted color.
+    Returns:
+        (B, F, 13): [gA gB gC] per edge, gzw, gcolor.
+    """
+    n_faces = coef.shape[1]
     sums = [None] * n_faces
-    suffix = torch.ones_like(den)
+    suffix = torch.ones_like(offset)
     total = lambda x: x.sum(dim=(-2, -1))
     for f in range(n_faces - 1, -1, -1):
         alpha, prefix = kept[f]
@@ -192,36 +246,27 @@ def soft_raster_bwd_reference(coef: torch.Tensor, zw: torch.Tensor,
         suffix = suffix * (1.0 - alpha)
         col = lambda ch: color[:, f, ch][:, None, None]
         zwf = zw[:, 0, f][:, None, None]
-        dl_dw = p[0] * col(0) + p[1] * col(1) + p[2] * col(2) + q
-        dl_dalpha = zwf * dl_dw + dl_da * except_f
+        dl_dw = chan[0] * col(0) + chan[1] * col(1) + chan[2] * col(2) + offset
+        dl_dalpha = zwf * dl_dw + k * except_f
         t, s, big_s, tmin, _ = _face_terms(coef, f, px, py)
-        wmask = ((tmin > -4.0) & (tmin < -3.0)).to(den.dtype)
+        wmask = ((tmin > -4.0) & (tmin < -3.0)).to(offset.dtype)
         sw = dl_dalpha * big_s * wmask
         row = []
         for e in range(3):
             gt = dl_dalpha * (alpha * (1.0 - s[e])) \
-                + sw * (t[e] == tmin).to(den.dtype)
+                + sw * (t[e] == tmin).to(offset.dtype)
             row += [total(gt * px), total(gt * py), total(gt)]
         row.append(total(dl_dw * alpha))
         w = alpha * zwf
-        row += [total(p[ch] * w) for ch in range(3)]
+        row += [total(chan[ch] * w) for ch in range(3)]
         sums[f] = torch.stack(row, dim=-1)                   # (B, 13)
-    sums = torch.stack(sums, dim=1)                          # (B, F, 13)
-    return (sums[..., :9].reshape(b, n_faces, 3, 3), sums[..., 9][:, None, :],
-            sums[..., 10:13], gbg)
+    return torch.stack(sums, dim=1)
 
 
-def _check(coef, zw, color, background, g=None):
-    b, n_faces = coef.shape[0], coef.shape[1]
-    res = background.shape[-1]
-    if not 1 <= n_faces <= MAX_FACES:
-        raise ValueError(f'1 to {MAX_FACES} faces per camera, got {n_faces}')
-    want = {'coef': (coef, (b, n_faces, 3, 3)), 'zw': (zw, (b, 1, n_faces)),
-            'color': (color, (b, n_faces, 3)),
-            'background': (background, (b, 3, res, res))}
-    if g is not None:
-        want['g'] = (g, (b, 3, res, res))
-    # float64 only for the plain version (gradient checks on the CPU)
+def _check_operands(coef: torch.Tensor, want) -> None:
+    """Raise unless every ``name: (tensor, shape)`` of ``want`` has coef's
+    dtype (float32; float64 too for the plain versions on the CPU), the
+    shape and coef's device, and the batch fits one launch."""
     dtypes = (torch.float32, torch.float64) if coef.device.type == 'cpu' \
         else (torch.float32,)
     if coef.dtype not in dtypes:
@@ -234,8 +279,21 @@ def _check(coef, zw, color, background, g=None):
             raise ValueError(f'{name} is on {t.device}, coef on {coef.device}')
     if coef.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'no soft raster for device {coef.device}')
-    if b > 65535:
-        raise ValueError(f'at most 65535 cameras per launch, got {b}')
+    if coef.shape[0] > 65535:
+        raise ValueError(f'at most 65535 cameras per launch, got {coef.shape[0]}')
+
+
+def _check(coef, zw, color, background, g=None):
+    b, n_faces = coef.shape[0], coef.shape[1]
+    res = background.shape[-1]
+    if not 1 <= n_faces <= MAX_FACES:
+        raise ValueError(f'1 to {MAX_FACES} faces per camera, got {n_faces}')
+    want = {'coef': (coef, (b, n_faces, 3, 3)), 'zw': (zw, (b, 1, n_faces)),
+            'color': (color, (b, n_faces, 3)),
+            'background': (background, (b, 3, res, res))}
+    if g is not None:
+        want['g'] = (g, (b, 3, res, res))
+    _check_operands(coef, want)
 
 
 def soft_raster_fwd(coef: torch.Tensor, zw: torch.Tensor, color: torch.Tensor,
@@ -311,30 +369,236 @@ class SoftRaster(torch.autograd.Function):
         return soft_raster_bwd(*ctx.saved_tensors, g.contiguous())
 
 
+def pad_to_groups(coef: torch.Tensor, zw: torch.Tensor, color: torch.Tensor):
+    """
+    The grouped path's operands: the faces padded to whole ``MAX_FACES``
+    groups with the reference's sentinel (coefficients 0 except C = -1e9, z
+    weight 0, color 0), so padding rows have alpha exactly 0.
+
+    Args:
+        coef (B, F, 3, 3), zw (B, 1, F), color (B, F, 3).
+    Returns:
+        (coef, zw, color) with F rounded up to a multiple of ``MAX_FACES``.
+    """
+    b, n_faces = coef.shape[:2]
+    pad = (-n_faces) % MAX_FACES
+    if not pad:
+        return coef, zw, color
+    pcoef = coef.new_zeros((b, pad, 3, 3))
+    pcoef[..., 2] = -1e9
+    return (torch.cat([coef, pcoef], dim=1),
+            torch.cat([zw, zw.new_zeros((b, 1, pad))], dim=2),
+            torch.cat([color, color.new_zeros((b, pad, 3))], dim=1))
+
+
+def _groups(n_faces: int):
+    return [slice(lo, lo + MAX_FACES) for lo in range(0, n_faces, MAX_FACES)]
+
+
+def soft_accum_fwd_reference(coef: torch.Tensor, zw: torch.Tensor,
+                             color: torch.Tensor, res: int):
+    """
+    Plain PyTorch version of the grouped forward kernel (the reference's
+    ``_accum_fwd_kernel`` per group and its XLA combination): each group's
+    partials from its faces in ascending order, combined as ``num + n_g``,
+    ``den + d_g``, ``transp * t_g`` for g = 0, 1, ...
+
+    Returns:
+        (num (B, 3, R, R), den (B, R, R), transp (B, R, R)).
+    """
+    b = coef.shape[0]
+    px, py = _pixel_grids(res, coef)
+    num = coef.new_zeros((b, 3, res, res))
+    den = coef.new_zeros((b, res, res))
+    transp = coef.new_ones((b, res, res))
+    for s in _groups(coef.shape[1]):
+        n_g, d_g, t_g = _accumulate(coef[:, s], zw[:, :, s], color[:, s], px, py)
+        num = num + torch.stack(n_g, dim=1)
+        den = den + d_g
+        transp = transp * t_g
+    return num, den, transp
+
+
+def soft_accum_bwd_reference(coef: torch.Tensor, zw: torch.Tensor,
+                             color: torch.Tensor, gnum: torch.Tensor,
+                             gden: torch.Tensor, gtransp: torch.Tensor):
+    """
+    Plain PyTorch version of the grouped backward kernel (the reference's
+    ``_accum_bwd_kernel`` per group, with the cotangents its autodiff routes
+    to each group): every group receives ``gnum`` and ``gden``, and its
+    ``t_g`` receives ``P_g * S_g``, where ``P_g`` is the running transp
+    before g and ``S_{G-1} = gtransp``, ``S_g = S_{g+1} * t_{g+1}``.
+
+    Returns:
+        (gcoef (B, F, 3, 3), gzw (B, 1, F), gcolor (B, F, 3)).
+    """
+    b, n_faces = coef.shape[:2]
+    px, py = _pixel_grids(gden.shape[-1], coef)
+    groups = _groups(n_faces)
+    ops = lambda s: (coef[:, s], zw[:, :, s], color[:, s])
+    t_g = [_accumulate(*ops(s), px, py)[2] for s in groups]
+    carried = [None] * len(groups)
+    s_g = gtransp
+    for g in range(len(groups) - 1, -1, -1):
+        carried[g] = s_g
+        s_g = s_g * t_g[g]
+    gch = [gnum[:, ch] for ch in range(3)]
+    running = torch.ones_like(gden)
+    rows = []
+    for g, s in enumerate(groups):
+        kept = []
+        t = _accumulate(*ops(s), px, py, keep=kept)[2]
+        gtr = running * carried[g]
+        rows.append(_face_rows(*ops(s), kept, gch, gden, -gtr, px, py))
+        running = running * t
+    sums = torch.cat(rows, dim=1)                            # (B, F, 13)
+    return (sums[..., :9].reshape(b, n_faces, 3, 3), sums[..., 9][:, None, :],
+            sums[..., 10:13])
+
+
+def _check_accum(coef, zw, color, res, grads=None):
+    b, n_faces = coef.shape[0], coef.shape[1]
+    if n_faces < 1 or n_faces % MAX_FACES:
+        raise ValueError(f'a positive multiple of {MAX_FACES} faces per camera '
+                         f'(pad_to_groups), got {n_faces}')
+    want = {'coef': (coef, (b, n_faces, 3, 3)), 'zw': (zw, (b, 1, n_faces)),
+            'color': (color, (b, n_faces, 3))}
+    if grads is not None:
+        for name, t, shape in zip(('gnum', 'gden', 'gtransp'), grads,
+                                  ((b, 3, res, res), (b, res, res), (b, res, res))):
+            want[name] = (t, shape)
+    _check_operands(coef, want)
+
+
+def soft_accum_fwd(coef: torch.Tensor, zw: torch.Tensor, color: torch.Tensor,
+                   res: int):
+    """
+    The grouped forward: the totals (num (B, 3, R, R), den (B, R, R),
+    transp (B, R, R)) of coef (B, F, 3, 3), zw (B, 1, F), color (B, F, 3),
+    F a multiple of ``MAX_FACES`` (:func:`pad_to_groups`). One CUDA launch
+    over every group for CUDA tensors, plain version for CPU tensors.
+    """
+    global ACCUM_FWD_LAUNCHES
+    _check_accum(coef, zw, color, res)
+    if coef.device.type == 'cpu':
+        return soft_accum_fwd_reference(coef, zw, color, res)
+    coef, zw, color = (t.contiguous() for t in (coef, zw, color))
+    b, n_faces = coef.shape[:2]
+    num = coef.new_empty((b, 3, res, res))
+    den = coef.new_empty((b, res, res))
+    transp = coef.new_empty((b, res, res))
+    with torch.cuda.device(coef.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = ACCUM_LIBRARY.load().tds_soft_accum_fwd(
+            coef.data_ptr(), zw.data_ptr(), color.data_ptr(), b, n_faces,
+            MAX_FACES, res, num.data_ptr(), den.data_ptr(), transp.data_ptr(),
+            stream)
+    check_launch(err, 'grouped soft raster forward')
+    ACCUM_FWD_LAUNCHES += 1
+    return num, den, transp
+
+
+def soft_accum_bwd(coef: torch.Tensor, zw: torch.Tensor, color: torch.Tensor,
+                   gnum: torch.Tensor, gden: torch.Tensor, gtransp: torch.Tensor):
+    """
+    The grouped backward for the totals' cotangents: (gcoef, gzw, gcolor)
+    shaped like (coef, zw, color). One CUDA launch over every group for CUDA
+    tensors (its per-block partial sums finished here by one sum over the
+    pixel tiles), plain version for CPU tensors.
+    """
+    global ACCUM_BWD_LAUNCHES
+    res = gden.shape[-1]
+    _check_accum(coef, zw, color, res, (gnum, gden, gtransp))
+    if coef.device.type == 'cpu':
+        return soft_accum_bwd_reference(coef, zw, color, gnum, gden, gtransp)
+    coef, zw, color, gnum, gden, gtransp = (
+        t.contiguous() for t in (coef, zw, color, gnum, gden, gtransp))
+    b, n_faces = coef.shape[:2]
+    tiles = -(-res * res // _ACCUM_BWD_THREADS)
+    scratch = coef.new_empty((b, n_faces // MAX_FACES, res, res))
+    partial = coef.new_empty((b, tiles, n_faces, 13))
+    with torch.cuda.device(coef.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = ACCUM_LIBRARY.load().tds_soft_accum_bwd(
+            coef.data_ptr(), zw.data_ptr(), color.data_ptr(), gnum.data_ptr(),
+            gden.data_ptr(), gtransp.data_ptr(), b, n_faces, MAX_FACES, res,
+            scratch.data_ptr(), partial.data_ptr(), stream)
+    check_launch(err, 'grouped soft raster backward')
+    ACCUM_BWD_LAUNCHES += 1
+    sums = partial.sum(dim=1)                                # (B, F, 13)
+    return (sums[..., :9].reshape(b, n_faces, 3, 3), sums[..., 9][:, None, :],
+            sums[..., 10:13].contiguous())
+
+
+class SoftAccum(torch.autograd.Function):
+    """The grouped accumulators with the reference's custom-VJP boundary:
+    (coef, zw, color) over every group -> (num, den, transp); the backward
+    is :func:`soft_accum_bwd`, which recomputes everything from the inputs."""
+
+    @staticmethod
+    def forward(ctx, coef, zw, color, res):
+        ctx.save_for_backward(coef, zw, color)
+        return soft_accum_fwd(coef, zw, color, res)
+
+    @staticmethod
+    def backward(ctx, gnum, gden, gtransp):
+        return (*soft_accum_bwd(*ctx.saved_tensors, gnum.contiguous(),
+                                gden.contiguous(), gtransp.contiguous()), None)
+
+
+def rasterize_softmax_coefs(coef: torch.Tensor, zw: torch.Tensor,
+                            color: torch.Tensor,
+                            background: torch.Tensor) -> torch.Tensor:
+    """
+    The soft raster of per-face operands (:func:`soft_coefficients`) over
+    ``background`` (B, 3, R, R): up to ``MAX_FACES`` faces at up to 128
+    pixels by the single-group kernels, which composite; else the faces
+    padded to whole groups, the grouped accumulators (:class:`SoftAccum`)
+    and the reference's composite in plain PyTorch,
+    ``(1 - transp) * num / max(den, 1e-8) + transp' * background`` with
+    ``transp' = 1 - (1 - transp)``.
+
+    Args:
+        coef (B, F, 3, 3), zw (B, 1, F), color (B, F, 3), F >= 1.
+    Returns:
+        (B, 3, R, R) image in [0, 1].
+    """
+    res = background.shape[-1]
+    if coef.shape[1] <= MAX_FACES and res <= 128:
+        return SoftRaster.apply(coef, zw, color, background)
+    num, den, transp = SoftAccum.apply(*pad_to_groups(coef, zw, color), res)
+    return composite(num, den, transp, background)
+
+
+def composite(num: torch.Tensor, den: torch.Tensor, transp: torch.Tensor,
+              background: torch.Tensor) -> torch.Tensor:
+    """The grouped path's composite of the totals over ``background``
+    (B, 3, R, R), plain differentiable PyTorch as in the reference:
+    ``cover * num / max(den, 1e-8) + (1 - cover) * background`` with
+    ``cover = 1 - transp``."""
+    c_faces = num / torch.clamp(den[:, None], min=1e-8)
+    cover = (1.0 - transp)[:, None]
+    return cover * c_faces + (1.0 - cover) * background
+
+
 def rasterize_softmax_chw(verts: torch.Tensor, faces: torch.Tensor,
                           attrs: torch.Tensor, res: int,
                           background: torch.Tensor, sigma: float = 0.5,
                           gamma: float = 0.5) -> torch.Tensor:
     """
     Softmax-blend soft raster of screen-space faces over ``background``
-    (the reference's ``rasterize_softmax_pallas`` on its single-group path,
-    channels first); differentiable w.r.t. verts, attrs and background.
+    (the reference's ``rasterize_softmax_pallas``, channels first), any face
+    count and any ``res``; differentiable w.r.t. verts, attrs and
+    background.
 
     Args:
-        verts: (B, V, 3) screen (row, col, priority z); faces: (B, F, 3)
-            with F <= 128; attrs: (B, V, 3) colors; background:
-            (B, 3, res, res).
+        verts: (B, V, 3) screen (row, col, priority z); faces: (B, F, 3);
+            attrs: (B, V, 3) colors; background: (B, 3, res, res).
     Returns:
         (B, 3, res, res) image in [0, 1].
     """
-    n_faces = faces.shape[1]
-    if n_faces == 0:
+    if faces.shape[1] == 0:
         return background
-    if n_faces > MAX_FACES or res > 128:
-        raise NotImplementedError(
-            f'{n_faces} faces at res {res}: more than {MAX_FACES} faces or '
-            'res above 128 need the grouped soft path (kernels B5a/b), not '
-            'ported yet (ROADMAP A12)')
     coef, zw, color = soft_coefficients(verts, faces, attrs, sigma, gamma)
-    return SoftRaster.apply(coef, zw[:, None, :], color,
-                            background.expand(verts.shape[0], 3, res, res))
+    return rasterize_softmax_coefs(coef, zw[:, None, :], color,
+                                   background.expand(verts.shape[0], 3, res, res))

@@ -37,8 +37,7 @@ class RendererConfig:
     #: gather (False) is not ported
     diff_fast_background: bool = True
     #: the full-resolution nearest background (views no mip level covers)
-    #: sampled at res / background_downsample; only 1 is ported (the
-    #: bilinear upsample is not)
+    #: sampled at res / background_downsample and upsampled bilinearly
     background_downsample: int = 1
 
 

@@ -6,23 +6,25 @@ The port's bird's-eye-view renderer (counterpart of
   texture by the fused render where a mip level covers the view (up to
   128 pixels); over the background color without a texture, or over the
   full-resolution nearest sample of the texture where no mip level covers
-  the view, by the banded primitive raster (any multiple of 16);
+  the view, by the banded primitive raster (any multiple of 16); in
+  differentiable mode by the reference's plain fallback (the prims culled
+  to the view, quads split into triangle pairs, the plain hard raster over
+  the full-resolution sample or the color);
 * the hard mesh render: the z-priority raster over the nearest mip warp of
   the texture, or its full-resolution nearest sample where no mip level
   covers the view (faces culled to the view), or over the constant
   background color (every face);
-* the differentiable mesh render: the soft raster over the bilinear mip
-  warp of the texture or over the constant background color.
+* the differentiable mesh render: the soft raster, any face count at any
+  multiple of 16, over the bilinear mip warp of the texture or over the
+  constant background color.
 
-A square resolution that is not a multiple of 16 renders the primitive and
-hard mesh paths at the next multiple of 16, at the same pixels per meter,
-and returns the top-left crop.
+A square resolution that is not a multiple of 16 renders at the next
+multiple of 16, at the same pixels per meter, and returns the top-left crop.
 
 Not ported yet: the sub-camera tiling of textured primitive renders above
-128 (ROADMAP A10), the face-soup render ``render_faces_chw``, the XLA
-fallbacks (``rasterize_hard_faces``, ``cull_prims_to_view``), the grouped
-soft raster of large face sets (B5), the painter's soft blend, pad-and-crop
-of the differentiable render and its full-resolution bilinear background.
+128 (ROADMAP A10), the face-soup render ``render_faces_chw``, the painter's
+soft blend and the differentiable render's full-resolution bilinear
+background (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -37,11 +39,11 @@ from torchdrivesim_tpu_torch.ops.grids import Grid2D
 from torchdrivesim_tpu_torch.ops.hard import hard_operands, raster
 from torchdrivesim_tpu_torch.ops.prims import rasterize_hard_prims_banded
 from torchdrivesim_tpu_torch.ops.rasterize import (
-    camera_rows_cols, cull_faces_to_view, face_arrays, n_bands_for,
-    pack_texture_rgb8, prep_sorted_prim_coefs, sample_background_packed,
-    sort_prims_rowmajor_with_masks, supports_res,
+    camera_rows_cols, cull_faces_to_view, cull_prims_to_view, face_arrays,
+    n_bands_for, pack_texture_rgb8, prep_sorted_prim_coefs, rasterize_hard_faces,
+    sample_background_packed, sort_prims_rowmajor_with_masks, supports_res,
 )
-from torchdrivesim_tpu_torch.ops.soft import rasterize_softmax_chw
+from torchdrivesim_tpu_torch.ops.soft import rasterize_softmax_coefs, soft_coefficients
 from torchdrivesim_tpu_torch.ops.warp import (
     MIP_FACTOR, MipLevel, RES, build_mip_pyramid, select_mip, warp_background_diff,
     warp_coefficients, warp_view_nearest,
@@ -203,7 +205,8 @@ class Renderer:
         ``BirdviewRGBMeshGenerator.generate_prims`` over the baked texture
         (the fused render where a mip level covers the view, else the
         banded raster over its full-resolution nearest sample), or over the
-        background color without a texture (the banded raster).
+        background color without a texture (the banded raster); in
+        differentiable mode by :meth:`_render_prims_plain`.
 
         Returns:
             (B, 3, H, W) float image in [0, 255], or (B, H, W) int32 packed
@@ -221,6 +224,10 @@ class Renderer:
             raise NotImplementedError(
                 f"res {size}: the primitive render serves sizes the banded "
                 "kernels tile (multiples of 16) and pads others from 4 up")
+        if self.cfg.differentiable:
+            image = self._render_prims_plain(quads, qz, qcolors, tris, tz, tcolors,
+                                             size, cameras) * 255.0
+            return pack_rgb8_chw(image) if packed else image
         mip = self._warp_mip(cameras.scale, size)
         if mip is not None:
             sq, st = self.screen_prims(quads, tris, size, cameras)
@@ -247,6 +254,29 @@ class Renderer:
         image = rasterize_hard_prims_banded(*scene, size, background, qmask,
                                             tmask) * 255.0
         return pack_rgb8_chw(image) if packed else image
+
+    def _render_prims_plain(self, quads, qz, qcolors, tris, tz, tcolors, size: int,
+                            cameras: Cameras) -> torch.Tensor:
+        """
+        The reference's plain fallback of the primitive render, which its
+        differentiable mode takes: each type culled to the
+        ``min(max(8, (cull_max_faces or 64) // 2), 56)`` prims nearest the
+        view's center, each quad split into the triangles (0, 1, 2) and
+        (0, 2, 3), the second at z + 1e-5, then the plain hard raster over
+        the full-resolution sample of the texture or the background color.
+
+        Returns:
+            (B, 3, size, size) in [0, 1].
+        """
+        sq, st = self.screen_prims(quads, tris, size, cameras)
+        keep = min(max(8, (self.cfg.cull_max_faces or 64) // 2), 56)
+        sq, qz, qcolors = cull_prims_to_view(sq, qz, qcolors, size, keep)
+        st, tz, tcolors = cull_prims_to_view(st, tz, tcolors, size, keep)
+        corners = torch.cat([sq[:, :, [0, 1, 2]], sq[:, :, [0, 2, 3]], st], dim=1)
+        z = torch.cat([qz, qz + 1e-5, tz], dim=1)
+        colors = torch.cat([qcolors, qcolors, tcolors], dim=1)
+        return rasterize_hard_faces(corners, z, colors, size,
+                                    self._full_background(cameras, size))
 
     def screen_prims(self, quads: torch.Tensor, tris: torch.Tensor, size: int,
                      cameras: Cameras):
@@ -299,7 +329,9 @@ class Renderer:
         Differentiable mode (``cfg.differentiable``): the soft raster over
         the bilinear mip warp of the background texture when one is set
         (pose gradients by ``warp_background_diff``), else over the
-        background color.
+        background color, any number of faces (the grouped path above 128
+        faces or above 128 pixels), padded and cropped where ``size`` is not
+        a multiple of 16.
 
         Returns:
             (B, 3, H, W) float image in [0, 255]; in differentiable mode
@@ -310,15 +342,41 @@ class Renderer:
         size = res.width
         if not self.cfg.differentiable:
             return self._render_hard(mesh, size, cameras)
+        return self._render_soft(mesh, size, cameras)
+
+    def _render_soft(self, mesh: RGBMesh, size: int, cameras: Cameras
+                     ) -> torch.Tensor:
+        """The differentiable branch of :meth:`render_rgb_mesh_chw`."""
+        pad_to = self._pad_res_target(size)
+        if pad_to is not None:
+            return self._render_soft(mesh, pad_to, self._pad_cameras(
+                cameras, size, pad_to))[..., :size, :size]
+        background, (coef, zw, color) = self.soft_frame_operands(mesh, size, cameras)
+        if coef.shape[1] == 0:
+            return background * 255.0
+        return rasterize_softmax_coefs(coef, zw, color, background) * 255.0
+
+    def soft_frame_operands(self, mesh: RGBMesh, size: int, cameras: Cameras):
+        """
+        The differentiable render's operands for one frame, as
+        :meth:`render_rgb_mesh_chw` passes them to the soft raster
+        (``ops.soft.rasterize_softmax_coefs``).
+
+        Returns:
+            ``(background, (coef, zw, color))``: the (B, 3, size, size)
+            background in [0, 1] (the bilinear mip warp of the texture, or
+            the background color expanded without one) and the per-face
+            edge coefficients (B, F, 3, 3), z weights (B, 1, F) and colors
+            (B, F, 3) of ``ops.soft.soft_coefficients``.
+        """
         if self.cfg.soft_blend != 'softmax':
             raise NotImplementedError(
                 f"soft_blend={self.cfg.soft_blend!r}: only the softmax blend is "
                 "ported (the painter's blend rasterize_soft is not, ROADMAP A12)")
-        if size % 16 or size > RES:
+        if not supports_res(size):
             raise NotImplementedError(
-                f"res {size}: the soft render serves multiples of 16 up to {RES}; "
-                "its pad-and-crop is not ported (ROADMAP A10), nor the grouped "
-                "soft raster (B5) that larger views take (ROADMAP A12)")
+                f"res {size}: the soft render's operands are for multiples of 16 "
+                "(render_rgb_mesh_chw pads other sizes)")
         lh = self.cfg.left_handed_coordinates
         b = cameras.xy.shape[0]
         if self._mip_pyramid is not None:
@@ -341,9 +399,9 @@ class Renderer:
         rc = camera_rows_cols(mesh.verts[..., :2], cameras.xy, cameras.sc,
                               cameras.scale, size, left_handed=lh)
         sv = torch.cat([rc, mesh.verts[..., 2:3]], dim=-1)
-        image = rasterize_softmax_chw(sv, mesh.faces, mesh.attrs, size,
-                                      background, sigma=self.cfg.soft_sigma)
-        return image * 255.0
+        coef, zw, color = soft_coefficients(sv, mesh.faces, mesh.attrs,
+                                            self.cfg.soft_sigma, 0.5)
+        return background, (coef, zw[:, None, :], color)
 
     def _render_hard(self, mesh: RGBMesh, size: int, cameras: Cameras
                      ) -> torch.Tensor:
