@@ -16,11 +16,12 @@ checkout (one ``nvcc`` per source, all at once), then drives five paths:
 * the imitation-learning gradient step over the untextured map (config 4's
   widths without the texture: every frame draws the Town02 road mesh,
   ~17,000 faces per camera, through the grouped soft raster): its two
-  kernels against their plain versions on random operands and on the
-  frame of the state the full-width rollout returns, a small gradient step
-  against the CPU path, one full-width gradient rollout counting launches
-  and peak memory, a directional finite-difference check at small size,
-  times, bounds and grad-rollouts/s;
+  kernels against their plain versions, and their per-tile face lists
+  against the plain cull, on random, boundary and road-like operands and
+  on the frame of the state the full-width rollout returns, a small
+  gradient step against the CPU path, one full-width gradient rollout
+  counting launches and peak memory, a directional finite-difference
+  check at small size, times, bounds and grad-rollouts/s;
 * the RL path (BASELINE config 5: PPO over 1024 vectorized environments of
   the same town, 4 vehicles, 64 x 64 hard mesh render, rollout 16, 2
   epochs): the nearest background warp and the hard raster's packed and
@@ -423,7 +424,6 @@ def random_soft_operands(seed: int, b: int, n_faces: int, res: int, device):
     """Random faces (row, col, z at the renderer's priority levels) with
     one covering the whole view and one degenerate, over a random
     background, and a random output cotangent."""
-    from torchdrivesim_tpu_torch.ops import soft
     rng = np.random.RandomState(seed)
     verts = np.concatenate([rng.uniform(-8, res + 8, (b, n_faces * 3, 2)),
                             rng.uniform(2, 15, (b, n_faces * 3, 1))], axis=-1)
@@ -431,14 +431,23 @@ def random_soft_operands(seed: int, b: int, n_faces: int, res: int, device):
     verts[:, 0:3, 2] = 15.0
     verts[:, -3:] = 0.0
     verts[:, :, 2] = np.repeat(verts[:, ::3, 2], 3, axis=1)
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    ops = face_operands(verts, rng, device)
+    return (*ops, t(rng.rand(b, 3, res, res))), t(rng.uniform(-1, 1, (b, 3, res, res)))
+
+
+def face_operands(verts, rng, device):
+    """The soft raster's (coef, zw (B, 1, F), color) of the triangles
+    ``verts`` (B, 3F, 3): (row, col, z), z constant per face, a random color
+    each."""
+    from torchdrivesim_tpu_torch.ops import soft
+    b, n_faces = verts.shape[0], verts.shape[1] // 3
     faces = np.tile(np.arange(n_faces * 3).reshape(1, n_faces, 3), (b, 1, 1))
     attrs = np.repeat(rng.rand(b, n_faces, 1, 3), 3, axis=2).reshape(b, n_faces * 3, 3)
     t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
     coef, zw, color = soft.soft_coefficients(t(verts), torch.as_tensor(faces, device=device),
                                              t(attrs), 0.5, 0.5)
-    bg = t(rng.rand(b, 3, res, res))
-    g = t(rng.uniform(-1, 1, (b, 3, res, res)))
-    return (coef, zw[:, None, :].contiguous(), color, bg), g
+    return coef, zw[:, None, :].contiguous(), color
 
 
 def judge(got, plain, exact, name, rtol, atol=None):
@@ -730,6 +739,141 @@ def accum_random_operands(seed: int, b: int, n_faces: int, res: int, device):
     return soft.pad_to_groups(coef, zw, color), bg
 
 
+def accum_road_operands(seed: int, b: int, n_faces: int, res: int, device):
+    """Faces like the untextured frame's road mesh, most far off-view: a
+    tenth centred around the view, the rest over 17 x 17 views around it,
+    corners a twelfth of the view apart, z at the road's levels (15, 14)
+    with a few actors (2); padded to whole groups, and a random
+    background."""
+    from torchdrivesim_tpu_torch.ops import soft
+    rng = np.random.RandomState(seed)
+    near = rng.rand(b, n_faces, 1) < 0.1
+    centre = np.where(near, rng.uniform(-0.25 * res, 1.25 * res, (b, n_faces, 2)),
+                      rng.uniform(-8 * res, 9 * res, (b, n_faces, 2)))
+    corners = centre[:, :, None, :] + rng.randn(b, n_faces, 3, 2) * res / 12
+    z = rng.choice([15.0, 14.0, 2.0], size=(b, n_faces, 1, 1), p=[0.6, 0.35, 0.05])
+    verts = np.concatenate([corners, np.broadcast_to(z, (b, n_faces, 3, 1))], axis=-1)
+    ops = face_operands(verts.reshape(b, n_faces * 3, 3), rng, device)
+    bg = torch.as_tensor(rng.rand(b, 3, res, res).astype(np.float32), device=device)
+    return soft.pad_to_groups(*ops), bg
+
+
+def boundary_edge(rng, x: float, y: float, target):
+    """Float32 (A, B, C), 0.002 <= |A|, |B| <= 0.02 with the signs of x and
+    y, such that the port's float32 edge value (A*x + B*y) + C is exactly
+    ``target`` at the pixel centre (x, y); with x and y the signs, that
+    pixel is the edge's largest value over any tile whose extreme corner it
+    is."""
+    f32 = np.float32
+    for _ in range(200):
+        a = f32(np.sign(x) * rng.uniform(0.002, 0.02))
+        b = f32(np.sign(y) * rng.uniform(0.002, 0.02))
+        s = f32(a * f32(abs(x))) + f32(b * f32(abs(y)))
+        c = f32(float(target) - float(s))
+        for _ in range(8):
+            got = f32(s + c)
+            if got == target:
+                return a, b, c
+            c = np.nextafter(c, f32(np.inf) if got < target else f32(-np.inf))
+    raise RuntimeError(f'no edge through {target!r} at ({x}, {y})')
+
+
+def accum_boundary_operands(seed: int, b: int, n_faces: int, res: int, device):
+    """:func:`random_soft_operands`' faces and, for every 16 x 16 tile of
+    every camera, three boundary faces: one soft edge (|A|, |B| <= 0.02)
+    whose float32 value at one of the tile's corner pixels, its largest
+    there, is nextafter(-4, 0) (the face reaches that pixel: the cull must
+    keep it), exactly -4 (it adds 0 in the tile: the cull may drop it) or
+    -4.001 (the cull drops it); its other two edges are 0 everywhere. The
+    faces are shuffled together, padded to whole groups; and the random
+    background."""
+    from torchdrivesim_tpu_torch.ops import soft
+    (coef, zw, color, bg), _ = random_soft_operands(seed, b, n_faces, res, 'cpu')
+    rng = np.random.RandomState(seed + 1)
+    tile = soft.ACCUM_TILE
+    targets = (np.nextafter(np.float32(-4), np.float32(0)), np.float32(-4),
+               np.float32(-4.001))
+    edges = []
+    for _ in range(b):
+        cam = []
+        for row in range(0, res, tile):
+            for col in range(0, res, tile):
+                for target in targets:
+                    # the corner: +x for the tile's last row, -x for its first
+                    x = (min(row + tile, res) - 0.5) if rng.rand() < 0.5 else -(row + 0.5)
+                    y = (min(col + tile, res) - 0.5) if rng.rand() < 0.5 else -(col + 0.5)
+                    a, b_, c = boundary_edge(rng, x, y, target)
+                    cam.append([[a, b_, c], [0, 0, 0], [0, 0, 0]])
+        edges.append(cam)
+    extra = np.asarray(edges, np.float32)                       # (B, K, 3, 3)
+    k = extra.shape[1]
+    order = torch.as_tensor(rng.permutation(n_faces + k))
+    z = rng.uniform(2, 15, (b, 1, k))
+    coef = torch.cat([coef, torch.as_tensor(extra)], dim=1)[:, order]
+    zw = torch.cat([zw, torch.as_tensor(np.exp((20 - z) / 0.5).astype(np.float32))],
+                   dim=2)[:, :, order]
+    color = torch.cat([color, torch.as_tensor(rng.rand(b, k, 3).astype(np.float32))],
+                      dim=1)[:, order]
+    ops = soft.pad_to_groups(coef, zw.contiguous(), color)
+    return tuple(x.to(device) for x in ops), bg.to(device)
+
+
+def kernel_tile_lists(soft, ops, res, cot):
+    """The per-tile face lists and counts that B5a and B5b write on ``ops``
+    (and the cotangents ``cot`` for B5b): each C entry point called as its
+    wrapper calls it, with buffers of this function's own. Returns
+    [(lists (B, tiles, F), counts (B, tiles)) of the forward, of the
+    backward]."""
+    from torchdrivesim_tpu_torch.ops.build import check_launch
+    coef, zw, color = ops
+    gnum, gden, gtransp = cot
+    b, n_faces = coef.shape[:2]
+    lib = soft.ACCUM_LIBRARY.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    fwd, bwd = (soft._tile_lists(b, n_faces, res, coef.device) for _ in range(2))
+    totals = [coef.new_empty(s) for s in ((b, 3, res, res), (b, res, res), (b, res, res))]
+    check_launch(lib.tds_soft_accum_fwd(
+        coef.data_ptr(), zw.data_ptr(), color.data_ptr(), b, n_faces, soft.MAX_FACES,
+        res, fwd[0].data_ptr(), fwd[1].data_ptr(), *(x.data_ptr() for x in totals),
+        stream), 'grouped soft raster forward')
+    scratch = coef.new_empty((b, n_faces // soft.MAX_FACES, res, res))
+    partial = coef.new_zeros((b, soft.accum_tiles(res), n_faces, 13))
+    check_launch(lib.tds_soft_accum_bwd(
+        coef.data_ptr(), zw.data_ptr(), color.data_ptr(), gnum.data_ptr(),
+        gden.data_ptr(), gtransp.data_ptr(), b, n_faces, soft.MAX_FACES, res,
+        bwd[0].data_ptr(), bwd[1].data_ptr(), scratch.data_ptr(), partial.data_ptr(),
+        stream), 'grouped soft raster backward')
+    torch.cuda.synchronize()
+    return [fwd, bwd]
+
+
+def compare_tile_lists(soft, ops, res, cot, label):
+    """B5a's and B5b's per-tile lists (:func:`kernel_tile_lists`) against
+    ``soft.soft_tile_lists_reference``: each count equal, each list the
+    kept faces in ascending order. Prints the listed share of (camera,
+    tile, face) triples beside :func:`soft_tile_pairs`' share (the gap is
+    the cull's slack). Returns (mismatched counts, mismatched list entries,
+    listed share)."""
+    keep = soft.soft_tile_lists_reference(ops[0], res)           # (B, tiles, F)
+    want_counts = keep.sum(dim=-1).to(torch.int32)
+    # the kept faces first, ascending (a stable sort of the dropped flags)
+    want = torch.sort((~keep).to(torch.int8), dim=-1, stable=True).indices
+    inside = torch.arange(keep.shape[-1], device=keep.device) < want_counts[..., None]
+    bad_counts = bad_entries = 0
+    for lists, counts in kernel_tile_lists(soft, ops, res, cot):
+        bad_counts += int((counts != want_counts).sum())
+        bad_entries += int(((lists.long() != want) & inside).sum())
+    share = float(keep.double().mean())
+    reach = soft_tile_pairs(ops[0], res) / keep.numel()
+    per_tile = want_counts.double()
+    print(f'  {label} tile lists: {bad_counts} counts and {bad_entries} entries differ '
+          f'from the plain cull; listed {share * 100:.3f}% of (camera, tile, face), '
+          f'{reach * 100:.3f}% by soft_tile_pairs; faces per tile: mean '
+          f'{float(per_tile.mean()):.1f}, max {int(per_tile.max())}, min '
+          f'{int(per_tile.min())}')
+    return bad_counts, bad_entries, share
+
+
 def composite_cotangents(soft, totals, background, seed: int):
     """The cotangents (gnum, gden, gtransp) that the grouped path's
     composite (``soft.composite``) sends to the totals for a random image
@@ -865,11 +1009,12 @@ def soft_tile_pairs(coef, res) -> int:
     tiles in which a face can contribute: where one of its edge values is at
     most -4 at all four extreme pixel centres of a tile (the values are
     affine in the pixel, so then at every pixel of it), min_e t_e <= -4 puts
-    its window ramp, hence its alpha and all it adds, at exactly 0."""
+    its window ramp, hence its alpha and all it adds, at exactly 0. A ragged
+    last tile ends at the image's last pixel."""
     coef = coef.double()
     first = torch.arange(0, res, BOUND_TILE, dtype=torch.float64,
                          device=coef.device) + 0.5
-    ends = torch.stack([first, first + BOUND_TILE - 1])          # (2, tiles)
+    ends = torch.stack([first, torch.clamp(first + BOUND_TILE - 1, max=res - 0.5)])
     a, b, c = coef[..., 0, None], coef[..., 1, None], coef[..., 2]
     row = torch.maximum(a * ends[0], a * ends[1])                # (B, F, 3, tiles)
     col = torch.maximum(b * ends[0], b * ends[1])
@@ -929,16 +1074,27 @@ def grouped_soft_path(device, card):
         make_il_rollout_fn, run_il_benchmark)
     from torchdrivesim_tpu_torch.ops import soft, warp
 
-    # 1. the kernels against their plain versions on random operands: a
-    # partial last group and a degenerate face in each
-    errs, over, bits = {'fwd': [], 'bwd': []}, 0, 0
-    for seed, b, n_faces, res in ((11, 4, 129, 64), (12, 2, 300, 128), (13, 1, 2000, 256)):
-        (fd, fo), (bd, bo), nb, _, _, _ = compare_accum(
-            soft, *accum_random_operands(seed, b, n_faces, res, device), res, seed + 1,
-            f'random F={n_faces}')
+    # 1. the kernels against their plain versions and their per-tile lists
+    # against the plain cull: on random operands (a partial last group and a
+    # degenerate face in each), on boundary faces and on road-like faces,
+    # most far off-view
+    errs, over, bits, bad_lists = {'fwd': [], 'bwd': []}, 0, 0, 0
+    for kind, make, seed, b, n_faces, res in (
+            ('random', accum_random_operands, 11, 4, 129, 64),
+            ('random', accum_random_operands, 12, 2, 300, 128),
+            ('random', accum_random_operands, 13, 1, 2000, 256),
+            ('boundary', accum_boundary_operands, 14, 2, 200, 64),
+            ('boundary', accum_boundary_operands, 15, 1, 100, 40),
+            ('road', accum_road_operands, 16, 2, 4500, 64)):
+        ops, bg = make(seed, b, n_faces, res, device)
+        label = f'{kind} F={n_faces}'
+        (fd, fo), (bd, bo), nb, _, grads, _ = compare_accum(soft, ops, bg, res, seed + 1,
+                                                            label)
+        bad_counts, bad_entries, _ = compare_tile_lists(soft, ops, res, grads, label)
         errs['fwd'].append(fd)
         errs['bwd'].append(bd)
         over, bits = over + fo + bo, bits + nb
+        bad_lists += bad_counts + bad_entries
     # B4a and B4b again, beside the header they now share
     for label, (ops, g) in (('random F=128', random_soft_operands(6, 4, 128, 64, device)),
                             ('random F=45 res 32', random_soft_operands(7, 8, 45, 32, device))):
@@ -1016,8 +1172,15 @@ def grouped_soft_path(device, card):
         raise AssertionError(f'{fo + bo} values over tolerance on the last frame')
     if not all(caught):
         raise AssertionError(f'the planted fault went unseen on the last frame: {caught}')
+    bad_counts, bad_entries, listed = compare_tile_lists(soft, frame, IL_RES, frame_grads,
+                                                         'last frame')
+    bad_lists += bad_counts + bad_entries
     print(f'grouped forward: {bits + nb} values differ from the plain version in any '
-          'bit, over all cases')
+          f'bit, over all cases; {bad_lists} tile-list counts and entries differ from '
+          'the plain cull')
+    if bits + nb or bad_lists:
+        raise AssertionError(f'{bits + nb} forward values differ in some bit, '
+                             f'{bad_lists} tile-list counts and entries differ')
 
     # 4. the directional finite-difference check at small size
     small = build_il_scenario(batch_size=4, agent_count=IL_AGENTS, res=IL_RES,
@@ -1054,7 +1217,7 @@ def grouped_soft_path(device, card):
               f'{ms:.4f} ms (device, graph replay); eager call {call_ms:.4f} ms; '
               f'plain version {plain_ms:.3f} ms (one call); bound {bound_ms * 1e3:.3f} us '
               f'by {bound_by} ({pairs} of {all_pairs} (pixel, face) pairs can '
-              f'contribute) [{card}]')
+              f'contribute; the cull lists {listed * 100:.3f}%) [{card}]')
         entries.append({'name': name, 'route': 'cuda', 'source': source,
                         'replaces': replaces, 'launches': n, 'max_abs_err': err,
                         'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,

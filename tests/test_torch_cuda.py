@@ -15,9 +15,11 @@ own). The soft raster is judged through its plain version in float64: the
 kernel's error may exceed the plain version's by at most 1e-5 (forward)
 or 1e-4 relative plus 1e-6 of the largest value (backward), since its
 per-face sums run in another order. The grouped forward performs the plain
-version's operations in its order, so it must match it exactly; the
-grouped backward is judged face by face (``chip_smoke.judge_rows``), for
-the cotangents of the composite.
+version's operations in its order over the faces that reach each pixel
+tile (the others add exactly 0), so it must match it exactly; the grouped
+backward is judged face by face (``chip_smoke.judge_rows``), for the
+cotangents of the composite; the per-tile face lists must equal the plain
+cull's.
 """
 import numpy as np
 import pytest
@@ -147,27 +149,37 @@ def test_soft_backward_is_deterministic(cuda):
         assert torch.equal(a, b)
 
 
-def _accum_operands(seed, b, n_faces, res, device):
-    """:func:`_soft_operands` padded to whole groups, the plain forward's
-    totals and the cotangents the composite over its background sends to
-    them."""
-    from chip_smoke import composite_cotangents
-    (coef, zw, color, bg), _ = _soft_operands(seed, b, n_faces, res, device)
-    ops = soft.pad_to_groups(coef, zw, color)
+def _accum_operands(seed, b, n_faces, res, device, kind='random'):
+    """Faces padded to whole groups (random: :func:`_soft_operands`;
+    boundary and road: ``chip_smoke.accum_boundary_operands``,
+    ``accum_road_operands``), the plain forward's totals and the cotangents
+    the composite over its background sends to them."""
+    import chip_smoke
+    if kind == 'random':
+        (coef, zw, color, bg), _ = _soft_operands(seed, b, n_faces, res, device)
+        ops = soft.pad_to_groups(coef, zw, color)
+    else:
+        make = {'boundary': chip_smoke.accum_boundary_operands,
+                'road': chip_smoke.accum_road_operands}[kind]
+        ops, bg = make(seed, b, n_faces, res, device)
     totals = soft.soft_accum_fwd_reference(*ops, res)
-    return ops, totals, composite_cotangents(soft, totals, bg, seed + 1)
+    return ops, totals, chip_smoke.composite_cotangents(soft, totals, bg, seed + 1)
 
 
 @pytest.mark.depends_on_cuda
-@pytest.mark.parametrize('b,n_faces,res', [(4, 129, 64), (2, 300, 128), (1, 2000, 256),
-                                           (16, 256, 64)])
-def test_grouped_soft_kernels_match_plain_versions(cuda, b, n_faces, res):
+@pytest.mark.parametrize('b,n_faces,res,kind', [
+    (4, 129, 64, 'random'), (2, 300, 128, 'random'), (1, 2000, 256, 'random'),
+    (16, 256, 64, 'random'), (2, 200, 64, 'boundary'), (1, 100, 40, 'boundary'),
+    (2, 4500, 64, 'road')])
+def test_grouped_soft_kernels_match_plain_versions(cuda, b, n_faces, res, kind):
     """B5a and B5b over every group in one launch each, a partial last
     group included, against their plain versions: the forward bit for bit,
     the backward face by face (``chip_smoke.judge_rows``) for the
-    composite's cotangents and for the transp chain alone."""
+    composite's cotangents and for the transp chain alone; on random faces,
+    on boundary faces (an edge at nextafter(-4, 0), -4 or -4.001 at a tile's
+    corner, ragged tiles at res 40) and on road-like faces, most off-view."""
     from chip_smoke import judge_rows
-    ops, plain, grads = _accum_operands(n_faces + res, b, n_faces, res, cuda)
+    ops, plain, grads = _accum_operands(n_faces + res, b, n_faces, res, cuda, kind)
     assert ops[0].shape[1] % soft.MAX_FACES == 0 and ops[0].shape[1] >= n_faces
     exact_in = [x.double() for x in ops]
     before = (soft.ACCUM_FWD_LAUNCHES, soft.ACCUM_BWD_LAUNCHES)
@@ -182,6 +194,22 @@ def test_grouped_soft_kernels_match_plain_versions(cuda, b, n_faces, res):
         assert judge_rows(out, want, exact, 'backward')[1] == 0
     assert (soft.ACCUM_FWD_LAUNCHES, soft.ACCUM_BWD_LAUNCHES) == (before[0] + 1,
                                                                   before[1] + 2)
+
+
+@pytest.mark.depends_on_cuda
+@pytest.mark.parametrize('b,n_faces,res,kind', [(2, 300, 64, 'random'),
+                                                (2, 200, 64, 'boundary'),
+                                                (1, 100, 40, 'boundary'),
+                                                (2, 4500, 64, 'road')])
+def test_grouped_soft_tile_lists_match_plain_cull(cuda, b, n_faces, res, kind):
+    """The per-tile face lists that B5a and B5b write: each tile's count
+    equal to ``soft_tile_lists_reference``'s, its list the kept faces in
+    ascending order."""
+    from chip_smoke import compare_tile_lists
+    ops, _, grads = _accum_operands(n_faces + res, b, n_faces, res, cuda, kind)
+    bad_counts, bad_entries, share = compare_tile_lists(soft, ops, res, grads, kind)
+    assert (bad_counts, bad_entries) == (0, 0)
+    assert 0 < share < 1
 
 
 @pytest.mark.depends_on_cuda

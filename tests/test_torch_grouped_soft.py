@@ -207,22 +207,25 @@ _STUB = r'''
    wrong argument */
 static int ptr(const void* p, uintptr_t want) { return (uintptr_t)p == want; }
 int tds_soft_accum_fwd(const float* coef, const float* zw, const float* color,
-                       int batch, int n_faces, int group, int res, void* num,
-                       void* den, void* transp, void* stream) {
+                       int batch, int n_faces, int group, int res, void* list,
+                       void* counts, void* num, void* den, void* transp,
+                       void* stream) {
   if (!ptr(coef, 0x7f0000001000ull)) return 1;
   if (!ptr(zw, 0x7f0000001100ull)) return 2;
   if (!ptr(color, 0x7f0000001200ull)) return 3;
   if (batch != 16 || n_faces != 17024 || group != 128 || res != 64) return 4;
-  if (!ptr(num, 0x7f00000fd000ull)) return 5;
-  if (!ptr(den, 0x7f00000fe000ull)) return 6;
-  if (!ptr(transp, 0x7f00000ff000ull)) return 7;
-  if (!ptr(stream, 0x7ffd12345678abc0ull)) return 8;
+  if (!ptr(list, 0x7f00000fb000ull)) return 5;
+  if (!ptr(counts, 0x7f00000fc000ull)) return 6;
+  if (!ptr(num, 0x7f00000fd000ull)) return 7;
+  if (!ptr(den, 0x7f00000fe000ull)) return 8;
+  if (!ptr(transp, 0x7f00000ff000ull)) return 9;
+  if (!ptr(stream, 0x7ffd12345678abc0ull)) return 10;
   return 0;
 }
 int tds_soft_accum_bwd(const float* coef, const float* zw, const float* color,
                        const float* gnum, const float* gden, const float* gtransp,
-                       int batch, int n_faces, int group, int res, void* scratch,
-                       void* partial, void* stream) {
+                       int batch, int n_faces, int group, int res, void* list,
+                       void* counts, void* scratch, void* partial, void* stream) {
   if (!ptr(coef, 0x7f0000001000ull)) return 1;
   if (!ptr(zw, 0x7f0000001100ull)) return 2;
   if (!ptr(color, 0x7f0000001200ull)) return 3;
@@ -230,9 +233,11 @@ int tds_soft_accum_bwd(const float* coef, const float* zw, const float* color,
   if (!ptr(gden, 0x7f0000001400ull)) return 5;
   if (!ptr(gtransp, 0x7f0000001500ull)) return 6;
   if (batch != 16 || n_faces != 17024 || group != 128 || res != 64) return 7;
-  if (!ptr(scratch, 0x7f00000fe000ull)) return 8;
-  if (!ptr(partial, 0x7f00000ff000ull)) return 9;
-  if (!ptr(stream, 0x7ffd12345678abc0ull)) return 10;
+  if (!ptr(list, 0x7f00000fc000ull)) return 8;
+  if (!ptr(counts, 0x7f00000fd000ull)) return 9;
+  if (!ptr(scratch, 0x7f00000fe000ull)) return 10;
+  if (!ptr(partial, 0x7f00000ff000ull)) return 11;
+  if (!ptr(stream, 0x7ffd12345678abc0ull)) return 12;
   return 0;
 }
 '''
@@ -240,8 +245,8 @@ int tds_soft_accum_bwd(const float* coef, const float* zw, const float* color,
 
 def test_grouped_entry_points_receive_their_arguments(tmp_path):
     """The ctypes bindings of ``csrc/soft_accum.cu`` pass every argument in
-    place, 64-bit pointers (the stream) included, to stubs with the
-    kernels' C signatures."""
+    place, 64-bit pointers (the per-tile lists, their counts and the stream)
+    included, to stubs with the kernels' C signatures."""
     cc = shutil.which('cc')
     if cc is None:
         pytest.skip('needs a C compiler')
@@ -251,10 +256,12 @@ def test_grouped_entry_points_receive_their_arguments(tmp_path):
     stub = soft._bind_accum(ctypes.CDLL(str(lib)))
     ptrs = [0x7f0000001000 + 0x100 * i for i in range(6)]
     stream = 0x7ffd12345678abc0
-    assert stub.tds_soft_accum_fwd(*ptrs[:3], 16, 17024, 128, 64, 0x7f00000fd000,
-                                   0x7f00000fe000, 0x7f00000ff000, stream) == 0
-    assert stub.tds_soft_accum_bwd(*ptrs, 16, 17024, 128, 64, 0x7f00000fe000,
+    assert stub.tds_soft_accum_fwd(*ptrs[:3], 16, 17024, 128, 64, 0x7f00000fb000,
+                                   0x7f00000fc000, 0x7f00000fd000, 0x7f00000fe000,
                                    0x7f00000ff000, stream) == 0
+    assert stub.tds_soft_accum_bwd(*ptrs, 16, 17024, 128, 64, 0x7f00000fc000,
+                                   0x7f00000fd000, 0x7f00000fe000, 0x7f00000ff000,
+                                   stream) == 0
 
 
 @pytest.mark.parametrize('seed,b,n_faces,res', [(12, 2, 300, 32), (11, 1, 129, 48)])

@@ -25,8 +25,10 @@ coefficients 0 except C = -1e9, z weight 0, color 0, so alpha is exactly 0)
 and maps them to the totals (num, den, transp): each group's partials start
 from 0, 0, 1 and take its faces in ascending order, and the groups combine
 as the reference's XLA does, ``num + n_g``, ``den + d_g``, ``transp * t_g``
-for g = 0, 1, ... One kernel launch covers every group. The composite is
-plain differentiable PyTorch, as in the reference.
+for g = 0, 1, ... One kernel launch covers every group; each of its blocks
+first lists the faces that can reach its 16 x 16 pixel tile and skips the
+rest, which add exactly 0 there (:func:`soft_tile_lists_reference`). The
+composite is plain differentiable PyTorch, as in the reference.
 """
 import ctypes
 from typing import Tuple
@@ -49,7 +51,10 @@ ACCUM_FWD_LAUNCHES = 0
 ACCUM_BWD_LAUNCHES = 0
 
 _THREADS = 128      #: pixels per block in csrc/soft_raster.cu
-_ACCUM_BWD_THREADS = 256    #: pixels per block of the grouped backward
+#: pixels per side of the grouped kernels' block tiles (csrc/soft_accum.cu)
+ACCUM_TILE = 16
+#: the cull's slack: an edge is dropped only below -4 - 2^-20 x its terms
+_CULL_SLACK = 2.0 ** -20
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -74,16 +79,16 @@ LIBRARY = KernelLibrary('soft_raster.cu', _bind)
 def _bind_accum(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the grouped entry points' signatures (see
     ``csrc/soft_accum.cu``): forward: coef, zw, color pointers; batch,
-    faces, group, res; num, den, transp, stream; backward: coef, zw, color,
-    gnum, gden, gtransp pointers; batch, faces, group, res; scratch,
-    partial, stream."""
+    faces, group, res; list, counts, num, den, transp, stream; backward:
+    coef, zw, color, gnum, gden, gtransp pointers; batch, faces, group, res;
+    list, counts, scratch, partial, stream."""
     fwd = lib.tds_soft_accum_fwd
     fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p] * 4
+        ctypes.c_void_p] * 6
     fwd.restype = ctypes.c_int
     bwd = lib.tds_soft_accum_bwd
     bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p] * 3
+        ctypes.c_void_p] * 5
     bwd.restype = ctypes.c_int
     return lib
 
@@ -456,6 +461,41 @@ def soft_accum_bwd_reference(coef: torch.Tensor, zw: torch.Tensor,
             sums[..., 10:13])
 
 
+def accum_tiles(res: int) -> int:
+    """The grouped kernels' pixel tiles per camera, ``ceil(res / 16)^2``."""
+    return (-(-res // ACCUM_TILE)) ** 2
+
+
+def soft_tile_lists_reference(coef: torch.Tensor, res: int) -> torch.Tensor:
+    """
+    Plain version of the grouped kernels' per-tile face cull
+    (``csrc/soft_accum.cu``): which faces each block keeps. Tiles are 16 x
+    16 pixels, row-major; a face is dropped from a tile iff one edge's value
+    ``t_e = A*px + B*py + C`` is at most ``-4 - 2^-20 (|A| x_max + |B| y_max
+    + |C|)`` at the tile's four extreme pixel centres (clipped to the
+    image), in float64 with the kernel's operations in its order. There its
+    float32 value is <= -4 at every pixel of the tile, so the face's window
+    ramp, alpha and gradient terms are exactly 0.
+
+    Args:
+        coef: (B, F, 3, 3) edge coefficients.
+    Returns:
+        (B, tiles, F) bool keep mask, tiles = ``accum_tiles(res)``.
+    """
+    c = coef.double()
+    first = torch.arange(0, res, ACCUM_TILE, dtype=torch.float64,
+                         device=coef.device) + 0.5
+    last = torch.clamp(first + (ACCUM_TILE - 1), max=res - 0.5)
+    a, b, k = (c[..., j, None] for j in range(3))            # (B, F, 3, 1)
+    rows = torch.maximum(a * first, a * last)                # (B, F, 3, T)
+    cols = torch.maximum(b * first, b * last)
+    top = (rows[..., :, None] + cols[..., None, :]) + k[..., None]
+    slack = ((a.abs() * last)[..., :, None] + (b.abs() * last)[..., None, :]
+             + k.abs()[..., None]) * _CULL_SLACK
+    dropped = (top <= -4.0 - slack).any(dim=2)               # (B, F, T, T)
+    return ~dropped.flatten(2).transpose(1, 2)
+
+
 def _check_accum(coef, zw, color, res, grads=None):
     b, n_faces = coef.shape[0], coef.shape[1]
     if n_faces < 1 or n_faces % MAX_FACES:
@@ -470,13 +510,22 @@ def _check_accum(coef, zw, color, res, grads=None):
     _check_operands(coef, want)
 
 
+def _tile_lists(b: int, n_faces: int, res: int, device):
+    """The grouped kernels' scratch for their per-tile face lists: (B,
+    tiles, F) face indices and (B, tiles) counts, int32."""
+    tiles = accum_tiles(res)
+    return (torch.empty((b, tiles, n_faces), dtype=torch.int32, device=device),
+            torch.empty((b, tiles), dtype=torch.int32, device=device))
+
+
 def soft_accum_fwd(coef: torch.Tensor, zw: torch.Tensor, color: torch.Tensor,
                    res: int):
     """
     The grouped forward: the totals (num (B, 3, R, R), den (B, R, R),
     transp (B, R, R)) of coef (B, F, 3, 3), zw (B, 1, F), color (B, F, 3),
     F a multiple of ``MAX_FACES`` (:func:`pad_to_groups`). One CUDA launch
-    over every group for CUDA tensors, plain version for CPU tensors.
+    over every group for CUDA tensors (each block over the faces that reach
+    its tile), plain version for CPU tensors.
     """
     global ACCUM_FWD_LAUNCHES
     _check_accum(coef, zw, color, res)
@@ -484,6 +533,7 @@ def soft_accum_fwd(coef: torch.Tensor, zw: torch.Tensor, color: torch.Tensor,
         return soft_accum_fwd_reference(coef, zw, color, res)
     coef, zw, color = (t.contiguous() for t in (coef, zw, color))
     b, n_faces = coef.shape[:2]
+    lists, counts = _tile_lists(b, n_faces, res, coef.device)
     num = coef.new_empty((b, 3, res, res))
     den = coef.new_empty((b, res, res))
     transp = coef.new_empty((b, res, res))
@@ -491,8 +541,8 @@ def soft_accum_fwd(coef: torch.Tensor, zw: torch.Tensor, color: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = ACCUM_LIBRARY.load().tds_soft_accum_fwd(
             coef.data_ptr(), zw.data_ptr(), color.data_ptr(), b, n_faces,
-            MAX_FACES, res, num.data_ptr(), den.data_ptr(), transp.data_ptr(),
-            stream)
+            MAX_FACES, res, lists.data_ptr(), counts.data_ptr(), num.data_ptr(),
+            den.data_ptr(), transp.data_ptr(), stream)
     check_launch(err, 'grouped soft raster forward')
     ACCUM_FWD_LAUNCHES += 1
     return num, den, transp
@@ -514,15 +564,17 @@ def soft_accum_bwd(coef: torch.Tensor, zw: torch.Tensor, color: torch.Tensor,
     coef, zw, color, gnum, gden, gtransp = (
         t.contiguous() for t in (coef, zw, color, gnum, gden, gtransp))
     b, n_faces = coef.shape[:2]
-    tiles = -(-res * res // _ACCUM_BWD_THREADS)
+    lists, counts = _tile_lists(b, n_faces, res, coef.device)
     scratch = coef.new_empty((b, n_faces // MAX_FACES, res, res))
-    partial = coef.new_empty((b, tiles, n_faces, 13))
+    # the kernel writes only the rows of the faces each tile lists
+    partial = coef.new_zeros((b, accum_tiles(res), n_faces, 13))
     with torch.cuda.device(coef.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = ACCUM_LIBRARY.load().tds_soft_accum_bwd(
             coef.data_ptr(), zw.data_ptr(), color.data_ptr(), gnum.data_ptr(),
             gden.data_ptr(), gtransp.data_ptr(), b, n_faces, MAX_FACES, res,
-            scratch.data_ptr(), partial.data_ptr(), stream)
+            lists.data_ptr(), counts.data_ptr(), scratch.data_ptr(),
+            partial.data_ptr(), stream)
     check_launch(err, 'grouped soft raster backward')
     ACCUM_BWD_LAUNCHES += 1
     sums = partial.sum(dim=1)                                # (B, F, 13)
