@@ -4,8 +4,10 @@ checkout (one ``nvcc`` per source, all at once), then drives five paths:
 
 * the headline env step (carla_Town02, 256 environments, 20 vehicles,
   128 x 128 render plus all metrics): the fused render kernel against its
-  plain PyTorch version, the first steps against the CPU path, 200 steps
-  counting launches, times;
+  plain PyTorch version (also on scenes that stress its per-tile
+  primitive cull), the first steps against the CPU path, 200 steps
+  counting launches, times, the cull's listed pairs per tile and the
+  kernel's registers and blocks per SM;
 * the imitation-learning gradient step (the same town, 16 environments,
   8 vehicles, 64 x 64 differentiable render, a 40-step rollout through the
   bilinear background warp and the soft raster, a CNN policy): the three
@@ -34,7 +36,10 @@ checkout (one ``nvcc`` per source, all at once), then drives five paths:
   device profile and peak memory;
 * the primitive raster (the headline scenario without its texture, and
   its wide view): the banded and unbanded kernels against their plain
-  versions on random scenes and on the headline's frame, a small run of
+  versions on random scenes, on scenes that stress the per-tile primitive
+  cull (boundary, parallelogram, near-degenerate and larger-than-view
+  prims, and hand-made flat, non-finite and subnormal edges) and on the
+  headline's frame, a small run of
   both renders against the CPU path, 100 untextured steps at B = 256,
   res 128 counting launches, ``Simulator.render`` of a 400 m view at
   res 64 (the full-resolution background), the unbanded kernel at full
@@ -94,9 +99,6 @@ WARP_OPS = 12 + 2 * (10 + 9) + 9 + 4
 #: quad's two affine values (4 each), their two bounds tests and the
 #: minimum; a triangle's three edge values, three tests and the minimum
 PRIM_QUAD_OPS, PRIM_TRI_OPS = 11, 15
-#: per pixel of the fused render: the warp index arithmetic and the texel
-#: (~20), and per live 8-primitive chunk 8 quads or 8 triangles
-FUSED_PIXEL_OPS, FUSED_QUAD_OPS, FUSED_TRI_OPS = 20, 8 * PRIM_QUAD_OPS, 8 * PRIM_TRI_OPS
 #: per pixel of the prim raster (csrc/prim_raster.cu) beside its prims:
 #: the covered test, three channel unpacks (shift, mask) and products
 PRIM_PIXEL_OPS = 1 + 3 * 3
@@ -104,6 +106,9 @@ PRIM_PIXEL_OPS = 1 + 3 * 3
 #: row and column indices (affine 4, round 2, clamp 2 each), the texture
 #: coordinates (2 x 4), the validity test (4) and the unpack (3)
 NEAREST_PIXEL_OPS = 8 + 8 + 8 + 4 + 3
+#: per pixel of the fused render beside its prims: the nearest warp's and
+#: the prim raster's composite
+FUSED_PIXEL_OPS = NEAREST_PIXEL_OPS + PRIM_PIXEL_OPS
 #: per (pixel, face) of the hard raster (csrc/hard_raster.cu): three edge
 #: values (4 each), three compares and the minimum (packed) or the z
 #: compares (chunked)
@@ -182,7 +187,8 @@ def texel_bytes(mip, b: int, fov: float) -> float:
 
 def step_operands(scenario, state):
     """The fused render's operands for the frame of ``state``, built the
-    way the renderer builds them."""
+    way the renderer builds them, and the frame's screen-space quads and
+    triangles."""
     from torchdrivesim_tpu_torch.ops.rasterize import n_bands_for, prep_sorted_prim_coefs
     from torchdrivesim_tpu_torch.ops.warp import warp_coefficients
     renderer = scenario.sim.renderer
@@ -195,7 +201,7 @@ def step_operands(scenario, state):
                                      renderer._background_color,
                                      left_handed=renderer.cfg.left_handed_coordinates,
                                      res=scenario.res)
-    return mip, (fcoef, icoef, qcoef, qpk, tcoef, tpk, qmask, tmask)
+    return mip, (fcoef, icoef, qcoef, qpk, tcoef, tpk, qmask, tmask), (sq, st)
 
 
 def prim_frame(scenario, state, fov):
@@ -250,13 +256,45 @@ def random_warp_operands(seed: int, b: int, res: int, device):
     return mip, fcoef, icoef
 
 
-def compare_fused(fused, mip, ops, label):
+def compare_fused(fused, mip, ops, label, res=RES):
     """Kernel against plain version in both output modes; returns the
     largest absolute difference of the float output."""
-    errs = [compare_exact(fused.render_coefs_fused(mip, *ops, RES, packed),
-                          fused.render_coefs_fused_reference(mip, *ops, RES, packed),
+    errs = [compare_exact(fused.render_coefs_fused(mip, *ops, res, packed),
+                          fused.render_coefs_fused_reference(mip, *ops, res, packed),
                           f'{label} packed={packed}') for packed in (False, True)]
     return errs[0]
+
+
+def cull_fused_operands(kind, seed: int, b: int, res: int, device):
+    """The fused render's operands of :func:`prim_cull_scene`'s scene over
+    :func:`random_warp_operands`' texture and cameras."""
+    from torchdrivesim_tpu_torch.ops.rasterize import (
+        n_bands_for, prep_sorted_prim_coefs)
+    mip, fcoef, icoef = random_warp_operands(seed, b, res, device)
+    scene = prim_cull_scene(kind, seed, b, res, device)
+    qcoef, qpk, qmask, tcoef, tpk, tmask = prep_sorted_prim_coefs(
+        *scene[:6], res, 56, n_bands_for(res))
+    return mip, (fcoef, icoef, qcoef, qpk, tcoef, tpk, qmask, tmask)
+
+
+def listed_pairs(ops, qmask, tmask, res):
+    """(listed quads, listed triangles) per 16 x 16 tile: the (tile,
+    primitive) pairs the winner's cull keeps (``prim_tile_keep_reference``)
+    on the prepared ``ops`` (qcoef, qpk, tcoef, tpk)."""
+    from torchdrivesim_tpu_torch.ops import prims as P
+    keep = P.prim_tile_keep_reference(*ops, qmask, tmask, res)
+    qp = ops[1].shape[1]
+    n_tiles = keep.shape[0] * keep.shape[1]
+    return (float(keep[..., :qp].sum()) / n_tiles, float(keep[..., qp:].sum()) / n_tiles)
+
+
+def occupancy_line(name, occupancy, qp, tp, n_blocks):
+    """The kernel's registers, resident blocks per SM and waves of its grid
+    of ``n_blocks`` blocks on this card."""
+    regs, per_sm, spill = occupancy(qp, tp)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (f'{name}: {regs} registers per thread, {spill} spill bytes, {per_sm} blocks '
+            f'per SM, {n_blocks} blocks = {n_blocks / (per_sm * sms):.2f} waves on {sms} SMs')
 
 
 def compare_exact(got, want, label):
@@ -299,14 +337,17 @@ def compare_with_cpu(build, label):
                                            atol=1e-4, rtol=0)
 
 
-def fused_bound(mip, ops, res, fov):
+def fused_bound(mip, ops, screen, res, fov):
+    """Bound of the fused render: the image written, the operands and the
+    texels the views need read; per pixel the warp and the composite, and
+    each quad's or triangle's test only in the tiles its bounding box
+    overlaps (:func:`tile_pairs` of the ``screen`` quads and triangles), as
+    :func:`prim_bound` counts B7's."""
     fcoef, icoef, qcoef, qpk, tcoef, tpk, qmask, tmask = ops
-    b, n_bands = qmask.shape[0], qmask.shape[1]
-    band_pixels = res // n_bands * res
-    live_q = (qmask != 0).sum(dim=(2, 3)).double()          # (B, bands)
-    live_t = (tmask != 0).sum(dim=(2, 3)).double()
-    ops_n = float((band_pixels * (FUSED_PIXEL_OPS + FUSED_QUAD_OPS * live_q
-                                  + FUSED_TRI_OPS * live_t)).sum())
+    b = qmask.shape[0]
+    q_pairs, t_pairs = (tile_pairs(c, prim_valid(c), res) for c in screen)
+    ops_n = b * res * res * FUSED_PIXEL_OPS \
+        + BOUND_TILE ** 2 * (PRIM_QUAD_OPS * q_pairs + PRIM_TRI_OPS * t_pairs)
     out_bytes = b * 3 * res * res * 4
     in_bytes = nbytes(fcoef, icoef, qcoef, qpk, tcoef, tpk, qmask, tmask) \
         + texel_bytes(mip, b, fov)
@@ -323,12 +364,16 @@ def headline(device, card):
     # 1. kernel against plain version at the headline operands
     scenario = build_benchmark_scenario(batch_size=BATCH, agent_count=AGENTS,
                                         res=RES, fov=FOV, device=device)
-    mip, ops = step_operands(scenario, scenario.sim.state)
+    mip, ops, _ = step_operands(scenario, scenario.sim.state)
     print(f'headline operands: qcoef {tuple(ops[2].shape)}, tcoef '
           f'{tuple(ops[4].shape)}, qmask {tuple(ops[6].shape)}, '
           f'tmask {tuple(ops[7].shape)}, texture {tuple(mip.data.shape)}')
     max_err = compare_fused(fused, mip, ops, 'headline')
     compare_fused(fused, *random_operands(5, 64, RES, device), 'random scene')
+    for i, kind in enumerate(PRIM_CULL_KINDS):
+        for res in (RES, 80):
+            compare_fused(fused, *cull_fused_operands(kind, 40 + i, 16, res, device),
+                          f'{kind} scene res {res}', res)
 
     # 2. the first steps on the card against the CPU path
     compare_with_cpu(build_benchmark_scenario, 'compare')
@@ -364,16 +409,30 @@ def headline(device, card):
         raise AssertionError('images do not show the vehicles')
 
     # 4. times, on this card
-    mip, ops = step_operands(scenario, state)
+    mip, ops, screen = step_operands(scenario, state)
     kernel_ms = graph_ms(lambda: fused.render_coefs_fused(mip, *ops, RES), 50)
     call_ms = cuda_ms(lambda: fused.render_coefs_fused(mip, *ops, RES), 50)
     plain_ms = cuda_ms(lambda: fused.render_coefs_fused_reference(mip, *ops, RES), 5)
     packed_ms = graph_ms(lambda: fused.render_coefs_fused(mip, *ops, RES, True), 50)
-    bound_ms, bound_by = fused_bound(mip, ops, RES, FOV)
+    # no primitive tested: what the warp, the composite and the write cost
+    floor_ms = graph_ms(lambda: fused.render_coefs_fused(
+        mip, *ops[:6], torch.zeros_like(ops[6]), torch.zeros_like(ops[7]), RES), 50)
+    bound_ms, bound_by = fused_bound(mip, ops, screen, RES, FOV)
+    n_tiles = BATCH * (RES // BOUND_TILE) ** 2
+    box_q, box_t = (tile_pairs(c, prim_valid(c), RES) / n_tiles for c in screen)
+    listed_q, listed_t = listed_pairs(ops[2:6], ops[6], ops[7], RES)
+    print(f'fused_render, plain cull (prim_tile_keep_reference) on the last frame: '
+          f'{listed_q:.3f} quads and '
+          f'{listed_t:.3f} triangles listed per {BOUND_TILE} x {BOUND_TILE} tile of '
+          f'{ops[3].shape[1]} + {ops[5].shape[1]} slots; {box_q:.3f} and {box_t:.3f} '
+          'overlap it by bounding box (tile_pairs)')
+    print(occupancy_line('fused_render', fused.occupancy, ops[3].shape[1],
+                         ops[5].shape[1], BATCH * (RES // BOUND_TILE) ** 2 // 8))
     print(f'fused_render kernel B={BATCH} res={RES} float out: {kernel_ms:.4f} ms, '
           f'packed out: {packed_ms:.4f} ms (device, graph replay); eager call '
           f'{call_ms:.4f} ms; plain version: {plain_ms:.3f} ms; '
-          f'bound {bound_ms * 1e3:.2f} us by {bound_by} [{card}]')
+          f'bound {bound_ms * 1e3:.2f} us by {bound_by}; float out with both masks '
+          f'zeroed {floor_ms:.4f} ms [{card}]')
     bench = run_benchmark(scenario, steps_per_chunk=100, n_chunks=3)
     print(f'env step B={BATCH} res={RES} render+metrics: '
           f'{bench["env_steps_per_sec_median"]:.1f} env-steps/s median of '
@@ -1550,6 +1609,13 @@ def prim_compare_with_cpu(device):
             raise AssertionError(f'prim compare {label}: images differ')
 
 
+def prim_valid(corners):
+    """(B, N): the prep's degenerate test on screen-space corners."""
+    e1 = corners[:, :, 1] - corners[:, :, 0]
+    e2 = corners[:, :, -1] - corners[:, :, 0]
+    return (e1[..., 0] * e2[..., 1] - e1[..., 1] * e2[..., 0]).abs() > 1e-9
+
+
 def prim_bound(ops, scene, res, background_bytes):
     """Bound of the prim raster on the screen-space ``scene``: the image
     written, the background and the operands ``ops`` read; per pixel the
@@ -1557,15 +1623,9 @@ def prim_bound(ops, scene, res, background_bytes):
     bounding box overlaps (:func:`tile_pairs`), with or without masks."""
     quads, tris = scene[0], scene[3]
     b = quads.shape[0]
-
-    def valid(corners):                 # the prep's degenerate test
-        e1 = corners[:, :, 1] - corners[:, :, 0]
-        e2 = corners[:, :, -1] - corners[:, :, 0]
-        return (e1[..., 0] * e2[..., 1] - e1[..., 1] * e2[..., 0]).abs() > 1e-9
-
     tile = BOUND_TILE ** 2
-    q_pairs = tile_pairs(quads, valid(quads), res)
-    t_pairs = tile_pairs(tris, valid(tris), res)
+    q_pairs = tile_pairs(quads, prim_valid(quads), res)
+    t_pairs = tile_pairs(tris, prim_valid(tris), res)
     n_ops = b * res * res * PRIM_PIXEL_OPS \
         + tile * (PRIM_QUAD_OPS * q_pairs + PRIM_TRI_OPS * t_pairs)
     n_bytes = b * 3 * res * res * 4 + background_bytes + nbytes(*ops)
@@ -1576,10 +1636,224 @@ def prim_bound(ops, scene, res, background_bytes):
     return bound(n_bytes, n_ops)
 
 
-def compare_prims(prims_mod, scene, bg, res, label):
+#: scenes that stress the primitive winner's per-tile cull (``prim_cull_scene``)
+PRIM_CULL_KINDS = ('boundary', 'parallelogram', 'near_degenerate', 'larger_than_view')
+
+
+def _boundary_candidates(rng, res, quad, n):
+    """``n`` candidate prims that touch one 16 x 16 tile only at its corner
+    pixel centre P: (corners (n, K, 2), P (2,), the tile's first row and
+    column). A triangle has its apex on P and one edge along a line that
+    meets the tile only at P; a parallelogram has P as its corner 0 (its
+    first coordinate -0.5 there) or as the corner opposite (+0.5), with the
+    same line as its side. Candidate 0 has dyadic sides from P exactly,
+    so its value at P is exactly 0 or +-0.5; the others have random sides
+    and P moved by up to 3 ulp, so the float32 value at P lands on either
+    side of the float64 one."""
+    per = res // 16
+    if rng.rand() < 0.25:                   # near the origin: fine float32 steps
+        r0 = c0 = 0
+        sx = sy = -1.0
+    else:
+        r0, c0 = rng.randint(per) * 16, rng.randint(per) * 16
+        sx, sy = rng.choice([-1.0, 1.0], 2)
+    p = np.array([r0 + (15.5 if sx > 0 else 0.5), c0 + (15.5 if sy > 0 else 0.5)],
+                 np.float32)
+    out = np.array([sx, sy])                # away from the tile, both axes
+    side = np.array([sx, -sy])              # the line through P alone
+    dyadic = np.arange(n) == 0
+    j = np.where(dyadic, 2.0 ** rng.randint(1, 4, n), rng.uniform(3, 30, n))[:, None]
+    k = np.where(dyadic, 2.0 ** rng.randint(1, 4, n), rng.uniform(3, 30, n))[:, None]
+    turn = np.where(dyadic[:, None], 1.0, rng.uniform(0.3, 1.0, (n, 2)))
+    u = out * turn                          # outward
+    v = side * np.where(dyadic[:, None], 1.0, rng.uniform(0.3, 1.0, (n, 2)))
+    steps = np.where(dyadic[:, None], 0, rng.randint(-3, 4, (n, 2)))
+    p32 = (p + steps * np.spacing(p)).astype(np.float32)     # exact: a few ulp
+    if quad:
+        far = rng.rand(n) < 0.5             # P is the corner opposite corner 0
+        q0 = np.where(far[:, None], p32 + j * u, p32)
+        e1 = np.where(far[:, None], -j * u, j * u)
+        e2 = k * v
+        corners = np.stack([q0, q0 + e1, q0 + e1 + e2, q0 + e2], axis=1)
+    else:
+        corners = np.stack([p32, p32 + k * v, p32 + j * u], axis=1)
+    return corners.astype(np.float32), p, (r0, c0)
+
+
+def _critical(prims_mod, corners, p, tile, quad):
+    """Per candidate: inside at P by the plain float32 arithmetic while one
+    affine value is outside over the whole tile by float64 with no slack
+    (the cull would drop it without delta), and the float32 values at P."""
+    from torchdrivesim_tpu_torch.ops import warp
+    n = corners.shape[0]
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32))
+    ones = lambda *shape: t(np.ones((n, 1) + shape))
+    c = t(corners[:, None])
+    quads, tris = (c, t(np.zeros((n, 1, 3, 2)))) if quad else (t(np.zeros((n, 1, 4, 2))), c)
+    qcoef, qpk, tcoef, tpk = prims_mod.prep_prims(quads, ones(), ones(3), tris, ones(),
+                                                  ones(3))
+    coef = (qcoef if quad else tcoef)[:, :, 0]              # (n, E, 3)
+    valid = ((qpk if quad else tpk)[:, 0, 0] != prims_mod.SENTINEL).numpy()
+    px, py = t(p[0]), t(p[1])
+    e32 = warp.affine(coef[..., 0], px, coef[..., 1], py, coef[..., 2])
+    inside = ((e32.abs() <= 0.5) if quad else (e32 >= 0)).all(dim=1).numpy()
+    a, b, k = (coef[..., j].double() for j in range(3))
+    x = torch.tensor([float(tile[0]) + 0.5, float(tile[0]) + 15.5], dtype=torch.float64)
+    y = torch.tensor([float(tile[1]) + 0.5, float(tile[1]) + 15.5], dtype=torch.float64)
+    top = (torch.maximum(a * x[0], a * x[1]) + torch.maximum(b * y[0], b * y[1])) + k
+    bottom = (torch.minimum(a * x[0], a * x[1]) + torch.minimum(b * y[0], b * y[1])) + k
+    out = ((top < -0.5) | (bottom > 0.5)) if quad else (top < 0)
+    return inside & valid & out.any(dim=1).numpy(), e32.numpy()
+
+
+def _boundary_prims(prims_mod, rng, res, quad, count, candidates=24):
+    """(count, K, 2) corners of boundary prims (see
+    :func:`_boundary_candidates`): a third the dyadic candidate, the rest a
+    candidate that is inside at P in float32 and outside over the tile in
+    float64 without the slack (one whose float32 value at P is
+    nextafter(+-0.5, 0) first), where one exists."""
+    picked = []
+    for _ in range(count):
+        corners, p, tile = _boundary_candidates(rng, res, quad, candidates)
+        crit, e32 = _critical(prims_mod, corners, p, tile, quad)
+        after = (np.abs(e32) == np.nextafter(np.float32(0.5), np.float32(0))).any(axis=1)
+        if rng.rand() < 1 / 3 or not crit.any():
+            picked.append(corners[0])
+        else:
+            picked.append(corners[int(np.argmax(crit & after if quad and (crit & after).any()
+                                                else crit))])
+    return np.stack(picked)
+
+
+def prim_cull_scene(kind: str, seed: int, b: int, res: int, device, q: int = 24,
+                    t: int = 24):
+    """
+    A screen-space scene of ``b`` cameras, ``q`` quads and ``t`` triangles
+    each (as ``ops.prims.random_prims`` gives one, z on 4 levels, a random
+    background), made from numpy with ``seed``, that stresses the
+    primitive winner's per-tile cull:
+
+    * ``boundary``: prims touching a 16 x 16 tile only at its corner pixel
+      centre, where an affine value is exactly 0 or +-0.5 (dyadic sides),
+      or nextafter(+-0.5, 0), or lands inside in float32 while the float64
+      value is outside (the rounding the cull's slack covers);
+    * ``parallelogram``: half the quads with corner 2 far from c1 + c3 -
+      c0, so the accepted region (the parallelogram on corners 0, 1 and 3)
+      leaves the corners' bounding box and the band masks built from it;
+    * ``near_degenerate``: half the prims tiny, at pixel centres, with
+      |cross| a few times 1e-9 (coefficients up to ~1e8);
+    * ``larger_than_view``: a quarter of the prims reaching far beyond the
+      view on every side.
+
+    Outside ``boundary`` the rest are ``random_prims``' prims, whose z,
+    colors and background every kind takes. Returns (quads, qz, qcolors,
+    tris, tz, tcolors, background) float32 on ``device``.
+    """
+    from torchdrivesim_tpu_torch.ops import prims as P
+    rng = np.random.RandomState(seed)
+    *scene, bg = P.random_prims(seed + 1, b, q, t, res, 'cpu')
+    quads, tris = scene[0].numpy().copy(), scene[3].numpy().copy()
+    if kind == 'boundary':
+        quads = np.stack([_boundary_prims(P, rng, res, True, q) for _ in range(b)])
+        tris = np.stack([_boundary_prims(P, rng, res, False, t) for _ in range(b)])
+    elif kind == 'parallelogram':
+        h = q // 2
+        quads[:, :h, 2] = quads[:, :h, 0] + rng.uniform(-0.5, 0.5, (b, h, 2)) * res
+    elif kind == 'near_degenerate':
+        for arr, n in ((quads, q // 2), (tris, t // 2)):
+            c0 = (rng.randint(0, res, (b, n, 2)) + 0.5
+                  + rng.uniform(-0.3, 0.3, (b, n, 2))).astype(np.float32)
+            c0[:, : n // 2] %= 16.0           # near the origin: finer float32 steps
+            ang = rng.uniform(0, 2 * np.pi, (b, n))
+            u = np.stack([np.cos(ang), np.sin(ang)], -1)
+            w = np.stack([-u[..., 1], u[..., 0]], -1)
+            r1 = rng.uniform(1e-3, 1e-2, (b, n, 1))
+            r2 = rng.uniform(2e-9, 8e-9, (b, n, 1)) / r1
+            if arr.shape[2] == 4:
+                arr[:, :n] = np.stack([c0, c0 + r1 * u, c0 + r1 * u + r2 * w,
+                                       c0 + r2 * w], axis=2)
+            else:
+                arr[:, :n] = np.stack([c0, c0 + r1 * u, c0 + 0.5 * r1 * u + r2 * w],
+                                      axis=2)
+    elif kind == 'larger_than_view':
+        for arr, n in ((quads, q // 4), (tris, t // 4)):
+            ang = rng.uniform(0, 2 * np.pi, (b, n))
+            u = np.stack([np.cos(ang), np.sin(ang)], -1) * res * rng.uniform(4, 8, (b, n, 1))
+            w = np.stack([-u[..., 1], u[..., 0]], -1) * rng.uniform(0.5, 1.5, (b, n, 1))
+            mid = rng.uniform(0, res, (b, n, 2))
+            if arr.shape[2] == 4:
+                c0 = mid - 0.5 * (u + w)
+                arr[:, :n] = np.stack([c0, c0 + u, c0 + u + w, c0 + w], axis=2)
+            else:
+                arr[:, :n] = np.stack([mid - u, mid + u + w, mid + u - w], axis=2)
+    else:
+        raise ValueError(f'unknown scene kind {kind!r}')
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    return (f(quads), scene[1].to(device), scene[2].to(device), f(tris),
+            scene[4].to(device), scene[5].to(device), bg.to(device))
+
+
+def prim_edge_operands(device):
+    """
+    Hand-made prepared operands at res 32 (one camera, 8 quad and 8
+    triangle slots, the rest sentinel, no masks) that the primitive
+    winner's per-tile cull must keep where they count:
+
+    * triangle 0 (pack 5 << 24): edge 0 all zero (value 0 everywhere, so
+      only the strict inequality keeps it), the others inside rows 0-10;
+    * quad 0 (9 << 24): the constant coordinates +0.5 and -0.5, inside
+      everywhere;
+    * triangle 1 (1 << 24) with a NaN and quad 1 (2 << 24) with an infinite
+      coefficient: kept, never winning;
+    * triangle 2 (4 << 24): edge 0 = 2^-149 px - 16 * 2^-149, subnormal
+      products: in float32 it is 0 at row 15 (15.5 * 2^-149 rounds to 16 *
+      2^-149) and inside from there on, while its float64 maximum over rows
+      0-15 is -2^-150 (only the underflow term of delta keeps it there).
+
+    Returns (qcoef, qpk, tcoef, tpk) on ``device``.
+    """
+    f32 = np.float32
+    qcoef = np.zeros((1, 2, 8, 3), f32)
+    tcoef = np.zeros((1, 3, 8, 3), f32)
+    qpk = np.full((1, 8, 1), 0x7FFFFFFF, np.int32)
+    tpk = np.full((1, 8, 1), 0x7FFFFFFF, np.int32)
+    tcoef[0, 1, 0] = [-1, 0, 10.5]
+    tcoef[0, 2, 0] = [0, 0, 1]
+    tpk[0, 0, 0] = 5 << 24
+    qcoef[0, 0, 0] = [0, 0, 0.5]
+    qcoef[0, 1, 0] = [0, 0, -0.5]
+    qpk[0, 0, 0] = (9 << 24) | 0x102030
+    tcoef[0, :, 1] = [np.nan, 0, 1]
+    tpk[0, 1, 0] = 1 << 24
+    qcoef[0, :, 1] = [np.inf, 0, 0]
+    qpk[0, 1, 0] = 2 << 24
+    tcoef[0, 0, 2] = [2.0 ** -149, 0, -16 * 2.0 ** -149]
+    tcoef[0, 1:, 2] = [0, 0, 1]
+    tpk[0, 2, 0] = (4 << 24) | 0x405060
+    return tuple(torch.as_tensor(x, device=device) for x in (qcoef, qpk, tcoef, tpk))
+
+
+def prim_cull_operands(scene, res):
+    """The banded raster's operands of a screen-space scene: each type
+    row-major sorted (cap 56) with its band masks, then ``prep_prims``;
+    (qcoef, qpk, tcoef, tpk, qmask, tmask), the masks padded to the
+    prepared chunks."""
+    from torchdrivesim_tpu_torch.ops import prims as P
+    from torchdrivesim_tpu_torch.ops.rasterize import (
+        n_bands_for, sort_prims_rowmajor_with_masks)
+    n_bands = n_bands_for(res)
+    sq, sqz, sqc, qm = sort_prims_rowmajor_with_masks(*scene[:3], res, 56, n_bands)
+    st, stz, stc, tm = sort_prims_rowmajor_with_masks(*scene[3:6], res, 56, n_bands)
+    qcoef, qpk, tcoef, tpk = P.prep_prims(sq, sqz, sqc, st, stz, stc)
+    return (qcoef, qpk, tcoef, tpk, P._pad_masks(qm, qpk.shape[1] // 8),
+            P._pad_masks(tm, tpk.shape[1] // 8))
+
+
+def compare_prims(prims_mod, scene, bg, res, label, masks_cover=True):
     """B7 on the scene row-major sorted with its masks and B8 on the scene
-    as given, against the plain versions, and B8 on the sorted scene
-    against B7; returns the largest differences (B7, B8)."""
+    as given, against the plain versions, and, where the band masks cover
+    every prim (not so for parallelograms whose corner 2 is off), B8 on the
+    sorted scene against B7; returns the largest differences (B7, B8)."""
     from torchdrivesim_tpu_torch.ops.rasterize import (
         n_bands_for, sort_prims_rowmajor_with_masks)
     n_bands = n_bands_for(res)
@@ -1592,8 +1866,9 @@ def compare_prims(prims_mod, scene, bg, res, label):
     e8 = compare_exact(prims_mod.rasterize_hard_prims(*scene, res, bg),
                        prims_mod.rasterize_hard_prims_reference(*scene, res, bg),
                        f'{label} prim_raster B={bg.shape[0]} res {res}')
-    compare_exact(prims_mod.rasterize_hard_prims(*banded[:8]), b7,
-                  f'{label} prim_raster on the sorted prims against prim_raster_banded')
+    if masks_cover:
+        compare_exact(prims_mod.rasterize_hard_prims(*banded[:8]), b7,
+                      f'{label} prim_raster on the sorted prims against prim_raster_banded')
     return e7, e8
 
 
@@ -1622,6 +1897,16 @@ def prim_path(device, card, scenario, state):
         if kind == 'color background':
             bg = torch.rand(b, 3, device=device)[:, :, None, None].expand(b, 3, res, res)
         record(compare_prims(P, scene, bg, res, f'random ({kind})'))
+    for i, kind in enumerate(PRIM_CULL_KINDS):
+        for res in (80, 144):
+            *scene, bg = prim_cull_scene(kind, 60 + i, 8, res, device)
+            record(compare_prims(P, scene, bg, res, f'{kind} scene',
+                                 masks_cover=kind != 'parallelogram'))
+    edge = prim_edge_operands(device)
+    edge_bg = torch.rand(1, 3, 32, 32, device=device)
+    errs['b8'].append(compare_exact(P.raster_prims(*edge, edge_bg, 32),
+                                    P.raster_prims_reference(*edge, edge_bg, 32),
+                                    'hand-made edge prims (prim_edge_operands)'))
     plain = untextured_renderer(scenario, device)
     headline_world, headline_cams = prim_frame(scenario, state, FOV)
     quads, qz, qc, tris, tz, tc = headline_world
@@ -1708,6 +1993,8 @@ def prim_path(device, card, scenario, state):
     live = float(((qm != 0).sum() + (tm != 0).sum()) / qm.shape[0] / qm.shape[1])
     print(f'untextured frame: {n_bands_for(RES)} bands, {live:.2f} live chunks per band '
           f'of {qm.shape[3] + tm.shape[3]}')
+    print(occupancy_line('prim_raster', P.occupancy, ops7[1].shape[1], ops7[3].shape[1],
+                         BATCH * (RES // BOUND_TILE) ** 2 // 8))
     entries = []
     for name, fn, plain_fn, ops, scene, bg_bytes, source, replaces, err, n in (
             ('prim_raster_banded',
@@ -1727,6 +2014,8 @@ def prim_path(device, card, scenario, state):
         ms, call_ms = graph_ms(fn, 50), cuda_ms(fn, 50)
         plain_ms = cuda_ms(plain_fn, 5)
         bound_ms, bound_by = prim_bound(ops, scene, RES, bg_bytes)
+        listed_q, listed_t = listed_pairs(ops[:4], *(ops[4:] or (None, None)), RES)
+        print(f'  plain cull: {listed_q:.3f} quads and {listed_t:.3f} triangles listed per tile')
         print(f'{name} kernel B={BATCH} res={RES}: {ms:.4f} ms (device, graph replay); '
               f'eager call {call_ms:.4f} ms; plain version {plain_ms:.3f} ms; bound '
               f'{bound_ms * 1e3:.3f} us by {bound_by} [{card}]')
@@ -1737,14 +2026,23 @@ def prim_path(device, card, scenario, state):
     # B7 on the headline frame, whose fused render (B1) headline() timed,
     # and on the wide view
     ops_h = P.prep_prims(*scene_h) + (hqm, htm)
+    floor_ms = graph_ms(lambda: P.raster_prims(*ops_h[:4], bg, RES, torch.zeros_like(hqm),
+                                               torch.zeros_like(htm)), 50)
+    out = torch.empty((BATCH, 3, RES, RES), device=device)
+    fill_ms = graph_ms(lambda: out.fill_(0.5), 50)
+    print(f'prim_raster_banded on the headline frame with both masks zeroed (no '
+          f'primitive tested): {floor_ms:.4f} ms; fill_ of its float32 output '
+          f'{fill_ms:.4f} ms (device, graph replay) [{card}]')
     for label, ops, scene, res, bgx, bg_bytes in (
             ('the headline frame', ops_h, scene_h, RES, bg, BATCH * 3 * 4),
             ('the wide view', ops_w, wide_scene, WIDE_RES, wide_bg, nbytes(wide_bg))):
         ms = graph_ms(lambda: P.raster_prims(*ops[:4], bgx, res, *ops[4:]), 50)
         bound_ms, bound_by = prim_bound(ops, scene, res, bg_bytes)
         live = float(((ops[4] != 0).sum() + (ops[5] != 0).sum()) / BATCH / ops[4].shape[1])
+        listed_q, listed_t = listed_pairs(ops[:4], ops[4], ops[5], res)
         print(f'prim_raster_banded on {label} B={BATCH} res {res}: {ms:.4f} ms (device, '
-              f'graph replay), {live:.2f} live chunks per band; bound '
+              f'graph replay), {live:.2f} live chunks per band, {listed_q:.3f} quads and '
+              f'{listed_t:.3f} triangles listed per tile by the plain cull; bound '
               f'{bound_ms * 1e3:.3f} us by {bound_by} [{card}]')
     return entries
 

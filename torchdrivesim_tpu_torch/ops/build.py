@@ -118,6 +118,18 @@ def build_all(libraries: Sequence[KernelLibrary]) -> float:
     return time.perf_counter() - t0
 
 
+def occupancy(fn, qp: int, tp: int):
+    """(registers per thread, resident blocks per SM, spill bytes per
+    thread) of the primitive winner's kernel behind the occupancy entry
+    point ``fn`` (qp, tp, int out[3]) at ``qp`` quads and ``tp`` triangles
+    per camera."""
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    check_launch(fn(qp, tp, out), 'occupancy query')
+    return tuple(out)
+
+
 def check_launch(err: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if err != 0:

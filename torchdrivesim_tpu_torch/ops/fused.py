@@ -14,6 +14,7 @@ import ctypes
 
 import torch
 
+from torchdrivesim_tpu_torch.ops import build
 from torchdrivesim_tpu_torch.ops.build import KernelLibrary, check_launch
 from torchdrivesim_tpu_torch.ops.prims import prim_winner_reference
 from torchdrivesim_tpu_torch.ops.rasterize import CHUNK, band_rows
@@ -39,6 +40,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 LIBRARY = KernelLibrary('fused_render.cu', _bind)
+
+
+def occupancy(qp: int, tp: int):
+    """(registers per thread, resident blocks per SM, spill bytes per
+    thread) of the kernel at ``qp`` quads and ``tp`` triangles."""
+    return build.occupancy(LIBRARY.load().tds_fused_render_occupancy, qp, tp)
 
 
 def _launch(lib: ctypes.CDLL, ptrs, tex_h: int, tex_w: int, batch: int,

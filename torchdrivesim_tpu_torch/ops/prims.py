@@ -15,8 +15,11 @@ Both run one kernel, :func:`raster_prims`: the hand-written CUDA kernel
 (``csrc/prim_raster.cu``, masked for B7 and unmasked for B8) for CUDA
 tensors, its plain PyTorch version :func:`raster_prims_reference` for CPU
 tensors. The per-pixel winner is the fused render's (``ops/fused.py``,
-``csrc/prim_winner.cuh``). The background is read through its strides, so
-a per-camera color expanded to (B, 3, res, res) is never written out.
+``csrc/prim_winner.cuh``): each 16 x 16 pixel tile tests only the
+primitives that can reach it, an exact cull whose plain version is
+:func:`prim_tile_keep_reference`. The background is read through its
+strides, so a per-camera color expanded to (B, 3, res, res) is never
+written out.
 """
 import ctypes
 from typing import Optional
@@ -24,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from torchdrivesim_tpu_torch.ops import warp
+from torchdrivesim_tpu_torch.ops import build, warp
 from torchdrivesim_tpu_torch.ops.build import KernelLibrary, check_launch
 from torchdrivesim_tpu_torch.ops.rasterize import (
     CHUNK, SENTINEL, _edge_coefficients_edge_major, _pad_prims, band_rows,
@@ -32,6 +35,12 @@ from torchdrivesim_tpu_torch.ops.rasterize import (
 
 #: most primitives of one camera (7-bit rank)
 MAX_PRIMS = 127
+#: pixels per side of the primitive winner's cull tiles
+PRIM_TILE = 16
+#: the cull's slack per unit of |a| x_max + |b| y_max + |c|, and per
+#: nonzero product a*px, b*py (which may underflow)
+_CULL_SLACK = 2.0 ** -20
+_CULL_UNDERFLOW = 2.0 ** -149
 _INV255 = 1.0 / 255.0
 
 #: kernel launches since import (or the last reset by the caller), masked
@@ -54,6 +63,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 LIBRARY = KernelLibrary('prim_raster.cu', _bind)
+
+
+def occupancy(qp: int, tp: int):
+    """(registers per thread, resident blocks per SM, spill bytes per
+    thread) of the kernel at ``qp`` quads and ``tp`` triangles."""
+    return build.occupancy(LIBRARY.load().tds_prim_raster_occupancy, qp, tp)
 
 
 def prep_prims(quads: torch.Tensor, qz: torch.Tensor, qcolors: torch.Tensor,
@@ -160,6 +175,75 @@ def prim_winner_reference(qcoef: torch.Tensor, qpk: torch.Tensor,
                 live = mask[:, :, 0, s // CHUNK][:, row_band] != 0     # (B, res)
                 best = torch.where(live[:, :, None], vals, best)
     return best
+
+
+def prim_tiles(res: int) -> int:
+    """The primitive winner's 16 x 16 pixel tiles per camera, ``(res /
+    16)^2``."""
+    return (res // PRIM_TILE) ** 2
+
+
+def prim_tile_keep_reference(qcoef: torch.Tensor, qpk: torch.Tensor,
+                             tcoef: torch.Tensor, tpk: torch.Tensor,
+                             qmask: Optional[torch.Tensor],
+                             tmask: Optional[torch.Tensor], res: int) -> torch.Tensor:
+    """
+    Plain version of the primitive winner's per-tile cull
+    (``csrc/prim_winner.cuh``, whose header argues why it is exact): which
+    primitives each 16 x 16 pixel tile tests. A primitive is dropped from a
+    tile iff its pack is the sentinel, or its chunk's occupancy bit is 0 in
+    every band the tile's rows meet, or one of its affine values ``e = a*px
+    + b*py + c``, in float64 at the tile's four extreme pixel centres, has
+    ``max e < -0.5 - delta`` or ``min e > 0.5 + delta`` (quads) or ``max e
+    < -delta`` (triangles), ``delta = 2^-20 (|a| x_max + |b| y_max + |c|)
+    + 2^-149 [a != 0] + 2^-149 [b != 0]``; the kernel's operations in its
+    order, so the same bits. Not on any main path: the tests and
+    ``chip_smoke.py`` use it.
+
+    Args:
+        qcoef / qpk / tcoef / tpk: as :func:`prep_prims` gives them.
+        qmask / tmask: (B, J, 1, QP/8) / (B, J, 1, TP/8) occupancy, or None.
+        res: a multiple of 16.
+    Returns:
+        (B, tiles, QP + TP) bool, tiles row-major (``prim_tiles(res)``),
+        the quads first.
+    """
+    dev = qpk.device
+    per = res // PRIM_TILE
+    start = torch.arange(per, device=dev) * PRIM_TILE
+    lo = start.double() + 0.5
+    hi = lo + (PRIM_TILE - 1)
+    rpb = band_rows(res)
+    bands = torch.arange(res // rpb, device=dev)
+    meets = (bands >= (start // rpb)[:, None]) \
+        & (bands <= ((start + PRIM_TILE - 1) // rpb)[:, None])   # (per, J)
+
+    def edge_out(coef, quad):            # (B, P, 3) -> (B, P, per, per)
+        a, b, c = (coef[..., j].double()[..., None] for j in range(3))
+        ax0, ax1, by0, by1 = a * lo, a * hi, b * lo, b * hi
+        top = (torch.maximum(ax0, ax1)[..., :, None]
+               + torch.maximum(by0, by1)[..., None, :]) + c[..., None]
+        underflow = ((a != 0).double() + (b != 0).double()) * _CULL_UNDERFLOW
+        delta = ((a.abs() * hi)[..., :, None] + (b.abs() * hi)[..., None, :]
+                 + c.abs()[..., None]) * _CULL_SLACK + underflow[..., None]
+        if not quad:
+            return top < -delta
+        bottom = (torch.minimum(ax0, ax1)[..., :, None]
+                  + torch.minimum(by0, by1)[..., None, :]) + c[..., None]
+        return (top < -0.5 - delta) | (bottom > 0.5 + delta)
+
+    keeps = []
+    for coef, pk, mask, n_edges in ((qcoef, qpk, qmask, 2), (tcoef, tpk, tmask, 3)):
+        out = torch.zeros(pk.shape[:2] + (per, per), dtype=torch.bool, device=dev)
+        for e in range(n_edges):
+            out |= edge_out(coef[:, e], n_edges == 2)
+        keep = ~out & (pk[..., 0] != SENTINEL)[..., None, None]
+        if mask is not None:
+            live = mask[:, :, 0].repeat_interleave(CHUNK, dim=2) != 0    # (B, J, P)
+            tile_live = (live[:, None] & meets[None, :, :, None]).any(dim=2)
+            keep &= tile_live.transpose(1, 2)[..., None]                  # (B, P, per, 1)
+        keeps.append(keep.flatten(2).transpose(1, 2))
+    return torch.cat(keeps, dim=2)
 
 
 def raster_prims_reference(qcoef: torch.Tensor, qpk: torch.Tensor,
