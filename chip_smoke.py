@@ -30,10 +30,14 @@ checkout (one ``nvcc`` per source, all at once), then drives five paths:
   chunked kernels against their plain versions on random operands, a
   small RL step against the CPU path, two full-width PPO iterations
   counting launches per rollout collection, the kernels again on the
-  frame those iterations ended on, three steps of the untextured
-  environment (the whole map mesh, the chunked kernel, whose launches the
-  JSON line reports) and the chunked kernel on its last frame, times,
-  device profile and peak memory;
+  frame those iterations ended on, the hard raster's two kernels on scenes
+  that stress their per-tile face cull (z ties across chunks, ragged
+  tiles, faces touching a tile at a corner, hand-made edges), three steps
+  of the untextured environment (the whole map mesh, the chunked kernel)
+  and the chunked kernel on its last frame, one untextured rollout
+  collection at B = 16 counting the chunked kernel's launches (which the
+  JSON line reports), times, listed faces per tile, device profiles and
+  peak memory;
 * the primitive raster (the headline scenario without its texture, and
   its wide view): the banded and unbanded kernels against their plain
   versions on random scenes, on scenes that stress the per-tile primitive
@@ -113,8 +117,8 @@ FUSED_PIXEL_OPS = NEAREST_PIXEL_OPS + PRIM_PIXEL_OPS
 #: values (4 each), three compares and the minimum (packed) or the z
 #: compares (chunked)
 HARD_FACE_OPS, HARD_CHUNKED_FACE_OPS = 12 + 3 + 1, 12 + 3 + 2
-#: pixels per side of the tiles in which the chunked raster's bound counts
-#: the faces a pixel must test
+#: pixels per side of the tiles in which the bounds of the hard and
+#: primitive rasters count the faces a pixel must test
 BOUND_TILE = 16
 
 
@@ -1341,6 +1345,95 @@ def hard_tile_pairs(venv, mesh, cams, valid, res) -> int:
     return tile_pairs(corners, valid, res)
 
 
+def hard_tie_operands(seed: int, b: int, n_faces: int, res: int, device):
+    """
+    Chunked operands whose z ties decide pixels: ``hard_operands`` of
+    ``hard.random_faces``, then around every multiple k of ``FACE_CHUNK``
+    below ``n_faces`` the valid faces k - 2 .. k + 1 get one z below every
+    other face's, and RGB8 colors that fall as the index rises. At a pixel
+    inside several of them the reference's winner is the smallest color
+    among the inside tie faces of the earliest chunk that has one: a fold
+    face by face with a plain ``<`` (the first inside face) or the smallest
+    color over all chunks gives another. Returns ((coef, zbits, rgb),
+    background) on ``device``.
+    """
+    from torchdrivesim_tpu_torch.ops import hard
+    corners, z, colors, bg = hard.random_faces(seed, b, n_faces, res, device)
+    coef, zbits, rgb = hard.hard_operands(corners, z, colors)
+    ties = torch.tensor([k + d for k in range(hard.FACE_CHUNK, n_faces, hard.FACE_CHUNK)
+                         for d in (-2, -1, 0, 1) if k + d < n_faces], device=device)
+    tie_z = int(np.float32(0.5).view(np.int32))
+    valid = zbits[:, ties] != hard.Z_SENTINEL
+    zbits[:, ties] = torch.where(valid, tie_z, zbits[:, ties])
+    rgb[:, ties] = (0xE00000 - ties * 0x101).to(torch.int32)
+    return (coef, zbits, rgb), bg
+
+
+def hard_boundary_faces(seed: int, b: int, n_faces: int, res: int, device):
+    """
+    Faces touching a 16 x 16 tile only at its corner pixel centre
+    (:func:`_boundary_prims`' triangles: an edge value exactly 0 there, or
+    inside in float32 while the float64 value is outside, the rounding the
+    cull's slack covers), z on four levels, random colors and background.
+    ``hard_operands`` computes the triangles' coefficients as ``prep_prims``
+    does, so the same values. Returns (corners, z, colors, background) as
+    ``hard.random_faces`` does.
+    """
+    from torchdrivesim_tpu_torch.ops import prims as P
+    rng = np.random.RandomState(seed)
+    corners = np.stack([_boundary_prims(P, rng, res, False, n_faces) for _ in range(b)])
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    return (f(corners), f(rng.randint(0, 4, (b, n_faces)) * 2.0 + 3.0),
+            f(rng.rand(b, n_faces, 3)), f(rng.rand(b, 3, res, res)))
+
+
+def hard_edge_operands(device):
+    """
+    Hand-made operands at res 40 (one camera, 8 faces; the last tile row
+    and column ragged) that the hard raster's per-tile cull must keep where
+    they count, as (coef (1, 3, 8, 3), packed (1, 8), zbits (1, 8), rgb
+    (1, 8)); z-bits order the faces as the packs do. Faces that win:
+
+    * 0 (pack 5 << 24): edge 0 all zero (value 0 everywhere: only the
+      strict inequality keeps it), inside rows 0-10;
+    * 1 (2 << 24): px - 39.5, exactly 0 on the last row's centres (the
+      clamped centre of the ragged tile row);
+    * 2 (3 << 24): py - 39.5, the last column;
+    * 3 (4 << 24): edge 2^-149 px - 16 * 2^-149 (subnormal products, kept
+      only by delta's underflow term), inside rows 15-20;
+    * 4 (7 << 24): an infinite coefficient (delta infinite, kept), inside
+      rows 0-30;
+    * 5 (8 << 24): all three edges zero, inside everywhere.
+
+    Face 6 has a NaN coefficient (kept, never inside) and face 7 all-zero
+    coefficients with the sentinel key, as ``hard_operands`` gives a face
+    of zero area (dropped).
+    """
+    from torchdrivesim_tpu_torch.ops import hard
+    coef = np.zeros((1, 3, 8, 3), np.float32)
+    coef[0, :, :6, 2] = 1.0                          # edges inside everywhere
+    coef[0, 0, 0] = 0.0
+    coef[0, 1, 0] = [-1, 0, 10.5]
+    coef[0, 0, 1] = [1, 0, -39.5]
+    coef[0, 0, 2] = [0, 1, -39.5]
+    coef[0, 0, 3] = [2.0 ** -149, 0, -16 * 2.0 ** -149]
+    coef[0, 1, 3] = [-1, 0, 20.5]
+    coef[0, 0, 4] = [np.inf, 0, 0]
+    coef[0, 1, 4] = [-1, 0, 30.5]
+    coef[0, :, 5] = 0.0
+    coef[0, :, 6] = [np.nan, 0, 1]
+    rank = np.array([5, 2, 3, 4, 7, 8, 1, 0])
+    color = np.array([0x102030, 0x405060, 0x708090, 0xA0B0C0, 0xD0E0F0, 0x0F1F2F,
+                      0x3F4F5F, 0])
+    packed = (rank << 24) | color
+    packed[7] = hard.PACKED_SENTINEL
+    zbits = (rank + 1).astype(np.float32).view(np.int32)
+    zbits[7] = hard.Z_SENTINEL
+    t = lambda x: torch.as_tensor(np.asarray(x), device=device)
+    return (t(coef), t(packed.astype(np.int32)[None]), t(zbits[None]),
+            t(color.astype(np.int32)[None]))
+
+
 def rl_compare_with_cpu(device):
     """Three steps of the RL environment at B = 2 on the card and on the
     CPU: states and rewards to 1e-4, observations >= 99.9% identical."""
@@ -1398,6 +1491,26 @@ def rl_path(device, card):
         kind, err = compare_hard(hard, hard.hard_operands(corners, z, colors), bg,
                                  RL_RES, 'random')
         errs[kind].append(err)
+    # scenes that stress the per-tile face cull: z ties across the chunk
+    # boundaries, ragged last tiles, faces touching a tile only at its
+    # corner pixel centre, hand-made edges
+    ops, bg = hard_tie_operands(11, 2, 17000, RL_RES, device)
+    kind, err = compare_hard(hard, ops, bg, RL_RES, 'cross-chunk ties')
+    errs[kind].append(err)
+    for (label, make), res, n_faces in (
+            *((('ragged', hard.random_faces), res, n) for res in (40, 72)
+              for n in (12, 300)),
+            (('boundary', hard_boundary_faces), RL_RES, 48),
+            (('boundary', hard_boundary_faces), 80, 300)):
+        *faces, bg = make(res + n_faces, 4, n_faces, res, device)
+        kind, err = compare_hard(hard, hard.hard_operands(*faces), bg, res,
+                                 f'{label} res {res}')
+        errs[kind].append(err)
+    coef, packed, zbits, rgb = hard_edge_operands(device)
+    bg = torch.rand((1, 3, 40, 40), device=device)
+    for ops in ((coef, packed), (coef, zbits, rgb)):
+        kind, err = compare_hard(hard, ops, bg, 40, 'hand-made edges res 40')
+        errs[kind].append(err)
 
     # 2. a small RL step on the card against the CPU
     rl_compare_with_cpu(device)
@@ -1449,7 +1562,7 @@ def rl_path(device, card):
 
     # 4. the kernels against their plain versions on the frame the main path
     # ended on: the sampled actions have spread the 1024 copies of the scenario
-    (bg, hops, (mip, fcoef, icoef)), (_, cams) = rl_frame(venv, state)
+    (bg, hops, (mip, fcoef, icoef)), (mesh, cams) = rl_frame(venv, state)
     distinct = int(torch.unique(torch.cat([cams.xy, cams.sc], dim=-1), dim=0).shape[0])
     print(f'RL operands after {RL_ITERATIONS} iterations: B={RL_BATCH}, {distinct} '
           f'distinct cameras, {hops[1].shape[1]} faces per camera, texture '
@@ -1486,24 +1599,62 @@ def rl_path(device, card):
         raise AssertionError(f'untextured launches {counts_u}')
     if not torch.isfinite(obs_u).all() or not torch.isfinite(reward_u).all():
         raise AssertionError('untextured step: non-finite output')
-    kind, err = compare_hard(hard, tuple(x[:4] for x in town_ops), town_bg[:4], RL_RES,
-                             'Town02 untextured')
+    kind, err = compare_hard(hard, town_ops, town_bg, RL_RES, 'Town02 untextured')
     errs[kind].append(err)
-    # B6b's path is the untextured environment: its launches are that run's
-    launches = {**launches, 'hard_raster_chunked': counts_u['hard_raster_chunked']}
 
-    # 6. times, on this card, at the main path's operands
+    # 6. B6b's main path: one untextured collect with the RL model (after
+    # one that warms up), 2 x rollout + 1 renders, counting launches
+    gen_c = torch.Generator(device=device).manual_seed(2)
+    state_c, _ = rl.collect(model, step_u, untextured.initial_state, RL_ROLLOUT, gen_c)
+    torch.cuda.synchronize()
+    rl_zero_counts(warp, hard)
+    t0 = time.perf_counter()
+    state_c, batch_u = rl.collect(model, step_u, state_c, RL_ROLLOUT, gen_c)
+    torch.cuda.synchronize()
+    collect_s = time.perf_counter() - t0
+    counts_c = rl_counts(warp, hard)
+    print(f'untextured RL collect B={RL_UNTEXTURED_BATCH} rollout {RL_ROLLOUT}: '
+          f'{collect_s:.3f} s ({RL_UNTEXTURED_BATCH * RL_ROLLOUT / collect_s:.1f} '
+          f'env-steps/s); launches per collect {counts_c} [{card}]')
+    want_c = {'warp_nearest': 0, 'hard_raster_packed': 0,
+              'hard_raster_chunked': 2 * RL_ROLLOUT + 1}
+    if counts_c != want_c:
+        raise AssertionError(f'untextured launches per collect {counts_c}, expected {want_c}')
+    obs_c = batch_u[0]
+    if obs_c.shape != (RL_ROLLOUT, RL_UNTEXTURED_BATCH, 3, RL_RES, RL_RES) or \
+            not all(torch.isfinite(x).all() for x in batch_u):
+        raise AssertionError(f'untextured collect: observations {tuple(obs_c.shape)} '
+                             'or returns not finite or of the wrong shape')
+    (last_bg, last_ops, _), _ = rl_frame(untextured, state_c)
+    kind, err = compare_hard(hard, last_ops, last_bg, RL_RES, 'Town02 untextured collect')
+    errs[kind].append(err)
+    prof = profile_step(lambda: rl.collect(model, step_u, state_c, RL_ROLLOUT, gen_c),
+                        'untextured RL collect', card)
+    if prof is not None:
+        print(f'untextured RL collect: {prof[0] / RL_ROLLOUT:.1f} device operations per '
+              f'rollout step, busy {prof[1] * 100:.1f}% [{card}]')
+    launches = {**launches, 'hard_raster_chunked': counts_c['hard_raster_chunked']}
+
+    # 7. times, on this card, at the main path's operands; the bounds count
+    # each face only in the tiles its bounding box overlaps
     coef, pk = hops
     b, n_faces = pk.shape
     pixels = b * RL_RES * RL_RES
     image_bytes = pixels * 3 * 4
     tcoef, tz, trgb = town_ops
     tb, tf = tz.shape
+    tiles = hard.hard_tiles(RL_RES)
+    pairs_a = hard_tile_pairs(venv, mesh, cams, pk != hard.PACKED_SENTINEL, RL_RES)
     pairs = hard_tile_pairs(untextured, town_mesh, town_cams, tz != hard.Z_SENTINEL,
                             RL_RES)
-    tiles = (RL_RES // BOUND_TILE) ** 2
-    print(f'untextured view: {pairs / (tb * tiles):.1f} of {tf} faces per '
-          f'{BOUND_TILE} x {BOUND_TILE} tile overlap it by bounding box')
+    listed_a = hard.hard_tile_keep_reference(coef, pk, hard.PACKED_SENTINEL, RL_RES)
+    listed = hard.hard_tile_keep_reference(tcoef, tz, hard.Z_SENTINEL, RL_RES)
+    for label, n_pairs, keep, nb, nf in (('RL view', pairs_a, listed_a, b, n_faces),
+                                         ('untextured view', pairs, listed, tb, tf)):
+        print(f'{label}: {n_pairs / (nb * tiles):.1f} of {nf} faces per {BOUND_TILE} x '
+              f'{BOUND_TILE} tile overlap it by bounding box; the plain cull '
+              f'(hard_tile_keep_reference) lists {int(keep.sum()) / (nb * tiles):.1f}, '
+              f'{int(keep.sum(dim=-1).max())} in the busiest tile')
     entries = []
     for name, fn, plain, reps, plain_reps, n_bytes, n_ops, source, replaces in (
             ('warp_nearest',
@@ -1517,7 +1668,7 @@ def rl_path(device, card):
              lambda: hard.raster_packed(coef, pk, bg, RL_RES),
              lambda: hard.raster_packed_reference(coef, pk, bg, RL_RES),
              200, 10, nbytes(coef, pk) + 2 * image_bytes,
-             pixels * n_faces * HARD_FACE_OPS,
+             pairs_a * BOUND_TILE ** 2 * HARD_FACE_OPS,
              'torchdrivesim_tpu_torch/csrc/hard_raster.cu',
              'torchdrivesim_tpu/ops/pallas_rasterize.py:134'),
             ('hard_raster_chunked',

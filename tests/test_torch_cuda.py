@@ -249,12 +249,24 @@ def test_nearest_warp_kernel_matches_plain_version(cuda, res, b):
 
 
 @pytest.mark.depends_on_cuda
-@pytest.mark.parametrize('n_faces,b,res', [(1, 8, 64), (12, 1024, 64), (127, 16, 64),
-                                           (128, 8, 64), (129, 8, 32), (300, 4, 64),
-                                           (17000, 2, 64)])
-def test_hard_raster_kernels_match_plain_versions(cuda, n_faces, b, res):
-    corners, z, colors, bg = hard.random_faces(n_faces + res, b, n_faces, res, cuda)
-    ops = hard.hard_operands(corners, z, colors)
+@pytest.mark.parametrize('n_faces,b,res,case', [
+    (1, 8, 64, 'random'), (12, 1024, 64, 'random'), (127, 16, 64, 'random'),
+    (128, 8, 64, 'random'), (129, 8, 32, 'random'), (300, 4, 64, 'random'),
+    (17000, 2, 64, 'random'), (17000, 2, 64, 'ties'), (12, 16, 40, 'random'),
+    (300, 4, 40, 'random'), (12, 16, 72, 'random'), (300, 4, 72, 'random'),
+    (48, 8, 64, 'boundary'), (300, 4, 80, 'boundary')])
+def test_hard_raster_kernels_match_plain_versions(cuda, n_faces, b, res, case):
+    """Both kernels on random faces, on the cross-chunk tie scene
+    (``chip_smoke.hard_tie_operands``), at the ragged res 40 and 72 and on
+    faces touching a tile only at its corner pixel centre
+    (``chip_smoke.hard_boundary_faces``), against the plain versions."""
+    import chip_smoke
+    if case == 'ties':
+        ops, bg = chip_smoke.hard_tie_operands(n_faces + res, b, n_faces, res, cuda)
+    else:
+        make = chip_smoke.hard_boundary_faces if case == 'boundary' else hard.random_faces
+        corners, z, colors, bg = make(n_faces + res, b, n_faces, res, cuda)
+        ops = hard.hard_operands(corners, z, colors)
     packed = len(ops) == 2
     before = (hard.PACKED_LAUNCHES, hard.CHUNKED_LAUNCHES)
     got = hard.raster(ops, bg, res)
@@ -264,6 +276,24 @@ def test_hard_raster_kernels_match_plain_versions(cuda, n_faces, b, res):
         before[0] + packed, before[1] + (not packed))
     assert int((got != want).sum()) == 0
     assert int((got != bg).any(dim=1).sum()) > 0          # some faces show
+
+
+@pytest.mark.depends_on_cuda
+def test_hard_raster_kernels_keep_hand_made_edges(cuda):
+    """``chip_smoke.hard_edge_operands`` at res 40 (edges through the ragged
+    last row's and column's pixel centres, all-zero, subnormal, NaN and
+    infinite coefficients, a zero-area face): both kernels equal their plain
+    versions and each other."""
+    import chip_smoke
+    coef, packed, zbits, rgb = chip_smoke.hard_edge_operands(cuda)
+    bg = torch.rand(1, 3, 40, 40, device=cuda)
+    got = hard.raster_packed(coef, packed, bg, 40)
+    got_z = hard.raster_chunked(coef, zbits, rgb, bg, 40)
+    want = hard.raster_packed_reference(coef, packed, bg, 40)
+    torch.cuda.synchronize()
+    assert int((got != want).sum()) == 0
+    assert int((got_z != want).sum()) == 0
+    assert torch.equal(want, hard.raster_chunked_reference(coef, zbits, rgb, bg, 40))
 
 
 @pytest.mark.depends_on_cuda

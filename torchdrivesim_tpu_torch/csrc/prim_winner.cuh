@@ -2,7 +2,10 @@
 // (fused_render.cu, B1) and the primitive raster (prim_raster.cu, B7/B8):
 // the reference's banded winner loop of ops/pallas_fused.py:_fused_kernel and
 // ops/pallas_rasterize.py:_raster_kernel_prims_masked, each 16 x 16 pixel
-// tile testing only the primitives that can reach it.
+// tile testing only the primitives that can reach it. The triangle edge
+// test (TileBox, edge_range, tri_edge_out) and the argument below for why
+// the cull is exact also serve the hard raster (hard_raster.cu, B6a/B6b),
+// which has a layout of its own: one block per tile, see there.
 //
 // One camera's operands (ops/prims.py:prep_prims):
 //   qcoef (2, qp, 3): each quad's two centered affine coordinates e = a*px +
@@ -62,7 +65,7 @@
 // (a*x + b*y) + c with each operation rounded on its own, as the plain
 // version of the winner (ops/prims.py:prim_winner_reference) computes it.
 //
-// Layout, for the kernels that include this header: one block of
+// Layout, for B1, B7 and B8 (not hard_raster.cu): one block of
 // kTileWarps warps per kTileWarps consecutive tiles (row-major) of one
 // camera. The block stages the camera's table once in shared memory, each
 // primitive's affine values as float4 (a, b, c, and the pack's bits in the

@@ -14,19 +14,24 @@ dispatches to, by face count F, exactly as the reference does:
 CUDA kernels (``csrc/hard_raster.cu``) for CUDA tensors and run their plain
 PyTorch versions for CPU tensors; :func:`rasterize_hard` is the whole
 function and :func:`rasterize_hard_reference` the whole function on the
-plain versions.
+plain versions. Each 16 x 16 pixel tile of the kernels folds only the faces
+that can reach it, an exact cull whose plain version is
+:func:`hard_tile_keep_reference`; :func:`raster_chunked_listed_reference`
+folds each tile's kept faces as the chunked kernel does.
 
 Face colors are quantized to RGB8 (R in bits 16-23). Windings are
 canonicalized by ``sign(area)``, so inside means three edge values >= 0;
 faces with ``|area| <= 1e-9`` carry the sentinel and never win.
 """
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from torchdrivesim_tpu_torch.ops import warp
 from torchdrivesim_tpu_torch.ops.build import KernelLibrary, check_launch
+from torchdrivesim_tpu_torch.ops.prims import PRIM_TILE, tri_edge_out_reference
 from torchdrivesim_tpu_torch.ops.rasterize import _edge_coefficients_edge_major
 
 #: faces per chunk of the chunked kernel's fold
@@ -159,6 +164,88 @@ def raster_chunked_reference(coef: torch.Tensor, zbits: torch.Tensor,
         br = torch.where(cz < bz, cr, br)
         bz = torch.minimum(bz, cz)
     return _composite(bz < Z_SENTINEL, br, background.reshape(b, 3, res * res), res)
+
+
+def hard_tiles(res: int) -> int:
+    """The kernels' 16 x 16 pixel tiles per camera, ``ceil(res / 16)^2``
+    (a ragged last row and column of tiles where 16 does not divide
+    ``res``)."""
+    return (-(-res // PRIM_TILE)) ** 2
+
+
+def _tile_centres(res: int, device):
+    """Each tile row's (column's) first and last pixel centre in float64,
+    the last clamped to the frame."""
+    start = torch.arange(0, res, PRIM_TILE, device=device)
+    return start.double() + 0.5, torch.clamp(start + PRIM_TILE, max=res).double() - 0.5
+
+
+def hard_tile_keep_reference(coef: torch.Tensor, key: torch.Tensor, sentinel: int,
+                             res: int) -> torch.Tensor:
+    """
+    Plain version of the kernels' per-tile face cull
+    (``csrc/hard_raster.cu``): a face is dropped from a 16 x 16 pixel tile
+    iff its key is ``sentinel`` or one of its three edges is negative at
+    every pixel centre of the tile by the primitive winner's float64 test
+    (``prims.tri_edge_out_reference``, ``csrc/prim_winner.cuh:
+    tri_edge_out``, whose header argues why it is exact), the last tile row
+    and column clamped to the frame. Not on any main path: the tests and
+    ``chip_smoke.py`` use it.
+
+    Args:
+        coef: (B, 3, F, 3) as :func:`hard_operands` gives it; key: (B, F)
+            packs or z-bits; sentinel: :data:`PACKED_SENTINEL` or
+            :data:`Z_SENTINEL`.
+    Returns:
+        (B, tiles, F) bool, tiles row-major (:func:`hard_tiles`).
+    """
+    lo, hi = _tile_centres(res, coef.device)
+    out = tri_edge_out_reference(coef[:, 0], lo, hi, lo, hi)
+    for k in (1, 2):
+        out |= tri_edge_out_reference(coef[:, k], lo, hi, lo, hi)
+    keep = ~out & (key != sentinel)[..., None, None]
+    return keep.flatten(2).transpose(1, 2)
+
+
+def raster_chunked_listed_reference(coef: torch.Tensor, zbits: torch.Tensor,
+                                    rgb: torch.Tensor, background: torch.Tensor,
+                                    res: int) -> torch.Tensor:
+    """The chunked kernel's function as it computes it: each tile folds the
+    faces :func:`hard_tile_keep_reference` keeps, in ascending order, one run
+    per chunk of :data:`FACE_CHUNK` faces (the run's minimum z-bits and the
+    minimum RGB8 among the inside faces with exactly those bits), each run
+    replacing the running winner only if strictly less. Equals
+    :func:`raster_chunked_reference` bit for bit; the tests hold the two
+    together. (The packed kernel's minimum is order-free, so its fold over
+    the kept faces equals the unculled one as soon as no dropped face is
+    inside at any pixel of its tile.)"""
+    keep = hard_tile_keep_reference(coef, zbits, Z_SENTINEL, res)
+    b = zbits.shape[0]
+    bz = torch.full((b, res, res), Z_SENTINEL, dtype=torch.int32, device=coef.device)
+    br = torch.full_like(bz, _NO_COLOR)
+    per = -(-res // PRIM_TILE)
+    for cam in range(b):
+        for t in range(per * per):
+            r0, c0 = (t // per) * PRIM_TILE, (t % per) * PRIM_TILE
+            rows = slice(r0, min(r0 + PRIM_TILE, res))
+            cols = slice(c0, min(c0 + PRIM_TILE, res))
+            px = (torch.arange(r0, rows.stop, device=coef.device).float() + 0.5)[:, None]
+            py = (torch.arange(c0, cols.stop, device=coef.device).float() + 0.5)[None, :]
+            tz, tr = bz[cam, rows, cols], br[cam, rows, cols]
+            faces = keep[cam, t].nonzero()[:, 0]               # ascending
+            for chunk in torch.unique(faces // FACE_CHUNK).tolist():
+                run = faces[faces // FACE_CHUNK == chunk]
+                k = lambda e, j: coef[cam, e, run, j][:, None, None]
+                inside = functools.reduce(torch.logical_and, [
+                    warp.affine(k(e, 0), px, k(e, 1), py, k(e, 2)) >= 0 for e in range(3)])
+                zv = torch.where(inside, zbits[cam, run][:, None, None], Z_SENTINEL)
+                cz = zv.amin(dim=0)
+                cr = torch.where(zv == cz, rgb[cam, run][:, None, None],
+                                 _NO_COLOR).amin(dim=0)
+                tr.copy_(torch.where(cz < tz, cr, tr))
+                tz.copy_(torch.minimum(tz, cz))
+    return _composite(bz.reshape(b, -1) < Z_SENTINEL, br.reshape(b, -1),
+                      background.reshape(b, 3, res * res), res)
 
 
 def _check(coef: torch.Tensor, ints, background: torch.Tensor, res: int) -> None:

@@ -183,6 +183,45 @@ def prim_tiles(res: int) -> int:
     return (res // PRIM_TILE) ** 2
 
 
+def edge_tile_range(coef: torch.Tensor, x_lo: torch.Tensor, x_hi: torch.Tensor,
+                    y_lo: torch.Tensor, y_hi: torch.Tensor):
+    """
+    Plain version of ``csrc/prim_winner.cuh: edge_range``, the float64
+    extremes of an affine value ``e = a*px + b*py + c`` over each tile's
+    pixel centres and the cull's slack ``delta = 2^-20 (|a| x_hi + |b| y_hi
+    + |c|) + 2^-149 [a != 0] + 2^-149 [b != 0]``, in the kernel's order of
+    operations (so the same bits).
+
+    Args:
+        coef: (..., 3) float32 (a, b, c).
+        x_lo, x_hi: (TX,) float64, each tile row's first and last pixel
+            centre; y_lo, y_hi: (TY,) the same for each tile column.
+    Returns:
+        (top, bottom, delta), each (..., TX, TY) float64.
+    """
+    a, b, c = (coef[..., j].double()[..., None] for j in range(3))
+    ax0, ax1, by0, by1 = a * x_lo, a * x_hi, b * y_lo, b * y_hi
+    top = (torch.maximum(ax0, ax1)[..., :, None]
+           + torch.maximum(by0, by1)[..., None, :]) + c[..., None]
+    bottom = (torch.minimum(ax0, ax1)[..., :, None]
+              + torch.minimum(by0, by1)[..., None, :]) + c[..., None]
+    underflow = ((a != 0).double() + (b != 0).double()) * _CULL_UNDERFLOW
+    delta = ((a.abs() * x_hi)[..., :, None] + (b.abs() * y_hi)[..., None, :]
+             + c.abs()[..., None]) * _CULL_SLACK + underflow[..., None]
+    return top, bottom, delta
+
+
+def tri_edge_out_reference(coef: torch.Tensor, x_lo: torch.Tensor, x_hi: torch.Tensor,
+                           y_lo: torch.Tensor, y_hi: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``csrc/prim_winner.cuh: tri_edge_out``: (..., TX,
+    TY) whether the triangle edge ``coef`` (..., 3) is negative at every
+    pixel of each tile, ``max e < -delta`` (arguments as
+    :func:`edge_tile_range`). The primitive winner's cull and the hard
+    raster's (``ops/hard.py: hard_tile_keep_reference``) both call it."""
+    top, _, delta = edge_tile_range(coef, x_lo, x_hi, y_lo, y_hi)
+    return top < -delta
+
+
 def prim_tile_keep_reference(qcoef: torch.Tensor, qpk: torch.Tensor,
                              tcoef: torch.Tensor, tpk: torch.Tensor,
                              qmask: Optional[torch.Tensor],
@@ -219,17 +258,9 @@ def prim_tile_keep_reference(qcoef: torch.Tensor, qpk: torch.Tensor,
         & (bands <= ((start + PRIM_TILE - 1) // rpb)[:, None])   # (per, J)
 
     def edge_out(coef, quad):            # (B, P, 3) -> (B, P, per, per)
-        a, b, c = (coef[..., j].double()[..., None] for j in range(3))
-        ax0, ax1, by0, by1 = a * lo, a * hi, b * lo, b * hi
-        top = (torch.maximum(ax0, ax1)[..., :, None]
-               + torch.maximum(by0, by1)[..., None, :]) + c[..., None]
-        underflow = ((a != 0).double() + (b != 0).double()) * _CULL_UNDERFLOW
-        delta = ((a.abs() * hi)[..., :, None] + (b.abs() * hi)[..., None, :]
-                 + c.abs()[..., None]) * _CULL_SLACK + underflow[..., None]
         if not quad:
-            return top < -delta
-        bottom = (torch.minimum(ax0, ax1)[..., :, None]
-                  + torch.minimum(by0, by1)[..., None, :]) + c[..., None]
+            return tri_edge_out_reference(coef, lo, hi, lo, hi)
+        top, bottom, delta = edge_tile_range(coef, lo, hi, lo, hi)
         return (top < -0.5 - delta) | (bottom > 0.5 + delta)
 
     keeps = []
