@@ -11,10 +11,11 @@ checkout (one ``nvcc`` per source, all at once), then drives five paths:
 * the imitation-learning gradient step (the same town, 16 environments,
   8 vehicles, 64 x 64 differentiable render, a 40-step rollout through the
   bilinear background warp and the soft raster, a CNN policy): the three
-  kernels against their plain versions, a small gradient step against the
+  kernels against their plain versions (the soft raster also on operands
+  that stress its per-tile face cull), a small gradient step against the
   CPU path, one full-width gradient step counting launches with a
   directional finite-difference check of its gradient, three steps of the
-  behaviour-cloning loop, times and peak memory;
+  behaviour-cloning loop, times, the soft raster's floors and peak memory;
 * the imitation-learning gradient step over the untextured map (config 4's
   widths without the texture: every frame draws the Town02 road mesh,
   ~17,000 faces per camera, through the grouped soft raster): its two
@@ -499,6 +500,32 @@ def random_soft_operands(seed: int, b: int, n_faces: int, res: int, device):
     return (*ops, t(rng.rand(b, 3, res, res))), t(rng.uniform(-1, 1, (b, 3, res, res)))
 
 
+def soft_case_operands(kind: str, seed: int, b: int, n_faces: int, res: int, device):
+    """The single-group soft raster's operands ((coef, zw, color, bg), g)
+    of one kind, F <= 128: ``random`` (:func:`random_soft_operands`: a face
+    covering the view, a degenerate one), ``boundary``
+    (:func:`accum_boundary_operands` with its slack faces: ``n_faces``
+    random faces beside three per 16 x 16 tile whose one edge peaks at
+    nextafter(-4, 0), -4 or -4.001 at a tile corner, and one per inner tile
+    that only the cull's slack keeps; :func:`boundary_extra` counts them) or
+    ``road`` (:func:`accum_road_operands`, most faces off-view); the last
+    two padded to 128 faces with the padding face (alpha exactly 0) where
+    they fall short. A random output cotangent g."""
+    if kind == 'random':
+        return random_soft_operands(seed, b, n_faces, res, device)
+    if kind == 'boundary':
+        (coef, zw, color), bg = accum_boundary_operands(seed, b, n_faces, res, device,
+                                                        slack_faces=True)
+    else:
+        (coef, zw, color), bg = accum_road_operands(seed, b, n_faces, res, device)
+    if coef.shape[1] > 128:
+        raise ValueError(f'{kind}: {coef.shape[1]} faces, more than one group')
+    rng = np.random.RandomState(seed + 2)
+    g = torch.as_tensor(rng.uniform(-1, 1, tuple(bg.shape)).astype(np.float32),
+                        device=device)
+    return (coef, zw, color, bg), g
+
+
 def face_operands(verts, rng, device):
     """The soft raster's (coef, zw (B, 1, F), color) of the triangles
     ``verts`` (B, 3F, 3): (row, col, z), z constant per face, a random color
@@ -543,20 +570,27 @@ def compare_warp(warp, mip, fcoef, icoef, res, label):
 
 def compare_soft(soft, ops, g, label):
     """Forward (1e-5 absolute) and backward (rtol 1e-4) of the soft raster's
-    kernels against the plain versions, both judged through float64."""
+    kernels against the plain versions, both judged through float64.
+    Returns ((forward max difference, over), [(backward max difference,
+    over)] per output, forward values that differ from the plain version in
+    any bit): the faces a tile's cull drops add exactly 0 there, so 0."""
     coef, zw, color, bg = ops
     print(f'{label} soft raster, {coef.shape[1]} faces, B={coef.shape[0]}, '
           f'res {bg.shape[-1]}:')
     exact_in = [x.double() for x in ops]
-    fwd = judge(soft.soft_raster_fwd(*ops), soft.soft_raster_fwd_reference(*ops),
-                soft.soft_raster_fwd_reference(*exact_in), 'forward', 0.0, 1e-5)
+    got, plain = soft.soft_raster_fwd(*ops), soft.soft_raster_fwd_reference(*ops)
+    torch.cuda.synchronize()
+    bits = int((got != plain).sum())
+    print(f'  forward: {bits} values differ from the plain version in any bit')
+    fwd = judge(got, plain, soft.soft_raster_fwd_reference(*exact_in), 'forward',
+                0.0, 1e-5)
     got = soft.soft_raster_bwd(*ops, g)
     plain = soft.soft_raster_bwd_reference(*ops, g)
     exact = soft.soft_raster_bwd_reference(*exact_in, g.double())
     torch.cuda.synchronize()
     bwd = [judge(a, b, c, name, 1e-4) for name, a, b, c in
            zip(('gcoef', 'gzw', 'gcolor', 'gbg'), got, plain, exact)]
-    return fwd, bwd
+    return fwd, bwd, bits
 
 
 def il_policy(features, dtype, device, action_size=2, seed=0):
@@ -645,6 +679,55 @@ def profile_step(fn, label, card):
     return len(device), busy_us / wall_us
 
 
+def soft_bwd_partial(soft, ops, g):
+    """B4b's C entry point without its counters (its last blocks sum
+    nothing), the sum over the tiles and the output views done in PyTorch
+    instead: how the backward would run with the cross-tile sum left to the
+    wrapper."""
+    from torchdrivesim_tpu_torch.ops.build import check_launch
+    coef, zw, color, bg = ops
+    b, n_faces, res = coef.shape[0], coef.shape[1], bg.shape[-1]
+    partial = coef.new_empty((b, soft.accum_tiles(res), n_faces, 13))
+    gbg = torch.empty_like(bg)
+    check_launch(soft.LIBRARY.load().tds_soft_raster_bwd(
+        coef.data_ptr(), zw.data_ptr(), color.data_ptr(), bg.data_ptr(), g.data_ptr(),
+        b, n_faces, res, partial.data_ptr(), gbg.data_ptr(), None, None, None, None,
+        torch.cuda.current_stream().cuda_stream), 'soft raster backward')
+    return partial, gbg
+
+
+def soft_floor(soft, ops, g, card):
+    """B4a's and B4b's floors at the IL operands, by graph replay: a
+    ``fill_`` of B4a's output; B4b without its in-kernel cross-tile sum,
+    alone and followed by that sum in PyTorch (the partial summed over the
+    tiles, gcolor copied out), held against the kernel's own sum; and both
+    kernels' registers, blocks per SM, spills and shared memory."""
+    out = torch.empty_like(ops[3])
+    fill_ms = graph_ms(lambda: out.fill_(0.0), 200)
+
+    def summed():
+        partial, gbg = soft_bwd_partial(soft, ops, g)
+        sums = partial.sum(dim=1)
+        return sums[..., :9].reshape(-1, sums.shape[1], 3, 3), sums[..., 9:10], \
+            sums[..., 10:13].contiguous(), gbg
+
+    alone_ms = graph_ms(lambda: soft_bwd_partial(soft, ops, g), 100)
+    summed_ms = graph_ms(summed, 100)
+    got, want = soft.soft_raster_bwd(*ops, g), summed()
+    torch.cuda.synchronize()
+    diff = max(float((a.reshape(-1) - w.reshape(-1)).abs().max()) for a, w in zip(got, want))
+    print(f'soft raster floors B={ops[0].shape[0]} res={ops[3].shape[-1]} '
+          f'F={ops[0].shape[1]}: fill_ of the forward\'s output {fill_ms:.4f} ms; '
+          f'backward without its in-kernel tile sum {alone_ms:.4f} ms, with the sum '
+          f'in PyTorch {summed_ms:.4f} ms (the sum adds {summed_ms - alone_ms:.4f} ms); '
+          f'in-kernel and PyTorch sums differ by at most {diff:.3g} [{card}]')
+    for n_faces in sorted({ops[0].shape[1], 128}):
+        (fr, fb, fs, fm), (br, bb, bs, bm) = soft.occupancy(n_faces)
+        print(f'  F={n_faces}: forward {fr} registers, {fb} blocks of 256 per SM, '
+              f'{fs} spill bytes, {fm} shared bytes; backward {br} registers, {bb} '
+              f'blocks per SM, {bs} spill bytes, {bm} shared bytes')
+
+
 def il_path(device, card):
     """The imitation-learning phases; returns the JSON entries of its
     three kernels."""
@@ -672,16 +755,26 @@ def il_path(device, card):
         d, o = compare_warp(warp, *ops, label)
         errs['warp'].append(d)
         over += o
-    for label, (ops, gg) in (('IL', (sops, g)),
-                             ('random F=128', random_soft_operands(6, 4, 128, 64, device)),
-                             ('random F=45 res 32', random_soft_operands(7, 8, 45, 32, device))):
-        (fd, fo), bwd = compare_soft(soft, ops, gg, label)
+    for label, (ops, gg) in (
+            ('IL', (sops, g)),
+            ('random F=128', random_soft_operands(6, 4, 128, 64, device)),
+            ('random F=45 res 32', random_soft_operands(7, 8, 45, 32, device)),
+            ('random F=128 res 128', random_soft_operands(8, 2, 128, 128, device)),
+            ('boundary res 64', soft_case_operands('boundary', 14, 4, 71, 64, device)),
+            ('boundary res 40', soft_case_operands('boundary', 15, 4, 97, 40, device)),
+            ('road F=120', soft_case_operands('road', 16, 8, 120, 64, device))):
+        (fd, fo), bwd, bits = compare_soft(soft, ops, gg, label)
         errs['fwd'].append(fd)
         errs['bwd'] += [d for d, _ in bwd]
-        over += fo + sum(o for _, o in bwd)
+        over += fo + sum(o for _, o in bwd) + bits
     if over:
-        raise AssertionError(f'{over} values over tolerance: the kernels disagree '
-                             'with their plain versions')
+        raise AssertionError(f'{over} values over tolerance or forward values off in '
+                             'any bit: the kernels disagree with their plain versions')
+    per_tile = soft.soft_tile_lists_reference(sops[0], IL_RES).sum(dim=-1).double()
+    print(f'IL frame: the cull lists {float(per_tile.mean()):.3f} faces per 16 x 16 '
+          f'tile (max {int(per_tile.max())}) of {sops[0].shape[1]}; '
+          f'{soft_tile_pairs(sops[0], IL_RES)} (camera, face, tile) triples can '
+          f'contribute of {per_tile.numel() * sops[0].shape[1]} (soft_tile_pairs)')
 
     # 2. a small gradient step on the card against the CPU
     il_compare_with_cpu(device)
@@ -730,10 +823,13 @@ def il_path(device, card):
     if not np.all(np.isfinite(bc_losses)):
         raise AssertionError('BC losses are not finite')
 
-    # 5. times, on this card, at the IL operands
+    # 5. times, on this card, at the IL operands; B4a's and B4b's bounds
+    # count the (pixel, face) pairs of the tiles each face can reach, with
+    # the count of every pair beside them
     coef, zw, color, bg = sops
     b, n_faces = coef.shape[0], coef.shape[1]
-    face_pixels = b * n_faces * IL_RES * IL_RES
+    face_pixels = soft_tile_pairs(coef, IL_RES) * BOUND_TILE * BOUND_TILE
+    all_pairs = b * n_faces * IL_RES * IL_RES
     pixels = b * IL_RES * IL_RES
     entries = []
     for name, fn, plain, reps, plain_reps, n_bytes, n_ops, n_sfu, source, replaces, \
@@ -768,13 +864,20 @@ def il_path(device, card):
         print(f'{name} kernel B={b} res={IL_RES} F={n_faces}: {ms:.4f} ms (device, '
               f'graph replay); eager call {call_ms:.4f} ms; plain version '
               f'{plain_ms:.3f} ms; bound {bound_ms * 1e3:.3f} us by {bound_by} '
-              f'({n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.1f} M float32 ALU and '
-              f'{n_sfu / 1e6:.1f} M SFU operations) '
+              f'({n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.3f} M float32 ALU and '
+              f'{n_sfu / 1e6:.3f} M SFU operations) '
               f'[{card}]')
+        if name.startswith('soft'):
+            scale = all_pairs / face_pixels
+            old_ms, old_by = bound(n_bytes, n_ops * scale, n_sfu * scale)
+            print(f'  {name} bound counting every (pixel, face) pair: '
+                  f'{old_ms * 1e3:.3f} us by {old_by} ({all_pairs / 1e6:.3f} M pairs, '
+                  f'{face_pixels / 1e6:.3f} M in reachable tiles)')
         entries.append({'name': name, 'route': 'cuda', 'source': source,
                         'replaces': replaces, 'launches': n, 'max_abs_err': err,
                         'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
                         'bound_by': bound_by, 'library_ms': None})
+    soft_floor(soft, sops, g, card)
     torch.cuda.reset_peak_memory_stats(device)
     base = torch.cuda.memory_allocated(device)
     grad_fn(state)
@@ -841,14 +944,45 @@ def boundary_edge(rng, x: float, y: float, target):
     raise RuntimeError(f'no edge through {target!r} at ({x}, {y})')
 
 
-def accum_boundary_operands(seed: int, b: int, n_faces: int, res: int, device):
+def slack_edge(rng, x: float, y: float):
+    """Float32 (A, B, C), A and B negative with |A x| and |B y| in [2, 4),
+    whose port's float32 edge value at the pixel centre (|x|, |y|), its
+    largest over a tile whose first pixel that is (x, y < 0, as in
+    :func:`boundary_edge`), is nextafter(-4, 0), while its exact value,
+    which the cull's float64 test computes, is at most -4: without the
+    cull's slack such a face would be dropped from a tile where its window
+    ramp is nonzero."""
+    f32 = np.float32
+    target = np.nextafter(f32(-4), f32(0))
+    for _ in range(20000):
+        a = f32(-rng.uniform(2, 4) / abs(x))
+        b = f32(-rng.uniform(2, 4) / abs(y))
+        s = f32(f32(a * f32(abs(x))) + f32(b * f32(abs(y))))
+        c = f32(float(target) - float(s))
+        if f32(s + c) == target \
+                and (float(a) * abs(x) + float(b) * abs(y)) + float(c) <= -4.0:
+            return a, b, c
+    raise RuntimeError(f'no edge below -4 in float64 at ({x}, {y})')
+
+
+def boundary_extra(res: int, slack_faces: bool = False) -> int:
+    """The faces :func:`accum_boundary_operands` adds per camera."""
+    per = -(-res // BOUND_TILE)
+    return 3 * per * per + (slack_faces and (per - 1) ** 2)
+
+
+def accum_boundary_operands(seed: int, b: int, n_faces: int, res: int, device,
+                            slack_faces: bool = False):
     """:func:`random_soft_operands`' faces and, for every 16 x 16 tile of
     every camera, three boundary faces: one soft edge (|A|, |B| <= 0.02)
     whose float32 value at one of the tile's corner pixels, its largest
     there, is nextafter(-4, 0) (the face reaches that pixel: the cull must
     keep it), exactly -4 (it adds 0 in the tile: the cull may drop it) or
-    -4.001 (the cull drops it); its other two edges are 0 everywhere. The
-    faces are shuffled together, padded to whole groups; and the random
+    -4.001 (the cull drops it); its other two edges are 0 everywhere. With
+    ``slack_faces``, also for every tile off the first row and column a
+    face of :func:`slack_edge` at the tile's first pixel, at the nearest z
+    (the largest weight): only the cull's slack keeps it there. The faces
+    are shuffled together, padded to whole groups; and the random
     background."""
     from torchdrivesim_tpu_torch.ops import soft
     (coef, zw, color, bg), _ = random_soft_operands(seed, b, n_faces, res, 'cpu')
@@ -858,7 +992,7 @@ def accum_boundary_operands(seed: int, b: int, n_faces: int, res: int, device):
                np.float32(-4.001))
     edges = []
     for _ in range(b):
-        cam = []
+        cam, slack_rows = [], []
         for row in range(0, res, tile):
             for col in range(0, res, tile):
                 for target in targets:
@@ -867,11 +1001,16 @@ def accum_boundary_operands(seed: int, b: int, n_faces: int, res: int, device):
                     y = (min(col + tile, res) - 0.5) if rng.rand() < 0.5 else -(col + 0.5)
                     a, b_, c = boundary_edge(rng, x, y, target)
                     cam.append([[a, b_, c], [0, 0, 0], [0, 0, 0]])
+                if slack_faces and row and col:
+                    a, b_, c = slack_edge(rng, -(row + 0.5), -(col + 0.5))
+                    cam.append([[a, b_, c], [0, 0, 0], [0, 0, 0]])
+                    slack_rows.append(len(cam) - 1)
         edges.append(cam)
     extra = np.asarray(edges, np.float32)                       # (B, K, 3, 3)
     k = extra.shape[1]
     order = torch.as_tensor(rng.permutation(n_faces + k))
     z = rng.uniform(2, 15, (b, 1, k))
+    z[:, :, slack_rows] = 2.0
     coef = torch.cat([coef, torch.as_tensor(extra)], dim=1)[:, order]
     zw = torch.cat([zw, torch.as_tensor(np.exp((20 - z) / 0.5).astype(np.float32))],
                    dim=2)[:, :, order]
@@ -1161,11 +1300,11 @@ def grouped_soft_path(device, card):
     # B4a and B4b again, beside the header they now share
     for label, (ops, g) in (('random F=128', random_soft_operands(6, 4, 128, 64, device)),
                             ('random F=45 res 32', random_soft_operands(7, 8, 45, 32, device))):
-        (_, fo), bwd = compare_soft(soft, ops, g, label)
-        over += fo + sum(o for _, o in bwd)
+        (_, fo), bwd, nb = compare_soft(soft, ops, g, label)
+        over += fo + sum(o for _, o in bwd) + nb
     if over:
-        raise AssertionError(f'{over} values over tolerance: the soft kernels disagree '
-                             'with their plain versions')
+        raise AssertionError(f'{over} values over tolerance (or B4a values off in any '
+                             'bit): the soft kernels disagree with their plain versions')
 
     # 2. a small gradient step on the card against the CPU
     il_untextured_compare_with_cpu(device)

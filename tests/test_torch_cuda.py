@@ -14,9 +14,11 @@ their plain versions exactly (the same operations, each rounded on its
 own). The soft raster is judged through its plain version in float64: the
 kernel's error may exceed the plain version's by at most 1e-5 (forward)
 or 1e-4 relative plus 1e-6 of the largest value (backward), since its
-per-face sums run in another order. The grouped forward performs the plain
-version's operations in its order over the faces that reach each pixel
-tile (the others add exactly 0), so it must match it exactly; the grouped
+per-face sums run in another order; on the operands that stress its
+per-tile face cull its forward and gbg must match exactly. The grouped
+forward performs the plain version's operations in its order over the
+faces that reach each pixel tile (the others add exactly 0), so it must
+match it exactly; the grouped
 backward is judged face by face (``chip_smoke.judge_rows``), for the
 cotangents of the composite; the per-tile face lists must equal the plain
 cull's. The fused render and the primitive rasters also run on the scenes
@@ -151,6 +153,34 @@ def test_soft_kernels_match_plain_versions(cuda, b, n_faces, res):
     for a, p, e in zip(grads, plain, exact):
         assert a.shape == p.shape
         assert _judge(a, p, e, 1e-4) == 0
+
+
+@pytest.mark.depends_on_cuda
+@pytest.mark.parametrize('kind,seed,b,n_faces,res', [
+    ('boundary', 14, 4, 71, 64), ('boundary', 15, 4, 97, 40), ('road', 16, 8, 120, 64),
+    ('random', 8, 2, 128, 128), ('random', 7, 8, 45, 32)])
+def test_soft_kernels_on_cull_cases(cuda, kind, seed, b, n_faces, res):
+    """B4a and B4b on the operands that stress their per-tile face cull
+    (``chip_smoke.soft_case_operands``: edges that peak at nextafter(-4, 0),
+    -4 or -4.001 at a tile corner, edges that only the cull's slack keeps,
+    ragged tiles at res 40, road-like faces most off-view, the largest
+    shared memory at F = 128, res 128): the forward and gbg equal to their
+    plain versions bit for bit (the faces a tile drops add exactly 0
+    there), the backward within the tolerance above."""
+    from chip_smoke import soft_case_operands
+    ops, g = soft_case_operands(kind, seed, b, n_faces, res, cuda)
+    assert ops[0].shape[1] <= soft.MAX_FACES
+    exact_in = [x.double() for x in ops]
+    got, plain = soft.soft_raster_fwd(*ops), soft.soft_raster_fwd_reference(*ops)
+    assert torch.equal(got, plain)
+    grads = soft.soft_raster_bwd(*ops, g)
+    want = soft.soft_raster_bwd_reference(*ops, g)
+    exact = soft.soft_raster_bwd_reference(*exact_in, g.double())
+    torch.cuda.synchronize()
+    for a, p, e in zip(grads, want, exact):
+        assert a.shape == p.shape
+        assert _judge(a, p, e, 1e-4) == 0
+    assert torch.equal(grads[3], want[3])
 
 
 @pytest.mark.depends_on_cuda

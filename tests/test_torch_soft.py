@@ -299,6 +299,7 @@ int tds_soft_raster_fwd(const float* coef, const float* zw, const float* color,
 int tds_soft_raster_bwd(const float* coef, const float* zw, const float* color,
                         const float* bg, const float* g, int batch,
                         int n_faces, int res, void* partial, void* gbg,
+                        void* counters, void* gcoef, void* gzw, void* gcolor,
                         void* stream) {
   if (!ptr(coef, 0x7f0000001000ull)) return 1;
   if (!ptr(zw, 0x7f0000001100ull)) return 2;
@@ -308,7 +309,15 @@ int tds_soft_raster_bwd(const float* coef, const float* zw, const float* color,
   if (batch != 16 || n_faces != 128 || res != 64) return 6;
   if (!ptr(partial, 0x7f00000fe000ull)) return 7;
   if (!ptr(gbg, 0x7f00000ff000ull)) return 8;
-  if (!ptr(stream, 0x7ffd12345678abc0ull)) return 9;
+  if (!ptr(counters, 0x7f00000fd000ull)) return 9;
+  if (!ptr(gcoef, 0x7f00000fc000ull)) return 10;
+  if (!ptr(gzw, 0x7f00000fb000ull)) return 11;
+  if (!ptr(gcolor, 0x7f00000fa000ull)) return 12;
+  if (!ptr(stream, 0x7ffd12345678abc0ull)) return 13;
+  return 0;
+}
+int tds_soft_raster_occupancy(int n_faces, int* out) {
+  for (int i = 0; i < 8; ++i) out[i] = n_faces + i;
   return 0;
 }
 '''
@@ -332,4 +341,8 @@ def test_kernel_entry_points_receive_their_arguments(tmp_path):
     assert stub.tds_soft_raster_fwd(*ptrs[:4], 16, 24, 64, 0x7f00000ff000,
                                     stream) == 0
     assert stub.tds_soft_raster_bwd(*ptrs, 16, 128, 64, 0x7f00000fe000,
-                                    0x7f00000ff000, stream) == 0
+                                    0x7f00000ff000, 0x7f00000fd000, 0x7f00000fc000,
+                                    0x7f00000fb000, 0x7f00000fa000, stream) == 0
+    out = (ctypes.c_int * 8)()
+    assert stub.tds_soft_raster_occupancy(24, out) == 0
+    assert list(out) == list(range(24, 32))

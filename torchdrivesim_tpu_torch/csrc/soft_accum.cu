@@ -19,35 +19,10 @@
 // per camera, one thread per pixel (px, py) = (row + 0.5, col + 0.5), the
 // threads of a ragged last tile masked.
 //
-// The cull, and why skipping is exact. Per face and pixel, face_terms
-// (soft_face.cuh) takes window = clamp(tmin + 4, 0, 1) and alpha = big_s *
-// window. Where tmin <= -4 the window is exactly +0, so:
-// - forward: alpha = +0, w = alpha * zw = +0 for every finite zw, so
-//   n[ch] + w * color and d + w are unchanged bit for bit and t * (1 - 0)
-//   equals t;
-// - backward: the window's gradient mask (tmin > -4 && tmin < -3) is 0, so
-//   all 13 gradient terms are products with alpha or with sw = 0, hence
-//   +-0, and the prefix and suffix products see a factor of exactly 1. A
-//   group with no surviving face in a tile gives n_g = 0, d_g = 0, t_g = 1,
-//   so num + n_g, den + d_g, transp * t_g, S_g and P_g are unchanged.
-// So a block may skip any face one of whose edges has t_e <= -4 at every
-// pixel of its tile, and no other face. t_e is affine, so its largest value
-// over the tile is at one of the four extreme pixel centres. A face is
-// skipped iff, for some edge e, in float64,
-//   max over the corners of t_e <= -4 - delta_e,
-//   delta_e = 2^-20 (|A_e| x_max + |B_e| y_max + |C_e|),
-// with x_max, y_max the tile's largest pixel centres. delta covers the
-// float32 rounding of affine() (two products and two sums, a few ulp of its
-// largest term), so the float32 t_e is <= -4 at every pixel of a skipped
-// tile, and then so is tmin, and __fadd_rn(tmin, 4) <= 0 (rounding is
-// monotone). Conservative: a kept face may still add 0, a skipped one never
-// adds anything. Zw is finite on every path (z >= 2 gives at most e^36);
-// padding faces (zw 0, C = -1e9) are always skipped. The float64 arithmetic
-// is spelled with round-to-nearest intrinsics, so the plain version
-// (ops/soft.py: soft_tile_lists_reference) computes the same bits.
-//
-// Phase 1 of both kernels: the block scans the camera's faces 256 at a time,
-// one face per thread, and appends the survivors in ascending face order
+// Phase 1 of both kernels is the per-tile face cull of soft_face.cuh
+// (list_tile_faces, shared with soft_raster.cu; its comment says why
+// skipping is exact): the block scans the camera's faces 256 at a time, one
+// face per thread, and appends the survivors in ascending face order
 // (ballot and prefix count, no atomics) to its row of a wrapper-allocated
 // int32 list (B, tiles, F), and writes their count to (B, tiles). The
 // listed faces of one group form a run (a segment) of at most 128, staged
@@ -55,8 +30,8 @@
 //
 // Forward, per pixel: each listed group's partials start from num 0, den 0,
 // transp 1 and take its listed faces in ascending order (soft_face.cuh:
-// face_terms); the totals combine in group order as above. By the argument
-// above this is bit for bit the sum over every face. Outputs num (B, 3, R,
+// face_terms); the totals combine in group order as above. By the cull's
+// argument this is bit for bit the sum over every face. Outputs num (B, 3, R,
 // R), den (B, R, R), transp (B, R, R).
 //
 // Backward, for the cotangents gnum, gden, gtransp of the three totals:
@@ -86,7 +61,10 @@
 // sums 13 terms over each warp. On the Town02 road mesh (~17,000 faces, 133
 // groups) ~3.4% of the (pixel, face) pairs lie in a tile their face can
 // reach, so the cull's scan (3 float64 edge tests per face and tile, the
-// coefficients read from L2) is small beside the raster.
+// coefficients read from L2) is small beside the raster. Shared memory per
+// block: the forward 6.7 KB of face table (static); the backward 191 KB at
+// a group of 128 (face table, prefix column of 128 x 256 floats and 8 warps'
+// reduction slots).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -98,80 +76,8 @@ namespace {
 using namespace tds;
 
 constexpr int kMaxGroup = 128;
-constexpr int kTile = 16;                   // pixels per side of a block
-constexpr int kThreads = kTile * kTile;     // one thread per pixel
-constexpr int kWarps = kThreads / 32;
-constexpr double kSlack = 0x1p-20;          // delta_e per unit of |terms|
-
-// the block's 16 x 16 pixel tile and this thread's pixel
-struct Tile {
-  int row, col;
-  bool live;
-  float px, py;
-  double x_lo, x_hi, y_lo, y_hi;   // the tile's extreme pixel centres
-};
-
-__device__ __forceinline__ Tile block_tile(int res) {
-  const int per_side = (res + kTile - 1) / kTile;
-  const int row0 = (blockIdx.x / per_side) * kTile;
-  const int col0 = (blockIdx.x % per_side) * kTile;
-  Tile t;
-  t.row = row0 + threadIdx.x / kTile;
-  t.col = col0 + threadIdx.x % kTile;
-  t.live = t.row < res && t.col < res;
-  t.px = (float)t.row + 0.5f;
-  t.py = (float)t.col + 0.5f;
-  t.x_lo = (double)row0 + 0.5;
-  t.x_hi = (double)min(row0 + kTile, res) - 0.5;
-  t.y_lo = (double)col0 + 0.5;
-  t.y_hi = (double)min(col0 + kTile, res) - 0.5;
-  return t;
-}
-
-// false iff one edge of the face (coef[9]) is at most -4 - delta_e at every
-// pixel centre of the tile (see the header)
-__device__ __forceinline__ bool face_reaches_tile(const float* c, const Tile& t) {
-#pragma unroll
-  for (int e = 0; e < 3; ++e) {
-    const double a = c[3 * e], b = c[3 * e + 1], k = c[3 * e + 2];
-    const double top = __dadd_rn(
-        __dadd_rn(fmax(__dmul_rn(a, t.x_lo), __dmul_rn(a, t.x_hi)),
-                  fmax(__dmul_rn(b, t.y_lo), __dmul_rn(b, t.y_hi))), k);
-    const double delta = __dmul_rn(
-        __dadd_rn(__dadd_rn(__dmul_rn(fabs(a), t.x_hi), __dmul_rn(fabs(b), t.y_hi)),
-                  fabs(k)), kSlack);
-    if (top <= __dsub_rn(-4.0, delta)) return false;
-  }
-  return true;
-}
-
-// Phase 1: the camera's faces that reach the tile, ascending, into list;
-// their count into *count_out. Returns the count (the same in every
-// thread); the list is visible to the whole block on return.
-__device__ int list_tile_faces(const float* coef, size_t cam_first, int n_faces,
-                               const Tile& t, int* list, int* count_out,
-                               int* s_warp) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  int count = 0;
-  for (int base = 0; base < n_faces; base += kThreads) {
-    const int f = base + threadIdx.x;
-    const bool keep = f < n_faces && face_reaches_tile(coef + (cam_first + f) * 9, t);
-    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-    if (lane == 0) s_warp[warp] = __popc(ballot);
-    __syncthreads();
-    int at = count;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      if (w < warp) at += s_warp[w];
-      count += s_warp[w];
-    }
-    if (keep) list[at + __popc(ballot & ((1u << lane) - 1u))] = f;
-    __syncthreads();   // s_warp is rewritten by the next chunk
-  }
-  if (threadIdx.x == 0) *count_out = count;
-  return count;
-}
+constexpr int kThreads = kTileThreads;
+constexpr int kWarps = kTileWarps;
 
 // The segment from list[i]: the run of listed faces in the group of
 // list[i] (at most `group`), staged as rows of s_face. Returns its length;

@@ -19,16 +19,17 @@ differentiable PyTorch, so gradients flow to vertices and camera pose.
 CUDA kernels (``csrc/soft_raster.cu``), :func:`soft_accum_fwd` and
 :func:`soft_accum_bwd` those of the grouped path (``csrc/soft_accum.cu``),
 for CUDA tensors, and run the plain PyTorch versions for CPU tensors.
+Each block of either pair covers one 16 x 16 pixel tile and first lists the
+faces that can reach it, skipping the rest, which add exactly 0 there
+(:func:`soft_tile_lists_reference`).
 
 The grouped path pads the faces to whole ``MAX_FACES`` groups (padding rows:
 coefficients 0 except C = -1e9, z weight 0, color 0, so alpha is exactly 0)
 and maps them to the totals (num, den, transp): each group's partials start
 from 0, 0, 1 and take its faces in ascending order, and the groups combine
 as the reference's XLA does, ``num + n_g``, ``den + d_g``, ``transp * t_g``
-for g = 0, 1, ... One kernel launch covers every group; each of its blocks
-first lists the faces that can reach its 16 x 16 pixel tile and skips the
-rest, which add exactly 0 there (:func:`soft_tile_lists_reference`). The
-composite is plain differentiable PyTorch, as in the reference.
+for g = 0, 1, ... One kernel launch covers every group. The composite is
+plain differentiable PyTorch, as in the reference.
 """
 import ctypes
 from typing import Tuple
@@ -50,8 +51,8 @@ BWD_LAUNCHES = 0
 ACCUM_FWD_LAUNCHES = 0
 ACCUM_BWD_LAUNCHES = 0
 
-_THREADS = 128      #: pixels per block in csrc/soft_raster.cu
-#: pixels per side of the grouped kernels' block tiles (csrc/soft_accum.cu)
+#: pixels per side of the block tiles of both kernel pairs
+#: (csrc/soft_face.cuh: kTile)
 ACCUM_TILE = 16
 #: the cull's slack: an edge is dropped only below -4 - 2^-20 x its terms
 _CULL_SLACK = 2.0 ** -20
@@ -61,19 +62,32 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points' signatures (see ``csrc/soft_raster.cu``):
     forward: coef, zw, color, bg pointers; batch, faces, res; out, stream;
     backward: coef, zw, color, bg, g pointers; batch, faces, res; partial,
-    gbg, stream."""
+    gbg, counters, gcoef, gzw, gcolor, stream; occupancy: faces, int out[8]."""
     fwd = lib.tds_soft_raster_fwd
     fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p, ctypes.c_void_p]
     fwd.restype = ctypes.c_int
     bwd = lib.tds_soft_raster_bwd
     bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p] * 3
+        ctypes.c_void_p] * 7
     bwd.restype = ctypes.c_int
+    occ = lib.tds_soft_raster_occupancy
+    occ.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    occ.restype = ctypes.c_int
     return lib
 
 
 LIBRARY = KernelLibrary('soft_raster.cu', _bind)
+
+
+def occupancy(n_faces: int):
+    """((registers per thread, resident blocks per SM, spill bytes per
+    thread, shared bytes per block) of the forward kernel, the same of the
+    backward) at ``n_faces`` faces per camera."""
+    out = (ctypes.c_int * 8)()
+    check_launch(LIBRARY.load().tds_soft_raster_occupancy(n_faces, out),
+                 'soft raster occupancy query')
+    return tuple(out[:4]), tuple(out[4:])
 
 
 def _bind_accum(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -327,13 +341,25 @@ def soft_raster_fwd(coef: torch.Tensor, zw: torch.Tensor, color: torch.Tensor,
     return out
 
 
+#: per device, the backward's per-camera counters (int32 zeros, which each
+#: launch leaves at zero), so that a launch needs no memset
+_COUNTERS = {}
+
+
+def _counters(b: int, device) -> torch.Tensor:
+    have = _COUNTERS.get(device)
+    if have is None or have.numel() < b:
+        have = _COUNTERS[device] = torch.zeros(b, dtype=torch.int32, device=device)
+    return have
+
+
 def soft_raster_bwd(coef: torch.Tensor, zw: torch.Tensor, color: torch.Tensor,
                     background: torch.Tensor, g: torch.Tensor):
     """
     The soft raster's backward for the output cotangent ``g`` (B, 3, R, R):
     (gcoef, gzw, gcolor, gbg) shaped like (coef, zw, color, background).
-    CUDA kernel for CUDA tensors (per-block partial sums finished here by one
-    sum over the pixel tiles), plain version for CPU tensors.
+    CUDA kernel for CUDA tensors (one launch: the last block of each camera
+    sums its per-tile partial sums), plain version for CPU tensors.
     """
     global BWD_LAUNCHES
     _check(coef, zw, color, background, g)
@@ -342,21 +368,20 @@ def soft_raster_bwd(coef: torch.Tensor, zw: torch.Tensor, color: torch.Tensor,
     coef, zw, color, background, g = (t.contiguous() for t in
                                       (coef, zw, color, background, g))
     b, n_faces, res = coef.shape[0], coef.shape[1], background.shape[-1]
-    tiles = -(-res * res // _THREADS)
-    partial = torch.empty((b, tiles, n_faces, 13), dtype=torch.float32,
-                          device=coef.device)
+    partial = coef.new_empty((b, accum_tiles(res), n_faces, 13))
     gbg = torch.empty_like(background)
+    gcoef, gzw, gcolor = (torch.empty_like(t) for t in (coef, zw, color))
     with torch.cuda.device(coef.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = LIBRARY.load().tds_soft_raster_bwd(
             coef.data_ptr(), zw.data_ptr(), color.data_ptr(),
             background.data_ptr(), g.data_ptr(), b, n_faces, res,
-            partial.data_ptr(), gbg.data_ptr(), stream)
+            partial.data_ptr(), gbg.data_ptr(),
+            _counters(b, coef.device).data_ptr(), gcoef.data_ptr(),
+            gzw.data_ptr(), gcolor.data_ptr(), stream)
     check_launch(err, 'soft raster backward')
     BWD_LAUNCHES += 1
-    sums = partial.sum(dim=1)                                # (B, F, 13)
-    return (sums[..., :9].reshape(b, n_faces, 3, 3), sums[..., 9][:, None, :],
-            sums[..., 10:13].contiguous(), gbg)
+    return gcoef, gzw, gcolor, gbg
 
 
 class SoftRaster(torch.autograd.Function):
@@ -462,14 +487,15 @@ def soft_accum_bwd_reference(coef: torch.Tensor, zw: torch.Tensor,
 
 
 def accum_tiles(res: int) -> int:
-    """The grouped kernels' pixel tiles per camera, ``ceil(res / 16)^2``."""
+    """The kernels' pixel tiles (blocks) per camera, ``ceil(res / 16)^2``."""
     return (-(-res // ACCUM_TILE)) ** 2
 
 
 def soft_tile_lists_reference(coef: torch.Tensor, res: int) -> torch.Tensor:
     """
-    Plain version of the grouped kernels' per-tile face cull
-    (``csrc/soft_accum.cu``): which faces each block keeps. Tiles are 16 x
+    Plain version of the per-tile face cull that every block of both kernel
+    pairs runs first (``csrc/soft_face.cuh``: ``list_tile_faces``): which
+    faces each block keeps. Tiles are 16 x
     16 pixels, row-major; a face is dropped from a tile iff one edge's value
     ``t_e = A*px + B*py + C`` is at most ``-4 - 2^-20 (|A| x_max + |B| y_max
     + |C|)`` at the tile's four extreme pixel centres (clipped to the
