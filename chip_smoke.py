@@ -10,12 +10,14 @@ checkout (one ``nvcc`` per source, all at once), then drives five paths:
   kernel's registers and blocks per SM;
 * the imitation-learning gradient step (the same town, 16 environments,
   8 vehicles, 64 x 64 differentiable render, a 40-step rollout through the
-  bilinear background warp and the soft raster, a CNN policy): the three
-  kernels against their plain versions (the soft raster also on operands
-  that stress its per-tile face cull), a small gradient step against the
-  CPU path, one full-width gradient step counting launches with a
-  directional finite-difference check of its gradient, three steps of the
-  behaviour-cloning loop, times, the soft raster's floors and peak memory;
+  bilinear background warp and the soft raster, a CNN policy): the four
+  kernels against their plain versions (the warp from the camera poses and
+  its pose VJP also left-handed and at the texture's corner and edge, the
+  soft raster also on operands that stress its per-tile face cull), a
+  small gradient step against the CPU path, one full-width gradient step
+  counting launches with a directional finite-difference check of its
+  gradient, three steps of the behaviour-cloning loop, times, the warp's
+  and the soft raster's floors, device operations and peak memory;
 * the imitation-learning gradient step over the untextured map (config 4's
   widths without the texture: every frame draws the Town02 road mesh,
   ~17,000 faces per camera, through the grouped soft raster): its two
@@ -56,6 +58,7 @@ Exits non-zero without printing a result when no CUDA card is present or
 any phase fails. The line before the last is a JSON object describing each
 kernel; the last line is ``{"ok": true, "device": ...}``.
 """
+import contextlib
 import json
 import math
 import statistics
@@ -100,6 +103,16 @@ SOFT_ACCUM_BWD_OPS, SOFT_ACCUM_BWD_SFU = 2 * 29 + 25 + 50, 18
 #: per pixel of the bilinear warp: 3 positions (4 each), 2 pass-1 taps of
 #: 4 + 6 and 3 lerps (3 each), the final 3 lerps and the validity test (4)
 WARP_OPS = 12 + 2 * (10 + 9) + 9 + 4
+#: per camera of the bilinear warp's coefficients (csrc/warp_coef.cuh): the
+#: affine terms (16), the window origins (12), the branch and its selects
+#: (12), the pass-1 coefficients (9, divisions counted once each), the
+#: packed background (15), about 70
+WARP_COEF_OPS = 70
+#: per pixel of its pose VJP: per channel two central differences (4), the
+#: two texel-space derivatives (8) and their products and sums with g (4);
+#: the texture coordinates (8), the validity test (4) and its products (2);
+#: six float64 sums and four products (10)
+WARP_VJP_OPS = 3 * (4 + 8 + 4) + 8 + 4 + 2 + 10
 #: per (pixel, primitive) of the primitive winner (csrc/prim_winner.cuh): a
 #: quad's two affine values (4 each), their two bounds tests and the
 #: minimum; a triangle's three edge values, three tests and the minimum
@@ -242,11 +255,11 @@ def random_operands(seed: int, b: int, res: int, device):
     return mip, (fcoef, icoef, qcoef, qpk, tcoef, tpk, qmask, tmask)
 
 
-def random_warp_operands(seed: int, b: int, res: int, device):
-    """A random texture's mip level and warp coefficients of ``b`` cameras,
-    half of them on the transposed-window branch."""
-    from torchdrivesim_tpu_torch.ops.warp import (
-        build_mip_pyramid, select_mip, warp_coefficients)
+def random_poses(seed: int, b: int, device, cam_xy=None):
+    """A random texture's mip level and the poses (xy, sc) of ``b`` cameras,
+    half of them on the transposed-window branch; ``cam_xy`` (b, 2) places
+    the cameras instead."""
+    from torchdrivesim_tpu_torch.ops.warp import build_mip_pyramid, select_mip
     rng = np.random.RandomState(seed)
     tex = rng.rand(300, 300, 3).astype(np.float32)
     mip = select_mip(build_mip_pyramid(tex, np.zeros(2), 0.5), fov=40.0).to(device)
@@ -254,11 +267,47 @@ def random_warp_operands(seed: int, b: int, res: int, device):
     ang[::2] = np.deg2rad(rng.uniform(-5, 5, ang[::2].shape)
                           + 180 * (rng.rand(ang[::2].size) > 0.5))
     t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
-    fcoef, icoef = warp_coefficients(mip, t(rng.rand(b, 2) * 120 + 10),
-                                     t(np.stack([np.sin(ang), np.cos(ang)], -1)),
-                                     2.0 / 40.0, t([0.1, 0.2, 0.3]), res=res)
+    xy = rng.rand(b, 2) * 120 + 10
+    return mip, t(xy if cam_xy is None else cam_xy), t(np.stack([np.sin(ang), np.cos(ang)], -1))
+
+
+def random_warp_operands(seed: int, b: int, res: int, device):
+    """A random texture's mip level and warp coefficients of ``b`` cameras,
+    half of them on the transposed-window branch."""
+    from torchdrivesim_tpu_torch.ops.warp import warp_coefficients
+    mip, xy, sc = random_poses(seed, b, device)
+    fcoef, icoef = warp_coefficients(mip, xy, sc, 2.0 / 40.0,
+                                     torch.tensor([0.1, 0.2, 0.3], device=device), res=res)
     assert int((icoef[:, 0, 2] == 1).sum()) > 0, 'no camera on the flip branch'
     return mip, fcoef, icoef
+
+
+def edge_warp_case(device, res=64):
+    """The bilinear warp's arguments for four cameras of
+    :func:`random_poses`' texture (cell 0.5 m, 300 x 300 texels) at fov
+    40 m, res 64, heading exactly 0 or 90 degrees and placed so that row or
+    column 31 of the view lies exactly on the texture's first or last texel
+    row and column (ty or tx exactly 0 or 300): the validity test decides
+    on the bound itself."""
+    mip, _, _ = random_poses(0, 4, device)
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    xy = t([[-0.3125, -0.3125], [149.6875, 149.6875], [0.3125, -0.3125],
+            [150.3125, 149.6875]])
+    sc = t([[0.0, 1.0], [0.0, 1.0], [1.0, 0.0], [1.0, 0.0]])
+    wargs = (mip, xy, sc, 2.0 / 40.0, t([0.1, 0.2, 0.3]), False)
+    from torchdrivesim_tpu_torch.ops.warp import sample_positions
+    ty, tx = sample_positions(mip, xy, sc, 2.0 / 40.0, res=res)
+    for v, hi in ((ty, mip.valid_shape[0]), (tx, mip.valid_shape[1])):
+        assert bool((v == 0).any()) and bool((v == hi).any()), 'no pixel on the bound'
+    return wargs
+
+
+def bilinear_warp_case(seed: int, b: int, device, left_handed=False, cam_xy=None):
+    """The bilinear warp's arguments (mip, cam_xy, cam_sc, scale, background
+    colour, left_handed) for :func:`random_poses`' cameras at fov 40 m."""
+    mip, xy, sc = random_poses(seed, b, device, cam_xy)
+    return (mip, xy, sc, 2.0 / 40.0, torch.tensor([0.1, 0.2, 0.3], device=device),
+            left_handed)
 
 
 def compare_fused(fused, mip, ops, label, res=RES):
@@ -454,7 +503,8 @@ def headline(device, card):
 # --- the imitation-learning gradient step ------------------------------------
 
 def il_frame_operands(scenario, state):
-    """The bilinear warp's and the soft raster's operands for the frame of
+    """The bilinear warp's arguments (mip, cam_xy, cam_sc, scale, background
+    colour, left_handed) and the soft raster's operands for the frame of
     ``state``, built the way ``render_rgb_mesh_chw`` builds them."""
     from torchdrivesim_tpu_torch.ops import soft, warp
     from torchdrivesim_tpu_torch.ops.rasterize import camera_rows_cols
@@ -472,16 +522,14 @@ def il_frame_operands(scenario, state):
                    2.0 / scenario.fov)
     lh = renderer.cfg.left_handed_coordinates
     mip = renderer._warp_mip(cams.scale, res)
-    fcoef, icoef = warp.warp_coefficients(mip, cams.xy, cams.sc, cams.scale,
-                                          renderer._background_color,
-                                          left_handed=lh, res=res)
-    bg = warp.warp_view_bilinear_reference(mip.data, fcoef, icoef, res)
+    wargs = (mip, cams.xy, cams.sc, cams.scale, renderer._background_color, lh)
+    bg = warp.warp_background_bilinear_reference(*wargs, res)
     rc = camera_rows_cols(mesh.verts[..., :2], cams.xy, cams.sc, cams.scale,
                           res, left_handed=lh)
     sv = torch.cat([rc, mesh.verts[..., 2:3]], dim=-1)
     coef, zw, color = soft.soft_coefficients(sv, mesh.faces, mesh.attrs,
                                              renderer.cfg.soft_sigma, 0.5)
-    return (mip, fcoef, icoef), (coef, zw[:, None, :].contiguous(), color, bg)
+    return wargs, (coef, zw[:, None, :].contiguous(), color, bg)
 
 
 def random_soft_operands(seed: int, b: int, n_faces: int, res: int, device):
@@ -557,15 +605,86 @@ def judge(got, plain, exact, name, rtol, atol=None):
     return diff, over
 
 
-def compare_warp(warp, mip, fcoef, icoef, res, label):
-    got = warp.warp_view_bilinear(mip.data, fcoef, icoef, res)
-    want = warp.warp_view_bilinear_reference(mip.data, fcoef, icoef, res)
+def compare_warp(warp, wargs, res, label):
+    """B3 from the poses against its plain version (``warp_coefficients``
+    and ``warp_view_bilinear_reference``): returns (max difference, values
+    off in any bit)."""
+    got = warp.warp_background_bilinear(*wargs, res)
+    want = warp.warp_background_bilinear_reference(*wargs, res)
     torch.cuda.synchronize()
     diff = float((got - want).abs().max())
-    over = int(((got - want).abs() > 1e-6).sum())
-    print(f'{label} warp_bilinear: max |kernel - plain| {diff:.3g}, {over} of '
-          f'{got.numel()} values over 1e-6')
+    bits = int((got != want).sum())
+    print(f'{label} warp_bilinear B={wargs[1].shape[0]} res {res}: max |kernel - plain| '
+          f'{diff:.3g}, {bits} of {got.numel()} values off in any bit')
+    return diff, bits
+
+
+def autograd_warp_vjp(warp, mip, out, g, cam_xy, cam_sc, scale, left_handed, res):
+    """The bilinear warp's pose VJP as the port's backward computed it
+    before its kernel (and as the reference's ``warp_background_diff``
+    spells it): the central differences through the inverse Jacobian, then
+    autograd through ``sample_positions``. The second oracle of the VJP
+    kernel and of its plain closed form."""
+    lh = -1.0 if left_handed else 1.0
+    m = 1.0 / (scale * (res / 2.0) * float(mip.cell_size))
+    h_tex, w_tex = float(mip.valid_shape[0]), float(mip.valid_shape[1])
+    d_dr = warp._central_differences(out, 2)
+    d_dc = warp._central_differences(out, 3)
+    sin = cam_sc[:, 0, None, None, None]
+    cos = cam_sc[:, 1, None, None, None]
+    a_y, b_y = -sin * m, -lh * cos * m
+    a_x, b_x = -cos * m, lh * sin * m
+    det = a_y * b_x - a_x * b_y
+    d_dty = (d_dr * b_x - d_dc * a_x) / det
+    d_dtx = (d_dc * a_y - d_dr * b_y) / det
+    with torch.enable_grad():
+        cxy = cam_xy.detach().requires_grad_(True)
+        csc = cam_sc.detach().requires_grad_(True)
+        ty, tx = warp.sample_positions(mip, cxy, csc, scale, res=res,
+                                       left_handed=left_handed)
+        ok = ((ty >= 0) & (ty < h_tex) & (tx >= 0) & (tx < w_tex)).to(out.dtype)
+        cot_ty = torch.sum(g * d_dty, dim=1) * ok
+        cot_tx = torch.sum(g * d_dtx, dim=1) * ok
+        return torch.autograd.grad((ty, tx), (cxy, csc), (cot_ty, cot_tx))
+
+
+def judge_vjp(got, want, rtol=1e-4):
+    """Values of (gxy, gsc) ``got`` over rtol * |want| + 1e-6 * max|want| of
+    ``want``, and the largest difference."""
+    over, diff = 0, 0.0
+    for a, b in zip(got, want):
+        a, b = a.double(), b.double()
+        tol = rtol * b.abs() + 1e-6 * float(b.abs().max())
+        over += int(((a - b).abs() > tol).sum())
+        diff = max(diff, float((a - b).abs().max()))
     return diff, over
+
+
+def compare_warp_vjp(warp, wargs, res, seed, label):
+    """The pose-VJP kernel on B3's view of ``wargs`` and a random cotangent
+    against its plain closed form (rtol 1e-5: the per-pixel float32 terms
+    are the same operations, only the float64 sums run in another order)
+    and against the autograd chain (rtol 1e-4, as the reference's own
+    gradients are held); a second launch must repeat the first bit for
+    bit. Returns (max |kernel - plain|, values over tolerance or differing
+    between the two launches)."""
+    mip, xy, sc, scale, _, lh = wargs
+    out = warp.warp_background_bilinear_reference(*wargs, res)
+    gen = torch.Generator(device=out.device).manual_seed(seed)
+    g = torch.rand(out.shape, generator=gen, device=out.device) * 2 - 1
+    got = warp.warp_bilinear_vjp(mip, out, g, xy, sc, scale, lh, res)
+    again = warp.warp_bilinear_vjp(mip, out, g, xy, sc, scale, lh, res)
+    plain = warp.warp_bilinear_vjp_reference(mip, out, g, xy, sc, scale, lh, res)
+    chain = autograd_warp_vjp(warp, mip, out, g, xy, sc, scale, lh, res)
+    torch.cuda.synchronize()
+    diff, over_plain = judge_vjp(got, plain, 1e-5)
+    diff_chain, over_chain = judge_vjp(got, chain)
+    repeat = sum(int((a != b).sum()) for a, b in zip(got, again))
+    print(f'{label} warp_bilinear_vjp: max |kernel - plain| {diff:.3g}, {over_plain} of '
+          f'{4 * xy.shape[0]} values over rtol 1e-5; against the autograd chain '
+          f'{diff_chain:.3g}, {over_chain} over rtol 1e-4; {repeat} values differ '
+          'between two launches')
+    return diff, over_plain + over_chain + repeat
 
 
 def compare_soft(soft, ops, g, label):
@@ -591,6 +710,34 @@ def compare_soft(soft, ops, g, label):
     bwd = [judge(a, b, c, name, 1e-4) for name, a, b, c in
            zip(('gcoef', 'gzw', 'gcolor', 'gbg'), got, plain, exact)]
     return fwd, bwd, bits
+
+
+#: the plain pieces of the bilinear warp and its VJP, which the textured
+#: IL path must not run on the card
+PLAIN_WARP = ('warp_coefficients', 'warp_view_bilinear_reference',
+              'warp_bilinear_vjp_reference', 'sample_positions')
+
+
+@contextlib.contextmanager
+def count_calls(module, names):
+    """Count the calls of the functions ``names`` of ``module`` (looked up
+    there at call time) while the block runs; yields {name: calls}."""
+    calls = {name: 0 for name in names}
+    saved = {name: getattr(module, name) for name in names}
+
+    def counting(name):
+        def wrapped(*args, **kw):
+            calls[name] += 1
+            return saved[name](*args, **kw)
+        return wrapped
+
+    for name in names:
+        setattr(module, name, counting(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
 
 
 def il_policy(features, dtype, device, action_size=2, seed=0):
@@ -649,11 +796,12 @@ def directional_gradcheck(loss_fn, params, grads, state):
     return rels, gnorm
 
 
-def profile_step(fn, label, card):
+def profile_step(fn, label, card, count=()):
     """One call of ``fn`` under ``torch.profiler``: device operations, their
-    summed device time, its share of the (profiled) wall time, and the
-    kernels that take the most device time. Returns (device operations,
-    busy share) or None when the profiler traced no device events."""
+    summed device time, its share of the (profiled) wall time, the kernels
+    that take the most device time and the launches of the kernels whose
+    names contain each of ``count``. Returns (device operations, busy
+    share) or None when the profiler traced no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -676,6 +824,9 @@ def profile_step(fn, label, card):
           f'(busy {100 * busy_us / wall_us:.1f}%) [{card}]')
     for name, us in top:
         print(f'  {us / 1e3:9.3f} ms  {name[:100]}')
+    if count:
+        print(f'{label} profile: launches ' + ', '.join(
+            f'{c} {sum(1 for e in device if c in e.name)}' for c in count))
     return len(device), busy_us / wall_us
 
 
@@ -728,9 +879,49 @@ def soft_floor(soft, ops, g, card):
               f'blocks per SM, {bs} spill bytes, {bm} shared bytes')
 
 
+def device_ops(fn) -> int:
+    """Device operations (kernels, copies, fills) of one call of ``fn``
+    under ``torch.profiler``, after one call that warms up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def warp_floor(warp, wargs, vjp_args, card):
+    """What each textured IL frame's background cost before and after B3
+    took its coefficients and its VJP took the backward's chain: a
+    ``fill_`` of B3's output; the device operations of one call of each of
+    ``warp_coefficients``, B3, the backward's autograd chain, its plain
+    closed form and the VJP kernel; the two plain backwards' times, eager
+    and by graph replay."""
+    res = vjp_args[-1]
+    out = torch.empty_like(vjp_args[1])
+    fill_ms = graph_ms(lambda: out.fill_(0.0), 200)
+    mip, xy, sc, scale, bgc, lh = wargs
+    ops = {'warp_coefficients': lambda: warp.warp_coefficients(
+               mip, xy, sc, scale, bgc, lh, res=res),
+           'B3': lambda: warp.warp_background_bilinear(*wargs, res),
+           'autograd chain': lambda: autograd_warp_vjp(warp, *vjp_args),
+           'plain closed form': lambda: warp.warp_bilinear_vjp_reference(*vjp_args),
+           'VJP kernel': lambda: warp.warp_bilinear_vjp(*vjp_args)}
+    counts = {name: device_ops(fn) for name, fn in ops.items()}
+    times = {name: f'{cuda_ms(ops[name], 20):.4f} ms eager, '
+                   f'{graph_ms(ops[name], 20):.4f} ms by graph replay'
+             for name in ('autograd chain', 'plain closed form')}
+    print(f'bilinear warp floors B={xy.shape[0]} res={res}: fill_ of B3\'s output '
+          f'{fill_ms:.4f} ms; device operations per call {counts}; the backward\'s '
+          f'autograd chain {times["autograd chain"]}; its plain closed form '
+          f'{times["plain closed form"]} [{card}]')
+
+
 def il_path(device, card):
     """The imitation-learning phases; returns the JSON entries of its
-    three kernels."""
+    four kernels."""
     from torchdrivesim_tpu_torch.benchmark import (
         build_il_scenario, make_il_grad_fn, make_il_loss_fn, run_il_benchmark)
     from torchdrivesim_tpu_torch.imitation import (
@@ -741,20 +932,28 @@ def il_path(device, card):
     # 1. the kernels against their plain versions
     scenario = build_il_scenario(batch_size=IL_BATCH, agent_count=IL_AGENTS,
                                  res=IL_RES, device=device)
-    (mip, fcoef, icoef), sops = il_frame_operands(scenario, scenario.sim.state)
+    wargs, sops = il_frame_operands(scenario, scenario.sim.state)
+    mip, sc = wargs[0], wargs[2]
     print(f'IL operands: {sops[0].shape[1]} faces per camera, texture '
           f'{tuple(mip.data.shape)} at {mip.cell_size} m, flip branch on '
-          f'{int((icoef[:, 0, 2] == 1).sum())} of {IL_BATCH} cameras')
+          f'{int((sc[:, 0].abs() < sc[:, 1].abs()).sum())} of {IL_BATCH} cameras')
     g = torch.empty_like(sops[3]).uniform_(-1, 1)
-    errs = {'warp': [], 'fwd': [], 'bwd': []}
+    errs = {'warp': [], 'vjp': [], 'fwd': [], 'bwd': []}
     over = 0
-    for label, ops in (('IL', (mip, fcoef, icoef, IL_RES)),
-                       ('random flip', (*random_warp_operands(3, 64, 64, device), 64)),
-                       ('random flip res 128', (*random_warp_operands(4, 16, 128, device),
-                                                128))):
-        d, o = compare_warp(warp, *ops, label)
+    for i, (label, args, res) in enumerate((
+            ('IL', wargs, IL_RES),
+            ('random flip', bilinear_warp_case(3, 64, device), 64),
+            ('random flip res 128', bilinear_warp_case(4, 16, device), 128),
+            ('left-handed', bilinear_warp_case(5, 16, device, left_handed=True), 64),
+            ('texture corner', bilinear_warp_case(
+                6, 4, device, cam_xy=[[3.0, 4.0], [146.0, 2.0], [2.0, 147.0],
+                                      [148.0, 149.0]]), 64),
+            ('texture edge', edge_warp_case(device), 64))):
+        d, o = compare_warp(warp, args, res, label)
         errs['warp'].append(d)
-        over += o
+        d, o2 = compare_warp_vjp(warp, args, res, 100 + i, label)
+        errs['vjp'].append(d)
+        over += o + o2
     for label, (ops, gg) in (
             ('IL', (sops, g)),
             ('random F=128', random_soft_operands(6, 4, 128, 64, device)),
@@ -784,22 +983,28 @@ def il_path(device, card):
     params = list(policy.parameters())
     grad_fn = make_il_grad_fn(scenario, policy, horizon=IL_HORIZON)
     state = scenario.sim.state
-    warp.LAUNCHES = soft.FWD_LAUNCHES = soft.BWD_LAUNCHES = 0
-    t0 = time.perf_counter()
-    loss, grads = grad_fn(state)
-    torch.cuda.synchronize()
-    step_s = time.perf_counter() - t0
-    launches = {'warp': warp.LAUNCHES, 'fwd': soft.FWD_LAUNCHES,
-                'bwd': soft.BWD_LAUNCHES}
+    warp.LAUNCHES = warp.VJP_LAUNCHES = soft.FWD_LAUNCHES = soft.BWD_LAUNCHES = 0
+    with count_calls(warp, PLAIN_WARP) as plain_calls:
+        t0 = time.perf_counter()
+        loss, grads = grad_fn(state)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    launches = {'warp': warp.LAUNCHES, 'vjp': warp.VJP_LAUNCHES,
+                'fwd': soft.FWD_LAUNCHES, 'bwd': soft.BWD_LAUNCHES}
     print(f'IL main path: one gradient step, B={IL_BATCH}, {IL_AGENTS} vehicles, '
           f'res {IL_RES}, horizon {IL_HORIZON}, in {step_s:.2f} s; loss '
           f'{float(loss)!r}; launches warp_bilinear {launches["warp"]}, '
-          f'soft_raster_fwd {launches["fwd"]}, soft_raster_bwd {launches["bwd"]}')
+          f'warp_bilinear_vjp {launches["vjp"]}, soft_raster_fwd {launches["fwd"]}, '
+          f'soft_raster_bwd {launches["bwd"]}; calls of the plain warp pieces '
+          f'{plain_calls}')
     # the first frame is drawn from the given state, which nothing
-    # differentiates, so autograd runs no soft-raster backward for it
-    want = {'warp': IL_HORIZON, 'fwd': IL_HORIZON, 'bwd': IL_HORIZON - 1}
+    # differentiates, so autograd runs no backward for it
+    want = {'warp': IL_HORIZON, 'vjp': IL_HORIZON - 1, 'fwd': IL_HORIZON,
+            'bwd': IL_HORIZON - 1}
     if launches != want:
         raise AssertionError(f'launches {launches}, expected {want}')
+    if any(plain_calls.values()):
+        raise AssertionError(f'the plain warp ran on the card: {plain_calls}')
     if not torch.isfinite(loss) or not all(torch.isfinite(x).all() for x in grads):
         raise AssertionError('non-finite loss or gradient')
     if not all(float(x.abs().max()) > 0 for x in grads):
@@ -832,16 +1037,26 @@ def il_path(device, card):
     all_pairs = b * n_faces * IL_RES * IL_RES
     pixels = b * IL_RES * IL_RES
     entries = []
+    _, xy, sc, scale, bgc, lh = wargs
+    vjp_args = (mip, bg, g, xy, sc, scale, lh, IL_RES)
     for name, fn, plain, reps, plain_reps, n_bytes, n_ops, n_sfu, source, replaces, \
             err, n in (
             ('warp_bilinear',
-             lambda: warp.warp_view_bilinear(mip.data, fcoef, icoef, IL_RES),
-             lambda: warp.warp_view_bilinear_reference(mip.data, fcoef, icoef, IL_RES),
-             200, 10, nbytes(fcoef, icoef) + texel_bytes(mip, b, scenario.fov)
-             + pixels * 3 * 4, pixels * WARP_OPS, 0,
+             lambda: warp.warp_background_bilinear(*wargs, IL_RES),
+             lambda: warp.warp_background_bilinear_reference(*wargs, IL_RES),
+             200, 10, nbytes(xy, sc, bgc) + texel_bytes(mip, b, scenario.fov)
+             + pixels * 3 * 4, pixels * WARP_OPS + b * WARP_COEF_OPS, 0,
              'torchdrivesim_tpu_torch/csrc/warp_bilinear.cu',
              'torchdrivesim_tpu/ops/pallas_warp.py:306', max(errs['warp']),
              launches['warp']),
+            ('warp_bilinear_vjp',
+             lambda: warp.warp_bilinear_vjp(*vjp_args),
+             lambda: warp.warp_bilinear_vjp_reference(*vjp_args),
+             200, 10, nbytes(bg, g, xy, sc) + 2 * b * 2 * 4,
+             pixels * WARP_VJP_OPS, 0,
+             'torchdrivesim_tpu_torch/csrc/warp_bilinear.cu',
+             'torchdrivesim_tpu/ops/pallas_warp.py:638', max(errs['vjp']),
+             launches['vjp']),
             ('soft_raster_fwd',
              lambda: soft.soft_raster_fwd(*sops),
              lambda: soft.soft_raster_fwd_reference(*sops),
@@ -877,6 +1092,7 @@ def il_path(device, card):
                         'replaces': replaces, 'launches': n, 'max_abs_err': err,
                         'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
                         'bound_by': bound_by, 'library_ms': None})
+    warp_floor(warp, wargs, vjp_args, card)
     soft_floor(soft, sops, g, card)
     torch.cuda.reset_peak_memory_stats(device)
     base = torch.cuda.memory_allocated(device)
@@ -885,7 +1101,8 @@ def il_path(device, card):
     peak = torch.cuda.max_memory_allocated(device) - base
     print(f'IL gradient step peak memory above the resident scenario: '
           f'{peak / 2**20:.1f} MiB [{card}]')
-    profile_step(lambda: grad_fn(state), 'IL gradient step', card)
+    profile_step(lambda: grad_fn(state), 'IL gradient step', card,
+                 count=('warp_bilinear_kernel', 'warp_bilinear_vjp_kernel'))
     bench = run_il_benchmark(scenario, policy, horizon=IL_HORIZON,
                              rollouts_per_chunk=2, n_chunks=3)
     print(f'IL gradient step B={IL_BATCH} horizon {IL_HORIZON}: '
@@ -1321,13 +1538,14 @@ def grouped_soft_path(device, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     resident = torch.cuda.memory_allocated(device)
-    warp.LAUNCHES = soft.FWD_LAUNCHES = soft.BWD_LAUNCHES = 0
+    warp.LAUNCHES = warp.VJP_LAUNCHES = soft.FWD_LAUNCHES = soft.BWD_LAUNCHES = 0
     soft.ACCUM_FWD_LAUNCHES = soft.ACCUM_BWD_LAUNCHES = 0
     t0 = time.perf_counter()
     loss, grads = grad_fn(state)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
-    launches = {'warp_bilinear': warp.LAUNCHES, 'soft_raster_fwd': soft.FWD_LAUNCHES,
+    launches = {'warp_bilinear': warp.LAUNCHES, 'warp_bilinear_vjp': warp.VJP_LAUNCHES,
+                'soft_raster_fwd': soft.FWD_LAUNCHES,
                 'soft_raster_bwd': soft.BWD_LAUNCHES,
                 'soft_accum_fwd': soft.ACCUM_FWD_LAUNCHES,
                 'soft_accum_bwd': soft.ACCUM_BWD_LAUNCHES}
@@ -1340,7 +1558,8 @@ def grouped_soft_path(device, card):
     print(f'untextured IL peak memory: {peak / 2**30:.3f} GiB '
           f'({(peak - resident) / 2**30:.3f} GiB above the resident scenario) of '
           f'{total / 2**30:.1f} GiB [{card}]')
-    want = {'warp_bilinear': 0, 'soft_raster_fwd': 0, 'soft_raster_bwd': 0,
+    want = {'warp_bilinear': 0, 'warp_bilinear_vjp': 0, 'soft_raster_fwd': 0,
+            'soft_raster_bwd': 0,
             'soft_accum_fwd': IL_HORIZON, 'soft_accum_bwd': IL_HORIZON - 1}
     if launches != want:
         raise AssertionError(f'launches {launches}, expected {want}')

@@ -11,7 +11,12 @@ absent:
 
 The fused render, the warps and the hard and primitive rasters must match
 their plain versions exactly (the same operations, each rounded on its
-own). The soft raster is judged through its plain version in float64: the
+own; the bilinear warp from the camera poses, on both branches,
+left-handed and at the texture's corners and bounds). The bilinear warp's
+pose VJP must come within rtol 1e-5 of its plain closed form (the same
+float32 terms per pixel, float64 sums in another order) and within 1e-4 of
+the autograd chain, and repeat bit for bit. The soft raster is judged
+through its plain version in float64: the
 kernel's error may exceed the plain version's by at most 1e-5 (forward)
 or 1e-4 relative plus 1e-6 of the largest value (backward), since its
 per-face sums run in another order; on the operands that stress its
@@ -95,18 +100,62 @@ def test_kernel_matches_plain_version(cuda, res, packed, kind):
     assert int((got != want).sum()) == 0
 
 
+def _warp_case(kind, res, b, device):
+    """The bilinear warp's arguments for ``kind``: random poses (both
+    branches), left-handed, cameras at the texture's corners, or cameras
+    whose view rows and columns lie exactly on the texture's bounds."""
+    from chip_smoke import bilinear_warp_case, edge_warp_case
+    if kind == 'bounds':
+        return edge_warp_case(device, res)
+    corners = [[3.0, 4.0], [146.0, 2.0], [2.0, 147.0], [148.0, 149.0]] * (b // 4)
+    return bilinear_warp_case(res + 1, b, device, left_handed=kind == 'left_handed',
+                              cam_xy=corners if kind == 'corner' else None)
+
+
+WARP_CASES = [(64, 16, 'random'), (128, 8, 'random'), (32, 4, 'random'),
+              (64, 16, 'left_handed'), (64, 8, 'corner'), (64, 4, 'bounds')]
+
+
 @pytest.mark.depends_on_cuda
-@pytest.mark.parametrize('res,b', [(64, 16), (128, 8), (32, 4)])
-def test_warp_kernel_matches_plain_version(cuda, res, b):
-    mip, ops = _operands(res + 1, b, res, cuda)
-    fcoef, icoef = ops[:2]
-    assert (icoef[:, 0, 2] == 1).any() and (icoef[:, 0, 2] == 0).any()
+@pytest.mark.parametrize('res,b,kind', WARP_CASES)
+def test_warp_kernel_matches_plain_version(cuda, res, b, kind):
+    """B3 from the poses equals ``warp_coefficients`` and the plain
+    bilinear body bit for bit, the poses given as a strided slice."""
+    mip, xy, sc, scale, bg, lh = _warp_case(kind, res, b, cuda)
+    fcoef, icoef = warp_coefficients(mip, xy, sc, scale, bg, lh, res=res)
+    if kind != 'bounds':
+        assert (icoef[:, 0, 2] == 1).any() and (icoef[:, 0, 2] == 0).any()
+    strided = torch.cat([xy, torch.zeros_like(xy)], dim=1)[:, :2]
     before = warp.LAUNCHES
-    got = warp.warp_view_bilinear(mip.data, fcoef, icoef, res)
+    got = warp.warp_background_bilinear(mip, strided, sc, scale, bg, lh, res)
     want = warp.warp_view_bilinear_reference(mip.data, fcoef, icoef, res)
     torch.cuda.synchronize()
     assert warp.LAUNCHES == before + 1
     assert int((got != want).sum()) == 0
+
+
+@pytest.mark.depends_on_cuda
+@pytest.mark.parametrize('res,b,kind', WARP_CASES)
+def test_warp_vjp_kernel_matches_plain_version(cuda, res, b, kind):
+    """The pose-VJP kernel against its plain closed form (rtol 1e-5 with
+    atol 1e-6 x max|grad|: the same float32 terms per pixel, float64 sums
+    in another order) and the autograd chain (rtol 1e-4); a second launch
+    repeats the first bit for bit."""
+    from chip_smoke import autograd_warp_vjp, judge_vjp
+    mip, xy, sc, scale, bg, lh = _warp_case(kind, res, b, cuda)
+    out = warp.warp_background_bilinear_reference(mip, xy, sc, scale, bg, lh, res)
+    g = torch.as_tensor(np.random.RandomState(res + b).uniform(
+        -1, 1, tuple(out.shape)).astype(np.float32), device=cuda)
+    before = warp.VJP_LAUNCHES
+    got = warp.warp_bilinear_vjp(mip, out, g, xy, sc, scale, lh, res)
+    again = warp.warp_bilinear_vjp(mip, out, g, xy, sc, scale, lh, res)
+    plain = warp.warp_bilinear_vjp_reference(mip, out, g, xy, sc, scale, lh, res)
+    chain = autograd_warp_vjp(warp, mip, out, g, xy, sc, scale, lh, res)
+    torch.cuda.synchronize()
+    assert warp.VJP_LAUNCHES == before + 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    assert judge_vjp(got, plain, 1e-5)[1] == 0
+    assert judge_vjp(got, chain)[1] == 0
 
 
 def _soft_operands(seed, b, n_faces, res, device):

@@ -134,12 +134,12 @@ def test_config4_gradient_matches_jax(jax_il):
 def test_config4_render_launches_one_of_each_per_step(jax_il, monkeypatch):
     """One gradient step calls the bilinear warp and the soft-raster forward
     once per rollout step and renders nothing again on the backward sweep.
-    The soft-raster backward runs once per step but the first: the first
-    frame is drawn from the given state, which nothing differentiates, so
-    autograd needs no gradient of its operands (the reference's scan runs
-    that backward all the same and discards it)."""
+    The warp's pose VJP and the soft-raster backward run once per step but
+    the first: the first frame is drawn from the given state, which nothing
+    differentiates, so autograd needs no gradient of its operands (the
+    reference's scan runs that backward all the same and discards it)."""
     from torchdrivesim_tpu_torch.ops import soft, warp
-    calls = {'warp': 0, 'fwd': 0, 'bwd': 0}
+    calls = {'warp': 0, 'vjp': 0, 'fwd': 0, 'bwd': 0}
 
     def counting(fn, key):
         def wrapped(*args, **kw):
@@ -147,15 +147,17 @@ def test_config4_render_launches_one_of_each_per_step(jax_il, monkeypatch):
             return fn(*args, **kw)
         return wrapped
 
-    monkeypatch.setattr(warp, 'warp_view_bilinear',
-                        counting(warp.warp_view_bilinear, 'warp'))
+    monkeypatch.setattr(warp, 'warp_background_bilinear',
+                        counting(warp.warp_background_bilinear, 'warp'))
+    monkeypatch.setattr(warp, 'warp_bilinear_vjp',
+                        counting(warp.warp_bilinear_vjp, 'vjp'))
     monkeypatch.setattr(soft, 'soft_raster_fwd', counting(soft.soft_raster_fwd, 'fwd'))
     monkeypatch.setattr(soft, 'soft_raster_bwd', counting(soft.soft_raster_bwd, 'bwd'))
     scn, params = jax_il[:2]
     port = scenario_from_arrays(_arrays(scn), device='cpu')
     port.sim.renderer.cfg.differentiable = True
     make_il_grad_fn(port, _port_policy(2, FEATURES, params), horizon=3)(port.sim.state)
-    assert calls == {'warp': 3, 'fwd': 3, 'bwd': 2}
+    assert calls == {'warp': 3, 'vjp': 2, 'fwd': 3, 'bwd': 2}
 
 
 def test_bc_loop_learns_and_matches_jax_example():

@@ -11,11 +11,15 @@ first, then the column index evaluated at the ROUNDED row); this module
 reproduces that index arithmetic in one pass, per pixel, so the texel
 chosen is the reference's exactly.
 
-:func:`warp_view_nearest` and :func:`warp_view_bilinear` launch the
-hand-written CUDA kernels (``csrc/warp_nearest.cu``,
-``csrc/warp_bilinear.cu``) for CUDA tensors and run the plain PyTorch
-versions :func:`warp_view_nearest_reference` and
-:func:`warp_view_bilinear_reference` for CPU tensors.
+:func:`warp_view_nearest` launches the hand-written CUDA kernel
+``csrc/warp_nearest.cu`` for CUDA tensors and runs the plain PyTorch
+version :func:`warp_view_nearest_reference` for CPU tensors.
+:func:`warp_background_bilinear` goes from the camera poses to the bilinear
+views in one launch of ``csrc/warp_bilinear.cu`` (the coefficients built on
+the card, ``csrc/warp_coef.cuh``), and :func:`warp_bilinear_vjp` takes the
+pose VJP in one more; for CPU tensors they run the plain versions
+(:func:`warp_coefficients` with :func:`warp_view_bilinear_reference`, and
+:func:`warp_bilinear_vjp_reference`).
 """
 import ctypes
 from dataclasses import dataclass
@@ -37,6 +41,8 @@ _INV255 = 1.0 / 255.0
 #: bilinear-warp kernel launches since import (or the last reset by the
 #: caller): a run can show that its main path went through the kernel
 LAUNCHES = 0
+#: launches of the bilinear warp's pose-VJP kernel, counted the same way
+VJP_LAUNCHES = 0
 #: nearest-warp kernel launches, counted the same way
 NEAREST_LAUNCHES = 0
 
@@ -265,6 +271,14 @@ def _check_operands(tex: torch.Tensor, fcoef: torch.Tensor,
                              f'{t.dtype} {tuple(t.shape)}')
         if t.device != tex.device:
             raise ValueError(f'{name} is on {t.device}, the texture on {tex.device}')
+    _check_texture(tex)
+    if b > 65535:
+        raise ValueError(f'at most 65535 cameras per launch, got {b}')
+
+
+def _check_texture(tex: torch.Tensor) -> None:
+    """Raise on a texture the warp kernels do not take: they read a 2D int32
+    packed mip level of at least one WIN_ROWS x WINDOW window."""
     if tex.dtype != torch.int32 or tex.dim() != 2:
         raise ValueError('texture must be a 2D int32 tensor')
     if tex.shape[0] < WIN_ROWS or tex.shape[1] < WINDOW:
@@ -272,8 +286,6 @@ def _check_operands(tex: torch.Tensor, fcoef: torch.Tensor,
                          f'(padded mip level), got {tuple(tex.shape)}')
     if tex.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'no warp for device {tex.device}')
-    if b > 65535:
-        raise ValueError(f'at most 65535 cameras per launch, got {b}')
 
 
 def warp_view_nearest_reference(tex: torch.Tensor, fcoef: torch.Tensor,
@@ -324,20 +336,6 @@ def warp_background_nearest(mip: MipLevel, cam_xy: torch.Tensor,
     fcoef, icoef = warp_coefficients(mip, cam_xy, cam_sc, scale,
                                      background_color, left_handed, res=res)
     return warp_view_nearest(mip.data, fcoef, icoef, res)
-
-
-def _bind_bilinear(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C entry point's signature (see ``csrc/warp_bilinear.cu``):
-    fcoef, icoef and texture pointers; tex_h, tex_w, batch, res; the output
-    pointer and the stream."""
-    fn = lib.tds_warp_bilinear
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
-
-
-LIBRARY = KernelLibrary('warp_bilinear.cu', _bind_bilinear)
 
 
 def _channel(packed: torch.Tensor, ch: int) -> torch.Tensor:
@@ -410,28 +408,85 @@ def warp_view_bilinear_reference(tex: torch.Tensor, fcoef: torch.Tensor,
         for ch in range(3)], dim=1)
 
 
-def warp_view_bilinear(tex: torch.Tensor, fcoef: torch.Tensor,
-                       icoef: torch.Tensor, res: int) -> torch.Tensor:
-    """
-    Each camera's bilinear (3, res, res) view of the packed mip level ``tex``
-    by the coefficients of :func:`warp_coefficients`: the CUDA kernel for
-    CUDA tensors, :func:`warp_view_bilinear_reference` for CPU tensors.
-    """
-    global LAUNCHES
-    _check_operands(tex, fcoef, icoef, res)
-    if tex.device.type == 'cpu':
-        return warp_view_bilinear_reference(tex, fcoef, icoef, res)
-    b = fcoef.shape[0]
-    fcoef, icoef, tex = fcoef.contiguous(), icoef.contiguous(), tex.contiguous()
-    out = torch.empty((b, 3, res, res), dtype=torch.float32, device=tex.device)
-    with torch.cuda.device(tex.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = LIBRARY.load().tds_warp_bilinear(
-            fcoef.data_ptr(), icoef.data_ptr(), tex.data_ptr(), tex.shape[0],
-            tex.shape[1], b, res, out.data_ptr(), stream)
-    check_launch(err, 'bilinear warp')
-    LAUNCHES += 1
-    return out
+def _pose_constants(mip: MipLevel, scale: float, res: int,
+                    left_handed: bool) -> Tuple[float, ...]:
+    """The host-side constants of the pose-driven kernels
+    (``csrc/warp_coef.cuh``: ``WarpPose``): the Python doubles that
+    :func:`warp_coefficients` and :func:`sample_positions` hand to PyTorch,
+    rounded to float32 once as PyTorch rounds a Python scalar that meets a
+    float32 tensor: m = 1 / (ppm * cell), m * h0, the level's origin (x, y)
+    and cell, lh and the true texture bounds (rows, columns)."""
+    half = res / 2.0
+    cell = float(mip.cell_size)
+    m = 1.0 / (scale * half * cell)
+    f32 = lambda v: float(np.float32(v))
+    return (f32(m), f32(m * (half - 0.5)), f32(mip.origin[0]), f32(mip.origin[1]),
+            f32(cell), -1.0 if left_handed else 1.0,
+            f32(mip.valid_shape[0]), f32(mip.valid_shape[1]))
+
+
+def _bind_bilinear(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' signatures (see ``csrc/warp_bilinear.cu``):
+    the forward takes the texture pointer, tex_h, tex_w; the poses (cam_xy
+    and cam_sc pointers, each with its two element strides); the background
+    colour pointer; the eight float constants of :func:`_pose_constants`;
+    batch, res; the output pointer and the stream. The VJP takes the view
+    and cotangent pointers, the poses and constants, batch, res, the gxy and
+    gsc pointers and the stream."""
+    poses = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] * 2
+    consts = [ctypes.c_float] * 8
+    fwd = lib.tds_warp_bilinear_pose
+    fwd.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + poses + [
+        ctypes.c_void_p] + consts + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    fwd.restype = ctypes.c_int
+    vjp = lib.tds_warp_bilinear_vjp
+    vjp.argtypes = [ctypes.c_void_p] * 2 + poses + consts + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p] * 3
+    vjp.restype = ctypes.c_int
+    return lib
+
+
+LIBRARY = KernelLibrary('warp_bilinear.cu', _bind_bilinear)
+
+
+def _check_poses(mip: MipLevel, cam_xy: torch.Tensor, cam_sc: torch.Tensor,
+                 res: int, min_res: int = 1) -> None:
+    """Raise on a texture, poses and views the pose-driven kernels do not
+    take (floating-point poses; float32 only on the card)."""
+    _check_texture(mip.data)
+    if res > RES or res < min_res:
+        raise ValueError(f'res must be in [{min_res}, {RES}], got {res}')
+    b = cam_xy.shape[0]
+    for name, t in (('cam_xy', cam_xy), ('cam_sc', cam_sc)):
+        if tuple(t.shape) != (b, 2):
+            raise ValueError(f'{name}: expected shape ({b}, 2), got {tuple(t.shape)}')
+        if t.device != mip.data.device:
+            raise ValueError(f'{name} is on {t.device}, the texture on '
+                             f'{mip.data.device}')
+        if not t.is_floating_point() or (t.device.type == 'cuda'
+                                         and t.dtype != torch.float32):
+            raise ValueError(f'{name}: expected float32, got {t.dtype}')
+    if b > 65535:
+        raise ValueError(f'at most 65535 cameras per launch, got {b}')
+
+
+def _pose_args(cam_xy: torch.Tensor, cam_sc: torch.Tensor):
+    """The poses as the C entry points take them: pointer and element
+    strides of each (a camera's xy may be a slice of the agent state)."""
+    return (cam_xy.data_ptr(), cam_xy.stride(0), cam_xy.stride(1),
+            cam_sc.data_ptr(), cam_sc.stride(0), cam_sc.stride(1))
+
+
+def warp_background_bilinear_reference(mip: MipLevel, cam_xy: torch.Tensor,
+                                       cam_sc: torch.Tensor, scale: float,
+                                       background_color: torch.Tensor,
+                                       left_handed: bool = False,
+                                       res: int = RES) -> torch.Tensor:
+    """Plain PyTorch version of :func:`warp_background_bilinear`:
+    :func:`warp_coefficients`, then :func:`warp_view_bilinear_reference`."""
+    fcoef, icoef = warp_coefficients(mip, cam_xy, cam_sc, scale,
+                                     background_color, left_handed, res=res)
+    return warp_view_bilinear_reference(mip.data, fcoef, icoef, res)
 
 
 def warp_background_bilinear(mip: MipLevel, cam_xy: torch.Tensor,
@@ -439,11 +494,37 @@ def warp_background_bilinear(mip: MipLevel, cam_xy: torch.Tensor,
                              background_color: torch.Tensor,
                              left_handed: bool = False,
                              res: int = RES) -> torch.Tensor:
-    """Per-camera (B, 3, res, res) bilinear background views of ``mip``
-    (the reference's ``warp_background_bilinear``)."""
-    fcoef, icoef = warp_coefficients(mip, cam_xy, cam_sc, scale,
-                                     background_color, left_handed, res=res)
-    return warp_view_bilinear(mip.data, fcoef, icoef, res)
+    """
+    Per-camera (B, 3, res, res) bilinear background views of ``mip`` (the
+    reference's ``warp_background_bilinear``), channels in [0, 1];
+    off-texture pixels take ``background_color``.
+
+    For CUDA tensors one launch of ``csrc/warp_bilinear.cu`` goes from the
+    poses to the views, building each camera's coefficients on the card;
+    for CPU tensors the plain version
+    :func:`warp_background_bilinear_reference`, which the kernel equals bit
+    for bit.
+    """
+    global LAUNCHES
+    _check_poses(mip, cam_xy, cam_sc, res)
+    if mip.data.device.type == 'cpu':
+        return warp_background_bilinear_reference(mip, cam_xy, cam_sc, scale,
+                                                  background_color, left_handed, res)
+    tex = mip.data.contiguous()
+    bg = background_color.to(device=tex.device, dtype=torch.float32).contiguous()
+    if bg.numel() != 3:
+        raise ValueError(f'background_color: expected 3 values, got {bg.numel()}')
+    b = cam_xy.shape[0]
+    out = torch.empty((b, 3, res, res), dtype=torch.float32, device=tex.device)
+    with torch.cuda.device(tex.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = LIBRARY.load().tds_warp_bilinear_pose(
+            tex.data_ptr(), tex.shape[0], tex.shape[1], *_pose_args(cam_xy, cam_sc),
+            bg.data_ptr(), *_pose_constants(mip, scale, res, left_handed), b, res,
+            out.data_ptr(), stream)
+    check_launch(err, 'bilinear warp')
+    LAUNCHES += 1
+    return out
 
 
 def sample_positions(mip: MipLevel, cam_xy: torch.Tensor, cam_sc: torch.Tensor,
@@ -485,11 +566,111 @@ def _central_differences(img: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat([first, mid, last], dim=dim)
 
 
+def warp_bilinear_vjp_reference(mip: MipLevel, out: torch.Tensor, g: torch.Tensor,
+                                cam_xy: torch.Tensor, cam_sc: torch.Tensor,
+                                scale: float, left_handed: bool = False,
+                                res: int = RES):
+    """
+    Plain PyTorch version of the warp's pose VJP (the reference's
+    ``warp_background_diff`` backward) in closed form.
+
+    Per pixel, as the reference: the central differences of the view
+    ``out`` along rows and columns, mapped to texel space through the
+    inverse of the affine Jacobian [[a_y, b_y], [a_x, b_x]] (det = a_y*b_x -
+    a_x*b_y; a product by 1 / det where the reference divides, which moves
+    each term by at most an ulp), cot_ty = sum over channels of ``g`` times
+    dI/dty (channel 0, 1, 2 in order), cot_tx alike, each times the
+    forward's validity of the pixel. Then, in float64, the sums S = sum cot, R = sum cot * r, C = sum
+    cot * c of each, and the chain through :func:`sample_positions`, whose
+    ``ty = a_y*r + b_y*c + (y - oy)/cell + mh0*(sin + lh*cos)`` and ``tx =
+    a_x*r + b_x*c + (x - ox)/cell + mh0*(cos - lh*sin)`` (a_y = -sin*m, b_y
+    = -lh*cos*m, a_x = -cos*m, b_x = lh*sin*m; m and mh0 = m*h0 the float32
+    constants of :func:`_pose_constants`) give::
+
+        gxy  = (S_x, S_y) / cell
+        gsin = (mh0 S_y - m R_y) + lh (m C_x - mh0 S_x)
+        gcos = lh (mh0 S_y - m C_y) + (mh0 S_x - m R_x)
+
+    Returns:
+        (gxy, gsc), each (B, 2) in the poses' dtype.
+    """
+    m, mh0, _, _, cell, lh, h_tex, w_tex = _pose_constants(mip, scale, res,
+                                                          left_handed)
+    d_dr = _central_differences(out, 2)
+    d_dc = _central_differences(out, 3)
+    sin = cam_sc[:, 0, None, None, None]
+    cos = cam_sc[:, 1, None, None, None]
+    # invert [dI/dr dI/dc] = [dI/dty dI/dtx] @ [[a_y, b_y], [a_x, b_x]]
+    a_y, b_y = -sin * m, -lh * cos * m
+    a_x, b_x = -cos * m, lh * sin * m
+    det = a_y * b_x - a_x * b_y                 # = -lh * m**2, never 0
+    inv_det = 1.0 / det
+    py = g * ((d_dr * b_x - d_dc * a_x) * inv_det)
+    px = g * ((d_dc * a_y - d_dr * b_y) * inv_det)
+    ty, tx = sample_positions(mip, cam_xy, cam_sc, scale, res=res,
+                              left_handed=left_handed)
+    ok = ((ty >= 0) & (ty < h_tex) & (tx >= 0) & (tx < w_tex)).to(py.dtype)
+    dev = out.device
+    r = torch.arange(res, dtype=torch.float64, device=dev)[None, :, None]
+    c = torch.arange(res, dtype=torch.float64, device=dev)[None, None, :]
+
+    def sums(p):
+        cot = ((p[:, 0] + p[:, 1] + p[:, 2]) * ok).double()
+        return cot.sum(dim=(1, 2)), (cot * r).sum(dim=(1, 2)), (cot * c).sum(dim=(1, 2))
+
+    (s_y, r_y, c_y), (s_x, r_x, c_x) = sums(py), sums(px)
+    gxy = torch.stack([s_x / cell, s_y / cell], dim=-1)
+    gsc = torch.stack([(mh0 * s_y - m * r_y) + lh * (m * c_x - mh0 * s_x),
+                       lh * (mh0 * s_y - m * c_y) + (mh0 * s_x - m * r_x)], dim=-1)
+    return gxy.to(cam_xy.dtype), gsc.to(cam_sc.dtype)
+
+
+def warp_bilinear_vjp(mip: MipLevel, out: torch.Tensor, g: torch.Tensor,
+                      cam_xy: torch.Tensor, cam_sc: torch.Tensor, scale: float,
+                      left_handed: bool = False, res: int = RES):
+    """
+    The pose VJP of :func:`warp_background_bilinear` as
+    :func:`warp_background_diff` defines it, from the saved view ``out``
+    and its cotangent ``g`` (both (B, 3, res, res)): one launch of
+    ``csrc/warp_bilinear.cu`` for CUDA tensors (one cluster of 8 blocks per
+    camera, float64 sums added in rank order through distributed shared
+    memory, no atomics), :func:`warp_bilinear_vjp_reference` for CPU
+    tensors.
+
+    Returns:
+        (gxy, gsc), each (B, 2).
+    """
+    global VJP_LAUNCHES
+    _check_poses(mip, cam_xy, cam_sc, res, min_res=2)
+    b = cam_xy.shape[0]
+    for name, t in (('out', out), ('g', g)):
+        if tuple(t.shape) != (b, 3, res, res) or t.device != mip.data.device:
+            raise ValueError(f'{name}: expected ({b}, 3, {res}, {res}) on '
+                             f'{mip.data.device}, got {tuple(t.shape)} on {t.device}')
+    if mip.data.device.type == 'cpu':
+        return warp_bilinear_vjp_reference(mip, out, g, cam_xy, cam_sc, scale,
+                                           left_handed, res)
+    if out.dtype != torch.float32 or g.dtype != torch.float32:
+        raise ValueError(f'out and g: expected float32, got {out.dtype}, {g.dtype}')
+    out, g = out.contiguous(), g.contiguous()
+    gxy = torch.empty((b, 2), dtype=torch.float32, device=out.device)
+    gsc = torch.empty_like(gxy)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = LIBRARY.load().tds_warp_bilinear_vjp(
+            out.data_ptr(), g.data_ptr(), *_pose_args(cam_xy, cam_sc),
+            *_pose_constants(mip, scale, res, left_handed), b, res,
+            gxy.data_ptr(), gsc.data_ptr(), stream)
+    check_launch(err, 'bilinear warp VJP')
+    VJP_LAUNCHES += 1
+    return gxy, gsc
+
+
 class _WarpBackgroundDiff(torch.autograd.Function):
-    """Forward: the bilinear warp. Backward: the image-space central
-    differences of the saved output, mapped to texel space through the
-    inverse affine Jacobian and chained to the pose by autograd of
-    :func:`sample_positions` (no kernel, as in the reference)."""
+    """Forward: the bilinear warp from the poses. Backward: its pose VJP
+    (:func:`warp_bilinear_vjp`), image-space central differences of the
+    saved output mapped to texel space through the inverse affine Jacobian
+    and chained to the pose in closed form."""
 
     @staticmethod
     def forward(ctx, cam_xy, cam_sc, mip, scale, background_color,
@@ -503,31 +684,8 @@ class _WarpBackgroundDiff(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         out, cxy, csc = ctx.saved_tensors
-        mip, scale, lh_flag, res = ctx.mip, ctx.scale, ctx.left_handed, ctx.res
-        lh = -1.0 if lh_flag else 1.0
-        m = 1.0 / (scale * (res / 2.0) * float(mip.cell_size))
-        h_tex, w_tex = float(mip.valid_shape[0]), float(mip.valid_shape[1])
-        d_dr = _central_differences(out, 2)
-        d_dc = _central_differences(out, 3)
-        sin = csc[:, 0, None, None, None]
-        cos = csc[:, 1, None, None, None]
-        # invert [dI/dr dI/dc] = [dI/dty dI/dtx] @ [[a_y, b_y], [a_x, b_x]]
-        a_y, b_y = -sin * m, -lh * cos * m
-        a_x, b_x = -cos * m, lh * sin * m
-        det = a_y * b_x - a_x * b_y                 # = -lh * m**2, never 0
-        d_dty = (d_dr * b_x - d_dc * a_x) / det
-        d_dtx = (d_dc * a_y - d_dr * b_y) / det
-        with torch.enable_grad():
-            cxy_ = cxy.detach().requires_grad_(True)
-            csc_ = csc.detach().requires_grad_(True)
-            ty, tx = sample_positions(mip, cxy_, csc_, scale, res=res,
-                                      left_handed=lh_flag)
-            ok = ((ty >= 0) & (ty < h_tex) & (tx >= 0) & (tx < w_tex)
-                  ).to(torch.float32)
-            cot_ty = torch.sum(g * d_dty, dim=1) * ok
-            cot_tx = torch.sum(g * d_dtx, dim=1) * ok
-            gxy, gsc = torch.autograd.grad((ty, tx), (cxy_, csc_),
-                                           (cot_ty, cot_tx))
+        gxy, gsc = warp_bilinear_vjp(ctx.mip, out, g, cxy, csc, ctx.scale,
+                                     ctx.left_handed, ctx.res)
         # the texture and the background color are map data, constants here
         return gxy, gsc, None, None, None, None, None
 
