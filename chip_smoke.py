@@ -1,6 +1,6 @@
 """
 Smoke run of the PyTorch port on one CUDA card. Builds every kernel from the
-checkout (one ``nvcc`` per source, all at once), then drives five paths:
+checkout (one ``nvcc`` per source, all at once), then drives seven paths:
 
 * the headline env step (carla_Town02, 256 environments, 20 vehicles,
   128 x 128 render plus all metrics): the fused render kernel against its
@@ -50,7 +50,21 @@ checkout (one ``nvcc`` per source, all at once), then drives five paths:
   both renders against the CPU path, 100 untextured steps at B = 256,
   res 128 counting launches, ``Simulator.render`` of a 400 m view at
   res 64 (the full-resolution background), the unbanded kernel at full
-  width, times and bounds.
+  width, times and bounds;
+* BASELINE config 3 (carla_Town10HD, 64 environments, 20 agents, each
+  stepped by its own kinematic model: bicycle, simple or no-reversing
+  bicycle, through the compound model's per-agent dispatch; 128 x 128
+  render plus all metrics): the fused render kernel against its plain
+  version on the Town10HD frames (first and last), the first steps
+  against the CPU path with seeded 4-wide actions, 200 steps with zero
+  actions counting launches, one compound kinematic step captured in a
+  CUDA graph against the eager step, times, device operations and
+  env-steps/s;
+* the res-256 headline (carla_Town02, 256 environments, 256 x 256
+  render): every view as 2 x 2 sub-camera views of 128 pixels, all 1,024
+  in one fused launch; the kernel against its plain version on those
+  operands (first and last frame), the first steps against the CPU path,
+  200 steps counting launches, times, bound and env-steps/s.
 
     python3 chip_smoke.py
 
@@ -76,6 +90,8 @@ IL_BATCH, IL_AGENTS, IL_RES, IL_HORIZON, IL_FEATURES = 16, 8, 64, 40, (16, 32)
 RL_BATCH, RL_RES, RL_ROLLOUT, RL_EPOCHS, RL_ITERATIONS = 1024, 64, 16, 2, 2
 RL_UNTEXTURED_BATCH, RL_UNTEXTURED_STEPS = 16, 3
 UNTEXTURED_STEPS, WIDE_RES, WIDE_FOV = 100, 64, 400.0
+C3_BATCH = 64
+TILED_BATCH, TILED_RES = 256, 256
 
 #: the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
 #: at 3.35 TB/s; float32 at 67 TFLOP/s outside the tensor cores, which
@@ -181,6 +197,22 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_replay(fn):
+    """``fn``'s output from one CUDA graph capture of it, replayed once:
+    the capture fails if ``fn`` waits on the device (a host sync)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -203,23 +235,15 @@ def texel_bytes(mip, b: int, fov: float) -> float:
 
 # --- the headline step -------------------------------------------------------
 
-def step_operands(scenario, state):
-    """The fused render's operands for the frame of ``state``, built the
-    way the renderer builds them, and the frame's screen-space quads and
-    triangles."""
-    from torchdrivesim_tpu_torch.ops.rasterize import n_bands_for, prep_sorted_prim_coefs
-    from torchdrivesim_tpu_torch.ops.warp import warp_coefficients
-    renderer = scenario.sim.renderer
+def fused_frame(scenario, state):
+    """The fused render's operands for the frame of ``state`` from
+    ``Renderer.fused_frame_operands``, the code the step runs: (mip,
+    operands, pixels of each (sub-)view, tiles per side, the views'
+    screen-space quads and triangles, (quads, triangles) per camera)."""
     (quads, qz, qc, tris, tz, tc), cams = prim_frame(scenario, state, scenario.fov)
-    sq, st = renderer.screen_prims(quads, tris, scenario.res, cams)
-    qcoef, qpk, qmask, tcoef, tpk, tmask = prep_sorted_prim_coefs(
-        sq, qz, qc, st, tz, tc, scenario.res, 56, n_bands_for(scenario.res))
-    mip = renderer._warp_mip(cams.scale, scenario.res)
-    fcoef, icoef = warp_coefficients(mip, cams.xy, cams.sc, cams.scale,
-                                     renderer._background_color,
-                                     left_handed=renderer.cfg.left_handed_coordinates,
-                                     res=scenario.res)
-    return mip, (fcoef, icoef, qcoef, qpk, tcoef, tpk, qmask, tmask), (sq, st)
+    mip, ops, res, n, screen = scenario.sim.renderer.fused_frame_operands(
+        quads, qz, qc, tris, tz, tc, scenario.res, cams)
+    return mip, ops, res, n, screen, (qz.shape[1], tz.shape[1])
 
 
 def prim_frame(scenario, state, fov):
@@ -362,17 +386,23 @@ def compare_exact(got, want, label):
     return float((got - want).abs().max())
 
 
-def compare_with_cpu(build, label):
+def compare_with_cpu(build, label, seeded=False, rtol=0.0):
     """The first steps of the B = 4 scenario on the card against the CPU
-    path: states and metrics to 1e-4, images >= 99.9% identical pixels."""
+    path: states and metrics to 1e-4 (metrics plus ``rtol`` relative),
+    images >= 99.9% identical pixels. The actions are as wide as the
+    kinematic model's, zero or, with ``seeded``, uniform in [-1, 1] from
+    a seeded generator."""
     runs = {}
     for dev in ('cuda', 'cpu'):
         scn = build(batch_size=COMPARE_BATCH, device=dev)
         step = scn.make_step_fn(render=True, metrics=True)
         state = scn.sim.state
-        action = torch.zeros((COMPARE_BATCH, AGENTS, 2), device=dev)
+        shape = (COMPARE_BATCH, scn.sim.agent_count, scn.sim.action_size)
+        rng = np.random.RandomState(0)
         outs = []
         for _ in range(COMPARE_STEPS):
+            action = torch.as_tensor(rng.uniform(-1, 1, shape) if seeded else np.zeros(shape),
+                                     dtype=torch.float32, device=dev)
             state, out = step(state, action)
             outs.append((state.agent_state.cpu(),
                          {k: v.cpu() for k, v in out.items()}))
@@ -388,7 +418,7 @@ def compare_with_cpu(build, label):
                     raise AssertionError(f'step {i}: images differ')
             else:
                 torch.testing.assert_close(og[k].float(), oc[k].float(),
-                                           atol=1e-4, rtol=0)
+                                           atol=1e-4, rtol=rtol)
 
 
 def fused_bound(mip, ops, screen, res, fov):
@@ -418,7 +448,7 @@ def headline(device, card):
     # 1. kernel against plain version at the headline operands
     scenario = build_benchmark_scenario(batch_size=BATCH, agent_count=AGENTS,
                                         res=RES, fov=FOV, device=device)
-    mip, ops, _ = step_operands(scenario, scenario.sim.state)
+    mip, ops, _, _, _, _ = fused_frame(scenario, scenario.sim.state)
     print(f'headline operands: qcoef {tuple(ops[2].shape)}, tcoef '
           f'{tuple(ops[4].shape)}, qmask {tuple(ops[6].shape)}, '
           f'tmask {tuple(ops[7].shape)}, texture {tuple(mip.data.shape)}')
@@ -463,7 +493,7 @@ def headline(device, card):
         raise AssertionError('images do not show the vehicles')
 
     # 4. times, on this card
-    mip, ops, screen = step_operands(scenario, state)
+    mip, ops, _, _, screen, _ = fused_frame(scenario, state)
     kernel_ms = graph_ms(lambda: fused.render_coefs_fused(mip, *ops, RES), 50)
     call_ms = cuda_ms(lambda: fused.render_coefs_fused(mip, *ops, RES), 50)
     plain_ms = cuda_ms(lambda: fused.render_coefs_fused_reference(mip, *ops, RES), 5)
@@ -487,6 +517,8 @@ def headline(device, card):
           f'{call_ms:.4f} ms; plain version: {plain_ms:.3f} ms; '
           f'bound {bound_ms * 1e3:.2f} us by {bound_by}; float out with both masks '
           f'zeroed {floor_ms:.4f} ms [{card}]')
+    print(f'headline: {device_ops(lambda: step(state, action))} device ops per env '
+          f'step [{card}]')
     bench = run_benchmark(scenario, steps_per_chunk=100, n_chunks=3)
     print(f'env step B={BATCH} res={RES} render+metrics: '
           f'{bench["env_steps_per_sec_median"]:.1f} env-steps/s median of '
@@ -2556,6 +2588,175 @@ def prim_path(device, card, scenario, state):
     return entries
 
 
+# --- BASELINE config 3 and the res-256 headline ------------------------------
+
+def check_frames(out, renderer, b, res, label):
+    """The main path's last outputs: finite, images of the right shape, and
+    at least 90% of the views show vehicle pixels."""
+    for k, v in out.items():
+        if not torch.isfinite(v.float()).all():
+            raise AssertionError(f'{label} {k}: non-finite values')
+    image = out['image']
+    if image.shape != (b, 3, res, res):
+        raise AssertionError(f'{label}: image shape {tuple(image.shape)}')
+    vehicle = torch.tensor(renderer.color_map['vehicle'], dtype=torch.float32,
+                           device=image.device)
+    on_car = ((image - vehicle[None, :, None, None]).abs() < 0.5).all(dim=1)
+    with_car = float((on_car.sum(dim=(1, 2)) >= 10).float().mean())
+    print(f'{label}: {with_car * 100:.1f}% of views show vehicle pixels')
+    if with_car < 0.9:
+        raise AssertionError(f'{label}: images do not show the vehicles')
+
+
+def fused_main_path(scenario, label, card):
+    """``MAIN_STEPS`` steps of the scenario with zero actions, counting
+    B1's launches (one per step required); returns (launches, the state
+    the path ended on, the step function, the action)."""
+    from torchdrivesim_tpu_torch.ops import fused
+    sim = scenario.sim
+    step = scenario.make_step_fn(render=True, metrics=True)
+    action = torch.zeros((sim.batch_size, sim.agent_count, sim.action_size),
+                         device=sim.device)
+    state = sim.state
+    fused.LAUNCHES = 0
+    t0 = time.perf_counter()
+    for _ in range(MAIN_STEPS):
+        state, out = step(state, action)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = fused.LAUNCHES
+    print(f'{label} main path: {MAIN_STEPS} steps at B={sim.batch_size} in {main_s:.2f} s, '
+          f'fused_render launches {launches} [{card}]')
+    if launches != MAIN_STEPS:
+        raise AssertionError(f'{label}: expected {MAIN_STEPS} kernel launches, got {launches}')
+    check_frames(out, sim.renderer, sim.batch_size, scenario.res, label)
+    return launches, state, step, action
+
+
+def fused_numbers(scenario, state, step, action, label, entry_name, errs, launches,
+                  card):
+    """B1's time (graph replay), eager call, plain version and bound on the
+    frame of ``state``, the step's device operations, and
+    ``run_benchmark``'s env-steps/s; returns B1's JSON entry."""
+    from torchdrivesim_tpu_torch.benchmark import run_benchmark
+    from torchdrivesim_tpu_torch.ops import fused
+    mip, ops, res, n, screen, _ = fused_frame(scenario, state)
+    b = ops[0].shape[0]
+    kernel_ms = graph_ms(lambda: fused.render_coefs_fused(mip, *ops, res), 50)
+    call_ms = cuda_ms(lambda: fused.render_coefs_fused(mip, *ops, res), 50)
+    plain_ms = cuda_ms(lambda: fused.render_coefs_fused_reference(mip, *ops, res), 5)
+    packed_ms = graph_ms(lambda: fused.render_coefs_fused(mip, *ops, res, True), 50)
+    bound_ms, bound_by = fused_bound(mip, ops, screen, res, scenario.fov / n)
+    listed_q, listed_t = listed_pairs(ops[2:6], ops[6], ops[7], res)
+    step_ops = device_ops(lambda: step(state, action))
+    print(f'{label}: fused_render kernel {b} views of {res} px ({n} x {n} per camera): '
+          f'float out {kernel_ms:.4f} ms, packed out {packed_ms:.4f} ms (device, graph '
+          f'replay); eager call {call_ms:.4f} ms; plain version {plain_ms:.3f} ms; bound '
+          f'{bound_ms * 1e3:.2f} us by {bound_by}; plain cull lists {listed_q:.3f} quads '
+          f'and {listed_t:.3f} triangles per {BOUND_TILE} x {BOUND_TILE} tile; '
+          f'{step_ops} device ops per env step [{card}]')
+    bench = run_benchmark(scenario, steps_per_chunk=100, n_chunks=3)
+    print(f'{label} env step B={scenario.sim.batch_size} res={scenario.res} '
+          f'render+metrics: {bench["env_steps_per_sec_median"]:.1f} env-steps/s median '
+          f'of chunks {[round(r, 1) for r in bench["chunk_rates"]]} [{card}]')
+    return {'name': entry_name, 'route': 'cuda',
+            'source': 'torchdrivesim_tpu_torch/csrc/fused_render.cu',
+            'replaces': 'torchdrivesim_tpu/ops/pallas_fused.py:69',
+            'launches': launches, 'max_abs_err': max(errs), 'ms': kernel_ms,
+            'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
+            'library_ms': None}
+
+
+def config3_path(device, card):
+    """BASELINE config 3 (Town10HD, B = 64, 20 agents of three kinematic
+    models, res 128, textured, all metrics): B1 against its plain version on
+    the first and the last frame, the first steps against the CPU with
+    seeded 4-wide actions, ``MAIN_STEPS`` steps with zero actions (the
+    simple agents stay put) counting B1's launches, one compound kinematic
+    step captured in a CUDA graph (it fails on a host sync) and replayed
+    against the eager step, times and env-steps/s; returns B1's JSON entry
+    on this path."""
+    from torchdrivesim_tpu_torch import kinematic as K
+    from torchdrivesim_tpu_torch.benchmark import build_config3_scenario
+    from torchdrivesim_tpu_torch.ops import fused
+
+    # 1. B1 against its plain version on the first frame
+    scenario = build_config3_scenario(batch_size=C3_BATCH, agent_count=AGENTS, res=RES,
+                                      fov=FOV, device=device)
+    sim = scenario.sim
+    km = sim.kinematic_model
+    ids = km.model_assignments
+    shares = {mid: float((ids == mid).float().mean()) for mid in km.models_in_use}
+    print(f'config 3: carla_Town10HD B={C3_BATCH}, models in use {km.models_in_use} '
+          f'with shares {shares}, action width {sim.action_size}')
+    mip, ops, res, n, _, (n_quads, n_tris) = fused_frame(scenario, sim.state)
+    print(f'config 3 frame: {n_quads} quads and {n_tris} triangles per camera (per-type '
+          f'cap {sim.renderer._prim_cap}); qcoef {tuple(ops[2].shape)}, tcoef '
+          f'{tuple(ops[4].shape)}, texture {tuple(mip.data.shape)} at {mip.cell_size} m')
+    if n != 1 or res != RES:
+        raise AssertionError(f'config 3 frame rendered as {n} x {n} views of {res}')
+    errs = [compare_fused(fused, mip, ops, 'config 3 first frame', res)]
+
+    # 2. the first steps on the card against the CPU, seeded 4-wide actions
+    compare_with_cpu(build_config3_scenario, 'config 3 compare', seeded=True, rtol=1e-4)
+
+    # 3. the main path with zero actions
+    launches, state, step, action = fused_main_path(scenario, 'config 3', card)
+    moved = (state.agent_state - sim.state.agent_state).abs().amax(dim=-1) > 0
+    simple = ids == K.SIMPLE
+    print(f'config 3: {int(moved[~simple].sum())} of {int((~simple).sum())} bicycle-family '
+          f'agents moved, {int(moved[simple].sum())} of {int(simple.sum())} simple agents')
+    if moved[simple].any() or not moved[~simple].any():
+        raise AssertionError('config 3: zero actions must hold the simple agents only')
+    mip, ops, res, _, _, _ = fused_frame(scenario, state)
+    errs.append(compare_fused(fused, mip, ops, 'config 3 last frame', res))
+
+    # 4. one compound kinematic step in a CUDA graph against the eager step
+    rng = np.random.RandomState(1)
+    act = torch.as_tensor(rng.uniform(-1, 1, (C3_BATCH, AGENTS, K.ACTION_BUF)),
+                          dtype=torch.float32, device=device)
+    kin_step = lambda: K.step(state.agent_state, act, km.params,
+                              model_ids=km.model_assignments, models=km.models_in_use)
+    eager = kin_step()
+    compare_exact(graph_replay(kin_step), eager,
+                  'compound kinematic step, CUDA graph replay against eager')
+    kin_ms = graph_ms(kin_step, 50)
+    print(f'compound kinematic step B={C3_BATCH}: {device_ops(kin_step)} device ops, '
+          f'{kin_ms:.4f} ms (device, graph replay) [{card}]')
+
+    # 5. times and rates
+    return fused_numbers(scenario, state, step, action, 'config 3', 'fused_render_config3',
+                         errs, launches, card)
+
+
+def tiled_path(device, card):
+    """The res-256 headline (Town02, B = 256, res 256, fov 70 m, textured,
+    all metrics): each view renders as 2 x 2 sub-views of 128 pixels, all
+    1,024 in one B1 launch. B1 against its plain version on the tiled
+    operands of the first and the last frame, the first steps against the
+    CPU, ``MAIN_STEPS`` steps counting B1's launches, times and
+    env-steps/s; returns B1's JSON entry on this path."""
+    import functools
+    from torchdrivesim_tpu_torch.benchmark import build_benchmark_scenario
+    from torchdrivesim_tpu_torch.ops import fused
+    build = functools.partial(build_benchmark_scenario, agent_count=AGENTS,
+                              res=TILED_RES, fov=FOV)
+    scenario = build(batch_size=TILED_BATCH, device=device)
+    mip, ops, res, n, _, (n_quads, n_tris) = fused_frame(scenario, scenario.sim.state)
+    print(f'res-256 frame: {n} x {n} sub-views of {res} px per camera, '
+          f'{ops[0].shape[0]} in one launch; {n_quads} quads and {n_tris} triangles '
+          f'per camera; texture {tuple(mip.data.shape)} at {mip.cell_size} m')
+    if (n, res, ops[0].shape[0]) != (2, RES, TILED_BATCH * 4):
+        raise AssertionError('res-256 frame: not 2 x 2 sub-views of 128 in one launch')
+    errs = [compare_fused(fused, mip, ops, 'res-256 first frame (tiled operands)', res)]
+    compare_with_cpu(build, 'res-256 compare')
+    launches, state, step, action = fused_main_path(scenario, 'res-256', card)
+    mip, ops, res, _, _, _ = fused_frame(scenario, state)
+    errs.append(compare_fused(fused, mip, ops, 'res-256 last frame (tiled operands)', res))
+    return fused_numbers(scenario, state, step, action, 'res-256', 'fused_render_tiled256',
+                         errs, launches, card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2580,6 +2781,8 @@ def main() -> int:
     kernels += grouped_soft_path(device, card)
     kernels += rl_path(device, card)
     kernels += prim_path(device, card, scenario, state)
+    kernels.append(config3_path(device, card))
+    kernels.append(tiled_path(device, card))
 
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

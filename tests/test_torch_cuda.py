@@ -427,3 +427,63 @@ def test_prim_raster_kernel_keeps_flat_subnormal_and_nonfinite_prims(cuda):
     want = prims.raster_prims_reference(*ops, bg, 32)
     torch.cuda.synchronize()
     assert int((got != want).sum()) == 0
+
+
+@pytest.mark.depends_on_cuda
+@pytest.mark.parametrize('path', ['config3', 'tiled256'])
+def test_fused_kernel_on_new_path_operands(cuda, path):
+    """B1 on the operands of BASELINE config 3's frame (Town10HD's texture,
+    50 quads and 20 triangles per camera) and of a res-256 frame (2 x 2
+    sub-views of 128 per camera, all in one launch), from
+    ``Renderer.fused_frame_operands`` as the step builds them: bit for bit
+    its plain version, after a few steps with seeded actions."""
+    from chip_smoke import fused_frame
+    from torchdrivesim_tpu_torch.benchmark import (
+        build_benchmark_scenario, build_config3_scenario)
+    if path == 'config3':
+        scenario = build_config3_scenario(batch_size=8, device=cuda)
+    else:
+        scenario = build_benchmark_scenario(batch_size=8, res=256, device=cuda)
+    sim = scenario.sim
+    step = scenario.make_step_fn(render=False, metrics=False)
+    rng = np.random.RandomState(3)
+    state = sim.state
+    for _ in range(3):
+        state, _ = step(state, torch.as_tensor(
+            rng.uniform(-1, 1, (8, sim.agent_count, sim.action_size)),
+            dtype=torch.float32, device=cuda))
+    mip, ops, res, n, _, (n_quads, n_tris) = fused_frame(scenario, state)
+    assert (res, n, ops[0].shape[0]) == ((128, 1, 8) if path == 'config3' else (128, 2, 32))
+    if path == 'config3':
+        assert (n_quads, n_tris) == (50, 20)
+    for packed in (False, True):
+        before = fused.LAUNCHES
+        got = fused.render_coefs_fused(mip, *ops, res, packed)
+        want = fused.render_coefs_fused_reference(mip, *ops, res, packed)
+        torch.cuda.synchronize()
+        assert fused.LAUNCHES == before + 1
+        assert int((got != want).sum()) == 0
+
+
+@pytest.mark.depends_on_cuda
+def test_compound_kinematic_step_captures_in_a_cuda_graph(cuda):
+    """One step of config 3's compound kinematic model is captured in a CUDA
+    graph (the capture fails on a host sync) and its replay equals the
+    eager step bit for bit."""
+    from chip_smoke import graph_replay
+    from torchdrivesim_tpu_torch import kinematic as K
+    from torchdrivesim_tpu_torch.benchmark import CONFIG3_MODELS
+    rng = np.random.RandomState(5)
+    ids = rng.choice(CONFIG3_MODELS, size=(16, 20))
+    params = K.KinematicParams(lr=torch.as_tensor(rng.uniform(1, 2, (16, 20)),
+                                                  dtype=torch.float32, device=cuda),
+                               left_handed=True)
+    km = K.CompoundKinematicModel(ids, params=params, device=cuda)
+    state = torch.as_tensor(rng.uniform(-5, 5, (16, 20, 4)), dtype=torch.float32,
+                            device=cuda)
+    act = torch.as_tensor(rng.uniform(-1, 1, (16, 20, 4)), dtype=torch.float32,
+                          device=cuda)
+    fn = lambda: K.step(state, act, km.params, model_ids=km.model_assignments,
+                        models=km.models_in_use)
+    eager = fn()
+    assert torch.equal(graph_replay(fn), eager)

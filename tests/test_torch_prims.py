@@ -456,14 +456,18 @@ def test_render_prims_matches_jax(renderers, town02_texture, case):
 
 
 def test_render_prims_tiling_above_128_over_a_texture_is_not_ported(renderers):
+    """Since the sub-camera tiling is ported, a textured view above 128
+    pixels renders as 2 x 2 sub-views of 128 (tests/test_torch_tiled.py
+    holds it to the reference) instead of raising."""
     from torchdrivesim_tpu_torch.rendering.base import Cameras
     from torchdrivesim_tpu_torch.utils import Resolution
     p_tex = renderers[2]
     xy = torch.tensor([[100.0, 200.0]])
     sc = torch.tensor([[0.0, 1.0]])
     scene = [torch.from_numpy(a) for a in _world_prims(0, xy.numpy(), 70.0)]
-    with pytest.raises(NotImplementedError):
-        p_tex.render_prims_chw(*scene, Resolution(256, 256), Cameras(xy, sc, 2.0 / 70.0))
+    assert p_tex._tiled_mip(2.0 / 70.0, 256)[1:] == (128, 2)
+    image = p_tex.render_prims_chw(*scene, Resolution(256, 256), Cameras(xy, sc, 2.0 / 70.0))
+    assert image.shape == (1, 3, 256, 256) and torch.isfinite(image).all()
 
 
 @pytest.mark.parametrize('k', [4, 3])

@@ -5,6 +5,9 @@ town, ~20 bicycle-model vehicles each, FSM-driven traffic lights, an
 egocentric bird's-eye-view render over the baked map texture, and
 collision / offroad / wrong-way / red-light metrics every step.
 
+BASELINE config 3 (:func:`build_config3_scenario`) is that world on
+carla_Town10HD with heterogeneous kinematic models per agent.
+
 Also the imitation-learning gradient path (the reference's
 ``tools/bench_suite.py:config4_il_gradients``): :func:`build_il_scenario`
 and :func:`make_il_grad_fn`, the gradient of a policy's rollout loss
@@ -200,6 +203,38 @@ def build_benchmark_scenario(map_name: str = 'carla_Town02',
     return BenchmarkScenario(sim=sim, schedule=schedule, res=res, fov=fov, dt=dt)
 
 
+#: BASELINE config 3's kinematic models (vehicles, pedestrians, cyclists)
+#: and the share of agents each drives
+CONFIG3_MODELS = (K.BICYCLE, K.SIMPLE, K.BICYCLE_NO_REVERSING)
+CONFIG3_SHARES = (0.6, 0.2, 0.2)
+
+
+def build_config3_scenario(batch_size: int = 64, agent_count: int = 20,
+                           res: int = 128, fov: float = 70.0, seed: int = 0,
+                           device='cuda') -> BenchmarkScenario:
+    """
+    BASELINE config 3, heterogeneous agents (the reference's
+    ``tools/bench_suite.py:config3_heterogeneous``): the benchmark world on
+    carla_Town10HD (left-handed, 30 lights) with each agent's kinematic
+    model drawn by ``np.random.RandomState(0)`` from :data:`CONFIG3_MODELS`
+    with :data:`CONFIG3_SHARES`, stepped by a
+    :class:`~torchdrivesim_tpu_torch.kinematic.CompoundKinematicModel` over
+    the bicycle's parameters (per-agent ``lr``) and states. Its actions are
+    4 wide (``sim.action_size``).
+    """
+    scenario = build_benchmark_scenario(
+        map_name='carla_Town10HD', batch_size=batch_size, agent_count=agent_count,
+        res=res, fov=fov, seed=seed, device=device)
+    sim = scenario.sim
+    ids = np.random.RandomState(0).choice(
+        CONFIG3_MODELS, size=(batch_size, agent_count), p=CONFIG3_SHARES)
+    compound = K.CompoundKinematicModel(ids, params=sim.kinematic_model.params,
+                                        dt=scenario.dt, device=sim.device)
+    compound.set_state(sim.kinematic_model.get_state())
+    sim.kinematic_model = compound
+    return scenario
+
+
 def run_benchmark(scenario: BenchmarkScenario, steps_per_chunk: int = 100,
                   n_chunks: int = 3, warmup_steps: int = 20) -> dict:
     """
@@ -217,7 +252,7 @@ def run_benchmark(scenario: BenchmarkScenario, steps_per_chunk: int = 100,
                            f'is on {sim.device}')
     step = scenario.make_step_fn(render=True, metrics=True)
     b = sim.batch_size
-    action = torch.zeros((b, sim.agent_count, 2), device=sim.device)
+    action = torch.zeros((b, sim.agent_count, sim.action_size), device=sim.device)
 
     def run(state, n, checksum):
         for _ in range(n):

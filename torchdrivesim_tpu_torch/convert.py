@@ -25,7 +25,10 @@ The arrays (B environments, A agents, N traffic lights):
 * the texture: ``texture`` (H, W, 3) float in [0, 1], ``texture_origin``,
   ``texture_cell``;
 * scalars: ``dt``, ``res``, ``fov``, ``left_handed``, and optionally
-  ``background_downsample`` (the renderer's, 1 when absent).
+  ``background_downsample`` (the renderer's, 1 when absent);
+* optionally ``model_assignments`` (B, A) int kinematic model ids: the
+  agents are then stepped by a ``CompoundKinematicModel`` over the same
+  parameters (as BASELINE config 3), else by the bicycle.
 """
 from typing import Dict
 
@@ -57,6 +60,9 @@ def scenario_from_arrays(a: Dict, device='cuda') -> BenchmarkScenario:
 
     kin = K.KinematicBicycle(dt=dt, left_handed=left_handed, device=dev)
     kin.set_params(lr=a['lr'])
+    if a.get('model_assignments') is not None:
+        kin = K.CompoundKinematicModel(a['model_assignments'], params=kin.params,
+                                       dt=dt, device=dev)
     kin.set_state(a['agent_state'])
 
     control = TrafficLightControl(a['light_pos'],

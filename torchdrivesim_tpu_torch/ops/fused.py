@@ -25,6 +25,9 @@ from torchdrivesim_tpu_torch.ops.warp import RES, WINDOW, WIN_ROWS, MipLevel
 #: show that its main path went through the kernel
 LAUNCHES = 0
 
+#: cameras per launch: the kernel's grid spans them in its y dimension
+MAX_CAMERAS = 65535
+
 _INV255 = 1.0 / 255.0
 
 
@@ -120,8 +123,8 @@ def render_coefs_fused(mip: MipLevel, fcoef: torch.Tensor, icoef: torch.Tensor,
     operands = [t.contiguous() for t in
                 (fcoef, icoef, qmask, tmask, qcoef, qpk, tcoef, tpk, tex)]
     b = fcoef.shape[0]
-    if b > 65535:
-        raise ValueError(f'at most 65535 cameras per launch, got {b}')
+    if b > MAX_CAMERAS:
+        raise ValueError(f'at most {MAX_CAMERAS} cameras per launch, got {b}')
     if packed:
         out = torch.empty((b, res, res), dtype=torch.int32, device=fcoef.device)
     else:

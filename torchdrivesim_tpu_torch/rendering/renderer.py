@@ -4,7 +4,8 @@ The port's bird's-eye-view renderer (counterpart of
 
 * typed primitives (``render_prims_chw``): composited over the baked map
   texture by the fused render where a mip level covers the view (up to
-  128 pixels); over the background color without a texture, or over the
+  128 pixels; a larger view as n x n sub-camera views of at most 128
+  pixels in one launch); over the background color without a texture, or over the
   full-resolution nearest sample of the texture where no mip level covers
   the view, by the banded primitive raster (any multiple of 16); in
   differentiable mode by the reference's plain fallback (the prims culled
@@ -21,8 +22,7 @@ The port's bird's-eye-view renderer (counterpart of
 A square resolution that is not a multiple of 16 renders at the next
 multiple of 16, at the same pixels per meter, and returns the top-left crop.
 
-Not ported yet: the sub-camera tiling of textured primitive renders above
-128 (ROADMAP A10), the face-soup render ``render_faces_chw``, the painter's
+Not ported yet: the face-soup render ``render_faces_chw``, the painter's
 soft blend and the differentiable render's full-resolution bilinear
 background (ROADMAP A12).
 """
@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from torchdrivesim_tpu_torch.mesh import RGBMesh
-from torchdrivesim_tpu_torch.ops.fused import render_coefs_fused
+from torchdrivesim_tpu_torch.ops.fused import MAX_CAMERAS, render_coefs_fused
 from torchdrivesim_tpu_torch.ops.grids import Grid2D
 from torchdrivesim_tpu_torch.ops.hard import hard_operands, raster
 from torchdrivesim_tpu_torch.ops.prims import rasterize_hard_prims_banded
@@ -58,6 +58,62 @@ def pack_rgb8_chw(image: torch.Tensor) -> torch.Tensor:
     """(B, 3, H, W) float [0, 255] -> (B, H, W) int32 0x00BBGGRR."""
     q = torch.clamp(torch.round(image), 0, 255).to(torch.int32)
     return q[:, 0] | (q[:, 1] << 8) | (q[:, 2] << 16)
+
+
+def _subcamera_offsets(size: int, sub: int, scale: float, left_handed: bool,
+                       n: int):
+    """Host constants of the n x n sub-camera decomposition of a ``size``
+    view into ``sub``-pixel tiles, row-major (tile (i, j) is n * i + j):
+    (nt, 2) float32 pixel offsets of the tiles' top-left corners, and
+    (nt, 2) float32 (forward, left) offsets in meters of the tiles' centers
+    from the view's center, spelled as the reference spells them so that
+    the sub-camera centers equal its float32 values."""
+    ppm = scale * size / 2.0                 # output pixels per meter
+    offs = np.asarray([[i * sub, j * sub] for i in range(n)
+                       for j in range(n)], np.float32)
+    lh = -1.0 if left_handed else 1.0
+    off_f = (size / 2.0 - offs[:, 0] - sub / 2.0) / ppm
+    off_l = lh * (size / 2.0 - offs[:, 1] - sub / 2.0) / ppm
+    return offs, np.stack([off_f, off_l], axis=-1)
+
+
+def _expand_subcameras(sq, st, qz, qcol, tz, tcol, cam_xy, cam_sc, offs, off_fl):
+    """
+    The n x n sub-camera views of each camera: tile (i, j) of a view is a
+    view of its own at the same pixels per meter, centered on the tile's
+    world center. Screen-space prims shift by the tile's pixel offset
+    ``offs``; camera centers by its (forward, left) offset ``off_fl``
+    rotated into the world (the inverse of the screen transform: pixel
+    (r, c) lies at ``cam + R(psi) @ (forward, left)``).
+
+    Returns:
+        the per-sub-view tensors, the tile index fastest in the leading
+        dim, so consecutive sub-views assemble into whole images.
+    """
+    bl, nt = qz.shape[0], offs.shape[0]
+    shift = lambda p: (p[:, None] - offs[None, :, None, None, :]).reshape(
+        (bl * nt,) + p.shape[1:])
+    rep = lambda x: torch.repeat_interleave(x, nt, dim=0)
+    off_f, off_l = off_fl[None, :, 0], off_fl[None, :, 1]
+    sin, cos = cam_sc[:, 0:1], cam_sc[:, 1:2]
+    cx = cam_xy[:, 0:1] + cos * off_f - sin * off_l
+    cy = cam_xy[:, 1:2] + sin * off_f + cos * off_l
+    cam_xy_sub = torch.stack([cx, cy], dim=-1).reshape(bl * nt, 2)
+    return (shift(sq), shift(st), rep(qz), rep(qcol), rep(tz), rep(tcol),
+            cam_xy_sub, rep(cam_sc))
+
+
+def _assemble_tiles(image: torch.Tensor, size: int, n: int) -> torch.Tensor:
+    """Stitch n x n tile renders (tile fastest in the leading dim,
+    row-major) into whole frames: float (B n^2, 3, s, s) or packed
+    (B n^2, s, s) int32 input."""
+    s = size // n
+    bl = image.shape[0] // (n * n)
+    if image.dim() == 3:
+        return image.reshape(bl, n, n, s, s).permute(0, 1, 3, 2, 4).reshape(
+            bl, size, size)
+    return image.reshape(bl, n, n, 3, s, s).permute(0, 3, 1, 4, 2, 5).reshape(
+        bl, 3, size, size)
 
 
 def _pad_camera_shift(cam_xy: torch.Tensor, cam_sc: torch.Tensor, size: int,
@@ -100,6 +156,8 @@ class Renderer:
         self._background_texture: Optional[Grid2D] = None
         self._mip_pyramid: Optional[List[MipLevel]] = None
         self._packed_texture: Optional[Grid2D] = None
+        #: device copies of :func:`_subcamera_offsets`, by its arguments
+        self._tile_offsets: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def get_color(self, element_type: str) -> Tuple[int, int, int]:
         return self.color_map[element_type]
@@ -148,20 +206,36 @@ class Renderer:
         both types share the 7-bit rank."""
         return min(max(8, self.cfg.band_budget), 56)
 
-    def _tiles_texture(self, scale: float, size: int) -> bool:
-        """Whether the reference renders this textured primitive view above
-        128 pixels as n x n sub-camera tiles over a mip level (its
-        ``_tiled_mip``), which is not ported."""
+    def _tiled_mip(self, scale: float, size: int):
+        """The n x n sub-camera decomposition of a textured view above 128
+        pixels: ``(mip, sub, n)``, each tile a ``sub = size / n``-pixel view
+        at the same texels per pixel (the mip level is chosen at the full
+        size), n the smallest divisor of ``size`` whose tiles fit the
+        fused render's window and the banded tiling (2 at 192 and 256, 3 at
+        144 and 384, 4 at 512); None when the view is not above 128, has
+        no such divisor or no mip level covers it."""
         if self._mip_pyramid is None or size <= RES:
-            return False
+            return None
         n = next((k for k in range(2, size // 16 + 1)
                   if size % k == 0 and size // k <= RES and supports_res(size // k)),
                  None)
         if n is None:
-            return False
+            return None
         fov = 2.0 / scale
         mip = select_mip(self._mip_pyramid, fov=fov, res=size)
-        return not mip.cell_size < fov * MIP_FACTOR / size
+        if mip.cell_size < fov * MIP_FACTOR / size:
+            return None
+        return mip, size // n, n
+
+    def subcamera_offsets(self, size: int, sub: int, scale: float, n: int):
+        """:func:`_subcamera_offsets` as tensors on the device, copied there
+        once per view size and scale, so a frame copies nothing."""
+        key = (size, sub, float(scale), self.cfg.left_handed_coordinates, n)
+        if key not in self._tile_offsets:
+            self._tile_offsets[key] = tuple(
+                torch.from_numpy(x).to(self.device) for x in _subcamera_offsets(
+                    size, sub, scale, self.cfg.left_handed_coordinates, n))
+        return self._tile_offsets[key]
 
     @staticmethod
     def _pad_res_target(size: int) -> Optional[int]:
@@ -228,32 +302,68 @@ class Renderer:
             image = self._render_prims_plain(quads, qz, qcolors, tris, tz, tcolors,
                                              size, cameras) * 255.0
             return pack_rgb8_chw(image) if packed else image
-        mip = self._warp_mip(cameras.scale, size)
-        if mip is not None:
-            sq, st = self.screen_prims(quads, tris, size, cameras)
-            prep = prep_sorted_prim_coefs(sq, qz, qcolors, st, tz, tcolors, size,
-                                          self._prim_cap, n_bands_for(size))
-            if prep is None:
-                raise NotImplementedError(
-                    f"{qz.shape[1]} quads / {tz.shape[1]} triangles exceed the "
-                    f"per-type cap {self._prim_cap} or the 127-primitive rank "
-                    "space; the fused render's sorting fallback is not ported")
-            qcoef, qpk, qmask, tcoef, tpk, tmask = prep
-            fcoef, icoef = warp_coefficients(
-                mip, cameras.xy, cameras.sc, cameras.scale, self._background_color,
-                left_handed=self.cfg.left_handed_coordinates, res=size)
-            image = render_coefs_fused(mip, fcoef, icoef, qcoef, qpk, tcoef, tpk,
-                                       qmask, tmask, size, packed)
+        fused = self.fused_frame_operands(quads, qz, qcolors, tris, tz, tcolors,
+                                          size, cameras)
+        if fused is not None:
+            mip, ops, size_k, n, _ = fused
+            image = render_coefs_fused(mip, *ops, size_k, packed)
+            if n > 1:
+                image = _assemble_tiles(image, size, n)
             return image if packed else image * 255.0
-        if self._tiles_texture(cameras.scale, size):
-            raise NotImplementedError(
-                f"res {size} over a texture: the sub-camera tiling above {RES} "
-                "is not ported (ROADMAP A10)")
         scene, background, qmask, tmask = self.banded_frame_operands(
             quads, qz, qcolors, tris, tz, tcolors, size, cameras)
         image = rasterize_hard_prims_banded(*scene, size, background, qmask,
                                             tmask) * 255.0
         return pack_rgb8_chw(image) if packed else image
+
+    def fused_frame_operands(self, quads, qz, qcolors, tris, tz, tcolors,
+                             size: int, cameras: Cameras):
+        """
+        The fused render's operands for a frame a mip level serves, as
+        :meth:`render_prims_chw` passes them to
+        ``ops.fused.render_coefs_fused``; above 128 pixels those of the
+        n x n sub-camera views (:meth:`_tiled_mip`), every sub-view with
+        its own sort, cap and band masks, all in one launch.
+
+        Returns:
+            ``(mip, (fcoef, icoef, qcoef, qpk, tcoef, tpk, qmask, tmask),
+            size_k, n, (sq, st))``, the frame rendered as B n^2 views of
+            ``size_k`` pixels (n = 1 up to 128), with the views' unsorted
+            screen-space quads and triangles; or None when no mip level
+            serves the view.
+        """
+        mip, size_k, n = self._warp_mip(cameras.scale, size), size, 1
+        if mip is None:
+            tiled = self._tiled_mip(cameras.scale, size)
+            if tiled is None:
+                return None
+            mip, size_k, n = tiled
+        b = qz.shape[0]
+        if b * n * n > MAX_CAMERAS:
+            raise ValueError(
+                f"{b} cameras at res {size} render as {b * n * n} sub-views of "
+                f"{size_k} pixels, above the fused render's {MAX_CAMERAS} "
+                "cameras per launch; render the batch in parts")
+        sq, st = self.screen_prims(quads, tris, size, cameras)
+        cam_xy, cam_sc, scale_k = cameras.xy, cameras.sc, cameras.scale
+        if n > 1:
+            offs, off_fl = self.subcamera_offsets(size, size_k, cameras.scale, n)
+            sq, st, qz, qcolors, tz, tcolors, cam_xy, cam_sc = _expand_subcameras(
+                sq, st, qz, qcolors, tz, tcolors, cam_xy, cam_sc, offs, off_fl)
+            scale_k = cameras.scale * size / size_k
+        prep = prep_sorted_prim_coefs(sq, qz, qcolors, st, tz, tcolors, size_k,
+                                      self._prim_cap, n_bands_for(size_k))
+        if prep is None:
+            raise NotImplementedError(
+                f"{qz.shape[1]} quads / {tz.shape[1]} triangles exceed the "
+                f"per-type cap {self._prim_cap} or the 127-primitive rank "
+                "space; the fused render's sorting fallback is not ported")
+        qcoef, qpk, qmask, tcoef, tpk, tmask = prep
+        fcoef, icoef = warp_coefficients(
+            mip, cam_xy, cam_sc, scale_k, self._background_color,
+            left_handed=self.cfg.left_handed_coordinates, res=size_k)
+        return (mip, (fcoef, icoef, qcoef, qpk, tcoef, tpk, qmask, tmask), size_k, n,
+                (sq, st))
 
     def _render_prims_plain(self, quads, qz, qcolors, tris, tz, tcolors, size: int,
                             cameras: Cameras) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """
 Simulator state and the pure env step (counterpart of
-``torchdrivesim_tpu/simulator.py``; the state, ``functional_step``, the
-static NPC controller, the batch ``extend``, ``render`` and the facade
-subset the benchmark uses).
+``torchdrivesim_tpu/simulator.py``; the state, ``functional_step`` with
+the per-agent kinematic dispatch, ``fit_action``, the static NPC
+controller, the batch ``extend``, ``render`` and the facade subset the
+benchmark uses).
 
 :class:`SimulatorState` is a dataclass of tensors on one device, time
 included, so a step launches device work without waiting on the host.
@@ -162,6 +163,19 @@ class Simulator:
     def agent_count(self) -> int:
         return self.agent_size.shape[-2]
 
+    @property
+    def action_size(self) -> int:
+        """Width of the actions :meth:`functional_step` takes."""
+        return self.kinematic_model.action_size
+
+    def fit_action(self, future_state: torch.Tensor,
+                   current_state: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The kinematic model's inverse dynamics from ``current_state``
+        (the current agent states by default) to ``future_state``."""
+        return self.kinematic_model.fit_action(
+            future_state, self.state.agent_state if current_state is None
+            else current_state)
+
     def get_all_agent_size(self) -> torch.Tensor:
         return torch.cat([self.agent_size, self.npc_controller.npc_size], dim=-2)
 
@@ -213,9 +227,13 @@ class Simulator:
         npc_time = state.npc_time + 1
         npc_state, npc_mask = self.npc_controller.advance(
             state.npc_state, state.npc_present_mask, npc_time)
-        agent_state = K.step(state.agent_state, agent_action,
-                             self.kinematic_model.params,
-                             single_model=self.kinematic_model.model_id)
+        km = self.kinematic_model
+        # a compound model dispatches per agent over the ids it holds, with
+        # the set in use known on the host
+        agent_state = K.step(state.agent_state, agent_action, km.params,
+                             single_model=km.model_id,
+                             model_ids=getattr(km, 'model_assignments', None),
+                             models=getattr(km, 'models_in_use', None))
         tc_state = {kind: control.advance(state.traffic_control_state[kind], time)
                     for kind, control in (self.traffic_controls or {}).items()}
         wp_state = state.waypoint_state
