@@ -1,6 +1,6 @@
 """
 Smoke run of the PyTorch port on one CUDA card. Builds every kernel from the
-checkout (one ``nvcc`` per source, all at once), then drives seven paths:
+checkout (one ``nvcc`` per source, all at once), then drives eight paths:
 
 * the headline env step (carla_Town02, 256 environments, 20 vehicles,
   128 x 128 render plus all metrics): the fused render kernel against its
@@ -64,7 +64,20 @@ checkout (one ``nvcc`` per source, all at once), then drives seven paths:
   render): every view as 2 x 2 sub-camera views of 128 pixels, all 1,024
   in one fused launch; the kernel against its plain version on those
   operands (first and last frame), the first steps against the CPU path,
-  200 steps counting launches, times, bound and env-steps/s.
+  200 steps counting launches, times, bound and env-steps/s;
+* the stateful ``Simulator`` facade (Town02, 64 environments, 20 agents,
+  FSM lights, texture, waypoint goals): 100 iterations of
+  ``render_egocentric`` (one 128 x 128 camera per agent, 1,280 per frame),
+  ``step`` and the grid offroad, grid wrong-way, red-light and
+  disc-collision metrics counting launches; the fused render kernel
+  against its plain version on the first and the last frame and on a
+  frame with five waypoint discs per camera (70 triangles, past the
+  per-type cap of 56: the sort route), the sort route bit-equal to the
+  prep route under the cap; the first iterations and the fallback frame
+  against the CPU; the IoU and exact-count collisions and the exact
+  offroad on the last state against the CPU; the port's
+  ``examples/simulate.py`` for 20 steps; times, bound, device operations
+  and iterations/s.
 
     python3 chip_smoke.py
 
@@ -92,6 +105,8 @@ RL_UNTEXTURED_BATCH, RL_UNTEXTURED_STEPS = 16, 3
 UNTEXTURED_STEPS, WIDE_RES, WIDE_FOV = 100, 64, 400.0
 C3_BATCH = 64
 TILED_BATCH, TILED_RES = 256, 256
+FACADE_BATCH, FACADE_ITERATIONS, FACADE_WAYPOINTS, FACADE_FALLBACK_COUNT = 64, 100, 6, 5
+FACADE_EXAMPLE_STEPS = 20
 
 #: the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
 #: at 3.35 TB/s; float32 at 67 TFLOP/s outside the tensor cores, which
@@ -2757,6 +2772,258 @@ def tiled_path(device, card):
                          errs, launches, card)
 
 
+# --- the Simulator facade ------------------------------------------------------
+
+def facade_world(batch: int, device):
+    """The facade phase's world: the headline's Town02 scenario (4 layouts
+    tiled over ``batch``, 20 agents, FSM lights, texture) with a
+    ``WaypointGoal`` of ``FACADE_WAYPOINTS`` collections of one waypoint
+    per agent, drawn with numpy from seed 0 at 10-60 m along each agent's
+    heading (the same waypoints on every device)."""
+    import dataclasses
+    from torchdrivesim_tpu_torch.benchmark import build_benchmark_scenario
+    from torchdrivesim_tpu_torch.goals import WaypointGoal
+    scenario = build_benchmark_scenario(batch_size=batch, agent_count=AGENTS, res=RES,
+                                        fov=FOV, device=device)
+    sim = scenario.sim
+    state = sim.get_state().cpu().numpy()
+    dist = np.random.RandomState(0).uniform(10, 60, (batch, AGENTS, FACADE_WAYPOINTS))
+    head = np.stack([np.cos(state[..., 2]), np.sin(state[..., 2])], axis=-1)
+    waypoints = state[:, :, None, :2] + dist[..., None] * head[:, :, None]
+    sim.waypoint_goals = WaypointGoal(waypoints[:, :, :, None].astype(np.float32),
+                                      device=device)
+    sim.state = dataclasses.replace(sim.state,
+                                    waypoint_state=sim.waypoint_goals._state)
+    return sim
+
+
+def facade_actions(batch: int, n: int, device) -> torch.Tensor:
+    """(n, batch, AGENTS, 2) steering noise, as the example drives."""
+    return torch.as_tensor(np.random.RandomState(1).uniform(
+        -0.02, 0.02, (n, batch, AGENTS, 2)), dtype=torch.float32, device=device)
+
+
+def facade_iteration(sim, action):
+    """One iteration of the facade loop: the egocentric views (one camera
+    per agent), the step, and the grid offroad, grid wrong-way, red-light
+    and disc-collision metrics."""
+    from torchdrivesim_tpu_torch.utils import Resolution
+    image = sim.render_egocentric(res=Resolution(RES, RES), fov=FOV)
+    sim.step(action)
+    return {'image': image, 'state': sim.get_state(),
+            'waypoints_state': sim.get_waypoints_state(),
+            'offroad': sim.compute_offroad(), 'wrong_way': sim.compute_wrong_way(),
+            'light_violation': sim.compute_traffic_lights_violations(),
+            'collision': sim.compute_collision()}
+
+
+def facade_frame(sim, count: int):
+    """B1's operands for ``render_egocentric``'s frame at
+    ``n_subsequent_waypoints=count``: (mip, operands, pixels, tiles per
+    side, screen-space prims, (quads, triangles) per camera)."""
+    prims, cams = sim.egocentric_prim_frame(fov=FOV, n_subsequent_waypoints=count)
+    mip, ops, res, n, screen = sim.renderer.fused_frame_operands(*prims, RES, cams)
+    return mip, ops, res, n, screen, (prims[1].shape[1], prims[4].shape[1])
+
+
+def facade_compare_with_cpu(device):
+    """The facade loop's first ``COMPARE_STEPS`` iterations at B = 4 on the
+    card against the CPU (states and metrics to 1e-4 + 1e-4 relative,
+    images >= 99.9% identical pixels), then the fallback frame
+    (``n_subsequent_waypoints=5``)."""
+    from torchdrivesim_tpu_torch.utils import Resolution
+    def run(dev):
+        sim = facade_world(COMPARE_BATCH, dev)
+        outs = [{k: v.cpu() for k, v in facade_iteration(sim, a).items()}
+                for a in facade_actions(COMPARE_BATCH, COMPARE_STEPS, dev)]
+        outs.append({'image': sim.render_egocentric(
+            res=Resolution(RES, RES), fov=FOV,
+            n_subsequent_waypoints=FACADE_FALLBACK_COUNT).cpu()})
+        return outs
+
+    card, cpu = (run(dev) for dev in ('cuda', 'cpu'))
+    for i, (og, oc) in enumerate(zip(card, cpu)):
+        label = f'iteration {i}' if i < COMPARE_STEPS else 'fallback frame'
+        for k in oc:
+            if k == 'image':
+                same = float((og[k] == oc[k]).all(dim=2).float().mean())
+                print(f'facade compare {label}: {same * 100:.4f}% of pixels identical '
+                      'on the card and the CPU')
+                if same < 0.999:
+                    raise AssertionError(f'facade {label}: images differ')
+            else:
+                torch.testing.assert_close(og[k].float(), oc[k].float(),
+                                           atol=1e-4, rtol=1e-4, msg=k)
+
+
+def facade_exact_metrics_against_cpu(sim):
+    """The IoU and exact-count collisions and the exact (mesh) offroad on
+    the card's last state against the same state on the CPU, to 1e-4 +
+    1e-4 relative."""
+    from torchdrivesim_tpu_torch.simulator import CollisionMetric
+    cpu = facade_world(sim.batch_size, 'cpu')
+    cpu.set_state(sim.get_state().cpu())
+    for name in ('iou', 'nograd'):
+        values = []
+        for s in (sim, cpu):
+            s.cfg.collision_metric = CollisionMetric(name)
+            values.append(s.compute_collision().cpu())
+            s.cfg.collision_metric = CollisionMetric.discs
+        torch.testing.assert_close(values[0], values[1], atol=1e-4, rtol=1e-4, msg=name)
+        print(f'facade {name} collisions on the last state: card and CPU agree '
+              f'(total {float(values[0].sum()):.4f})')
+    values = []
+    for s in (sim, cpu):
+        grids, s.map_grids = s.map_grids, None
+        values.append(s.compute_offroad().cpu())
+        s.map_grids = grids
+    torch.testing.assert_close(values[0], values[1], atol=1e-4, rtol=1e-4,
+                               msg='exact offroad')
+    print(f'facade exact offroad on the last state: card and CPU agree (total '
+          f'{float(values[0].sum()):.4f}, {int((values[0] > 0).sum())} agents off road)')
+
+
+def facade_path(device, card):
+    """The stateful ``Simulator`` facade (Town02, B = 64, 20 agents, FSM
+    lights, texture, waypoint goals): ``FACADE_ITERATIONS`` iterations of
+    ``render_egocentric`` (res 128, fov 70 m: 1,280 cameras per frame),
+    ``step`` and the grid offroad, grid wrong-way, red-light and
+    disc-collision metrics, pinned at one B1 launch per iteration and no
+    call of its plain version; B1 against its plain version on the first
+    and the last frame and on a frame at ``n_subsequent_waypoints=5`` (70
+    triangles per camera, past the cap of 56: the sort route), which also
+    launches B1 once; the first iterations and the fallback frame against
+    the CPU; IoU, exact counts and exact offroad on the last state against
+    the CPU; one iteration's views, step and grid metrics captured in a
+    CUDA graph (the capture fails on a host sync) and replayed against the
+    eager ones; the example at ``FACADE_EXAMPLE_STEPS`` steps; times,
+    bound, device ops and steps/s. Returns B1's JSON entry on this path."""
+    from torchdrivesim_tpu_torch.examples import simulate
+    from torchdrivesim_tpu_torch.ops import fused
+    from torchdrivesim_tpu_torch.utils import Resolution
+    t_phase = time.perf_counter()
+    sim = facade_world(FACADE_BATCH, device)
+    cap = sim.renderer._prim_cap
+
+    # 1. B1 against its plain version on the first frame and the fallback frame
+    mip, ops, res, n, _, (n_quads, n_tris) = facade_frame(sim, 1)
+    print(f'facade frame: {ops[0].shape[0]} cameras (B={FACADE_BATCH} x {AGENTS} agents), '
+          f'{n_quads} quads and {n_tris} triangles per camera (per-type cap {cap}), '
+          f'qcoef {tuple(ops[2].shape)}, tcoef {tuple(ops[4].shape)}')
+    if (n, res, ops[0].shape[0]) != (1, RES, FACADE_BATCH * AGENTS) or n_tris > cap:
+        raise AssertionError('facade frame: not one 128 px view per agent under the cap')
+    errs = [compare_fused(fused, mip, ops, 'facade first frame', res)]
+    fb_mip, fb_ops, _, _, fb_screen, (_, fb_tris) = facade_frame(sim, FACADE_FALLBACK_COUNT)
+    if fb_tris <= cap:
+        raise AssertionError(f'fallback frame: {fb_tris} triangles do not pass the cap')
+    print(f'facade fallback frame (n_subsequent_waypoints={FACADE_FALLBACK_COUNT}): '
+          f'{fb_tris} triangles per camera, sorted and capped to '
+          f'{fb_ops[5].shape[1]} slots')
+    errs.append(compare_fused(fused, fb_mip, fb_ops, 'facade fallback frame', res))
+    prims, cams = sim.egocentric_prim_frame(fov=FOV)
+    forced = sim.renderer.fused_frame_operands(*prims, RES, cams, force_sort=True)
+    compare_exact(fused.render_coefs_fused(forced[0], *forced[1], res),
+                  fused.render_coefs_fused(mip, *ops, res),
+                  'facade first frame: sort route against prep route (bits)')
+    fused.LAUNCHES = 0
+    sim.render_egocentric(res=Resolution(RES, RES), fov=FOV,
+                          n_subsequent_waypoints=FACADE_FALLBACK_COUNT)
+    torch.cuda.synchronize()
+    if fused.LAUNCHES != 1:
+        raise AssertionError(f'fallback frame: {fused.LAUNCHES} B1 launches, expected 1')
+    print('facade fallback frame: 1 fused_render launch')
+
+    # 2. the first iterations and the fallback frame against the CPU
+    facade_compare_with_cpu(device)
+
+    # 3. the main path: the facade loop, counting launches
+    actions = facade_actions(FACADE_BATCH, FACADE_ITERATIONS, device)
+    fused.LAUNCHES = 0
+    with count_calls(fused, ['render_coefs_fused_reference']) as plain:
+        t0 = time.perf_counter()
+        for action in actions:
+            out = facade_iteration(sim, action)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+    launches = fused.LAUNCHES
+    print(f'facade main path: {FACADE_ITERATIONS} iterations at B={FACADE_BATCH} in '
+          f'{loop_s:.2f} s ({FACADE_ITERATIONS / loop_s:.1f} iterations/s, '
+          f'{FACADE_ITERATIONS * FACADE_BATCH / loop_s:.1f} env-steps/s), fused_render '
+          f'launches {launches}, plain fused calls '
+          f'{plain["render_coefs_fused_reference"]} [{card}]')
+    if launches != FACADE_ITERATIONS or plain['render_coefs_fused_reference']:
+        raise AssertionError('facade: expected one B1 launch per iteration and no '
+                             'plain fused call')
+    for k, v in out.items():
+        if not torch.isfinite(v.float()).all():
+            raise AssertionError(f'facade {k}: non-finite values')
+    if out['image'].shape != (FACADE_BATCH, AGENTS, 3, RES, RES):
+        raise AssertionError(f'facade image shape {tuple(out["image"].shape)}')
+    check_frames({'image': out['image'].flatten(0, 1)}, sim.renderer,
+                 FACADE_BATCH * AGENTS, RES, 'facade')
+    advanced = int((out['waypoints_state'] > 0).sum())
+    print(f'facade: {advanced} of {FACADE_BATCH * AGENTS} agents reached a waypoint; '
+          f'totals offroad {float(out["offroad"].sum()):.2f}, wrong-way '
+          f'{float(out["wrong_way"].sum()):.2f}, red-light '
+          f'{int(out["light_violation"].sum())}, collision '
+          f'{float(out["collision"].sum()):.2f}')
+    mip, ops, res, _, screen, _ = facade_frame(sim, 1)
+    errs.append(compare_fused(fused, mip, ops, 'facade last frame', res))
+    facade_exact_metrics_against_cpu(sim)
+
+    # 4. no host sync: the egocentric views, the step and the grid metrics
+    # of one iteration captured in a CUDA graph, replayed, equal the eager ones
+    probe = facade_actions(FACADE_BATCH, 1, device)[0]
+
+    def pure_iteration():
+        state = sim.functional_step(sim.state, probe)
+        return (sim.render_egocentric(res=Resolution(RES, RES), fov=FOV),
+                state.agent_state, state.waypoint_state.state, sim.compute_offroad(),
+                sim.compute_wrong_way(), sim.compute_traffic_lights_violations(),
+                sim.compute_collision())
+
+    eager = pure_iteration()
+    for name, got, want in zip(('image', 'state', 'waypoints', 'offroad', 'wrong-way',
+                                'red-light', 'collision'), graph_replay(pure_iteration),
+                               eager):
+        compare_exact(got.float(), want.float(),
+                      f'facade iteration {name}, CUDA graph replay against eager')
+
+    # 5. times, bound, device ops
+    kernel_ms = graph_ms(lambda: fused.render_coefs_fused(mip, *ops, res), 50)
+    plain_ms = cuda_ms(lambda: fused.render_coefs_fused_reference(mip, *ops, res), 3)
+    bound_ms, bound_by = fused_bound(mip, ops, screen, res, FOV)
+    fb_ms = graph_ms(lambda: fused.render_coefs_fused(fb_mip, *fb_ops, res), 50)
+    fb_bound_ms, fb_bound_by = fused_bound(fb_mip, fb_ops, fb_screen, res, FOV)
+    print(f'facade: fused_render kernel {ops[0].shape[0]} cameras of {res} px: '
+          f'{kernel_ms:.4f} ms (device, graph replay); plain version {plain_ms:.3f} ms; '
+          f'bound {bound_ms * 1e3:.2f} us by {bound_by}; fallback frame '
+          f'{fb_ms:.4f} ms, bound {fb_bound_ms * 1e3:.2f} us by {fb_bound_by} [{card}]')
+    profile_step(pure_iteration, 'facade iteration', card, count=('fused',))
+    eager_ms = cuda_ms(pure_iteration, 20)
+    replay_ms = graph_ms(pure_iteration, 10)
+    print(f'facade iteration: {device_ops(pure_iteration)} device ops; {eager_ms:.3f} ms '
+          f'eager (CUDA events), {replay_ms:.3f} ms replayed from one CUDA graph: the '
+          f'device busy {100 * replay_ms / eager_ms:.1f}% of the eager iteration [{card}]')
+
+    # 6. the example, on the card by default
+    fused.LAUNCHES = 0
+    simulate.main(['--steps', str(FACADE_EXAMPLE_STEPS), '--out',
+                   'build/simulate_example.npz'])
+    torch.cuda.synchronize()
+    print(f'example (res 256, 2 x 2 sub-views): {FACADE_EXAMPLE_STEPS} steps, '
+          f'fused_render launches {fused.LAUNCHES}')
+    if fused.LAUNCHES != FACADE_EXAMPLE_STEPS:
+        raise AssertionError('example: expected one B1 launch per step')
+    print(f'facade phase: {time.perf_counter() - t_phase:.1f} s')
+    return {'name': 'fused_render_facade', 'route': 'cuda',
+            'source': 'torchdrivesim_tpu_torch/csrc/fused_render.cu',
+            'replaces': 'torchdrivesim_tpu/ops/pallas_fused.py:69',
+            'launches': launches, 'max_abs_err': max(errs), 'ms': kernel_ms,
+            'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
+            'library_ms': None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -2783,6 +3050,7 @@ def main() -> int:
     kernels += prim_path(device, card, scenario, state)
     kernels.append(config3_path(device, card))
     kernels.append(tiled_path(device, card))
+    kernels.append(facade_path(device, card))
 
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

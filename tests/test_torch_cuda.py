@@ -29,7 +29,8 @@ cotangents of the composite; the per-tile face lists must equal the plain
 cull's. The fused render and the primitive rasters also run on the scenes
 that stress their per-tile primitive cull (``chip_smoke.prim_cull_scene``:
 boundary, parallelogram, near-degenerate and larger-than-view prims), bit
-for bit.
+for bit, and on the simulator facade's egocentric frames, under the
+per-type cap and past it (the sort route), bit for bit.
 """
 import numpy as np
 import pytest
@@ -487,3 +488,35 @@ def test_compound_kinematic_step_captures_in_a_cuda_graph(cuda):
                         models=km.models_in_use)
     eager = fn()
     assert torch.equal(graph_replay(fn), eager)
+
+
+@pytest.mark.depends_on_cuda
+@pytest.mark.parametrize('count', [1, 5])
+def test_fused_kernel_on_facade_frames(cuda, count):
+    """B1 on ``render_egocentric``'s frames of the facade (Town02, B = 4,
+    20 agents, one waypoint per collection): at ``n_subsequent_waypoints=1``
+    (30 triangles per camera) bit for bit its plain version, and equal to
+    the same frame forced through the sort route; at 5 (70 triangles, past
+    the per-type cap of 56: the sort route) bit for bit its plain version,
+    one launch per frame."""
+    from chip_smoke import facade_frame, facade_world
+    from torchdrivesim_tpu_torch.utils import Resolution
+    sim = facade_world(4, cuda)
+    sim.step(torch.full((4, 20, 2), 0.01, device=cuda))
+    mip, ops, res, n, _, (_, n_tris) = facade_frame(sim, count)
+    assert (res, n, ops[0].shape[0]) == (128, 1, 80)
+    assert (n_tris > sim.renderer._prim_cap) == (count == 5)
+    for packed in (False, True):
+        got = fused.render_coefs_fused(mip, *ops, res, packed)
+        want = fused.render_coefs_fused_reference(mip, *ops, res, packed)
+        torch.cuda.synchronize()
+        assert int((got != want).sum()) == 0
+    if count == 1:
+        prims, cams = sim.egocentric_prim_frame(fov=70.0)
+        forced = sim.renderer.fused_frame_operands(*prims, res, cams, force_sort=True)
+        sorted_image = fused.render_coefs_fused(forced[0], *forced[1], res)
+        assert torch.equal(sorted_image, fused.render_coefs_fused(mip, *ops, res))
+    before = fused.LAUNCHES
+    sim.render_egocentric(res=Resolution(128, 128), fov=70.0,
+                          n_subsequent_waypoints=count)
+    assert fused.LAUNCHES == before + 1

@@ -294,7 +294,8 @@ def test_port_imports_no_jax():
             'torchdrivesim_tpu_torch.models, torchdrivesim_tpu_torch.ops.soft, '
             'torchdrivesim_tpu_torch.ops.warp, torchdrivesim_tpu_torch.ops.fused, '
             'torchdrivesim_tpu_torch.ops.hard, torchdrivesim_tpu_torch.gym_env, '
-            'torchdrivesim_tpu_torch.rl; '
+            'torchdrivesim_tpu_torch.rl, torchdrivesim_tpu_torch.examples.simulate, '
+            'torchdrivesim_tpu_torch.ops.point_mesh; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "flax", "optax", "orbax", "torchdrivesim_tpu")]; '
             'assert not bad, bad')

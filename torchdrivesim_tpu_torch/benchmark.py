@@ -63,7 +63,7 @@ def load_or_bake_texture(cfg: MapConfig, ppm: float = 4.0) -> Grid2D:
     if not path or not os.path.exists(path):
         raise FileNotFoundError(
             f"no baked texture for map {cfg.name!r} at {path}; bake it with the "
-            "JAX package (torchdrivesim_tpu.benchmark.load_or_bake_texture)")
+            "JAX package (its benchmark.load_or_bake_texture)")
     with np.load(path) as data:
         return Grid2D(data=data['data'].astype(np.float32),
                       origin=data['origin'].astype(np.float32),
@@ -187,7 +187,8 @@ def build_benchmark_scenario(map_name: str = 'carla_Town02',
         road_mesh=cfg_map.road_mesh, kinematic_model=kin, agent_size=attrs[..., :2],
         initial_present_mask=np.ones((batch_size, agent_count), dtype=bool),
         cfg=cfg, traffic_controls=controls,
-        map_grids=cfg_map.grids(device=device))
+        map_grids=cfg_map.grids(device=device),
+        lanelet_map=[lanelet_map] * batch_size)
     sim.renderer.res = Resolution(res, res)
     sim.renderer.scale = 2.0 / fov
     if use_texture:

@@ -2,8 +2,10 @@
 Pure-Python Lanelet2 map ingestion (counterpart of
 ``torchdrivesim_tpu/lanelet2.py``): OSM parsing, WGS84 -> UTM projection
 (Karney's transverse-Mercator series), a small lanelet data model, the
-random centerline sampler the heuristic initializer uses, and the road mesh
-triangulated from the lanelets. Host numpy code.
+random centerline sampler the heuristic initializer uses, the point queries
+of the host wrong-way metric (``lanelets_containing``,
+``find_lanelet_directions``), and the road mesh triangulated from the
+lanelets. Host numpy code.
 
 The parser keeps the reference parser's lanelet order, so a seeded
 ``pick_random_point_and_orientation`` picks the same lanelets.
@@ -62,6 +64,10 @@ def utm_zone_central_meridian(lon_deg: float) -> float:
     return zone * 6 - 183.0
 
 
+class LaneletError(RuntimeError):
+    """A lanelet geometric query failed."""
+
+
 @dataclass
 class LaneletPoint:
     id: int
@@ -97,6 +103,11 @@ class Lanelet:
     right_bound: Linestring
     attributes: Dict[str, str] = field(default_factory=dict)
     _centerline: Optional[Linestring] = None
+
+    def polygon(self) -> np.ndarray:
+        """Closed boundary polygon: left bound, then the right bound reversed."""
+        return np.concatenate([self.left_bound.coords(),
+                               self.right_bound.coords()[::-1]], axis=0)
 
     @property
     def centerline(self) -> Linestring:
@@ -193,6 +204,95 @@ def load_lanelet_map(map_path: str, origin: Tuple[float, float] = (0, 0)) -> Lan
         lanelets.append(Lanelet(id=int(rel.get('id')), left_bound=left,
                                 right_bound=right, attributes=tags))
     return LaneletMap(points, linestrings, lanelets)
+
+
+def _point_polygon_distance(p: np.ndarray, poly: np.ndarray) -> float:
+    """Distance from a point to a polygon's boundary; 0 inside."""
+    if _point_in_polygon(p, poly):
+        return 0.0
+    a = poly
+    ab = np.roll(poly, -1, axis=0) - a
+    l2 = np.sum(ab * ab, axis=-1)
+    t = np.clip(np.sum((p - a) * ab, axis=-1) / np.maximum(l2, 1e-12), 0, 1)
+    proj = a + t[:, None] * ab
+    return float(np.min(np.linalg.norm(p - proj, axis=-1)))
+
+
+def _point_in_polygon(p: np.ndarray, poly: np.ndarray) -> bool:
+    """Even-odd rule (non-convex lanelets included)."""
+    x, y = p
+    inside = False
+    j = len(poly) - 1
+    for i in range(len(poly)):
+        xi, yi = poly[i]
+        xj, yj = poly[j]
+        if (yi > y) != (yj > y):
+            if x < (xj - xi) * (y - yi) / (yj - yi) + xi:
+                inside = not inside
+        j = i
+    return inside
+
+
+def lanelets_containing(lanelet_map: LaneletMap, x: float, y: float,
+                        tolerance: float = 1.0) -> List[Lanelet]:
+    """Lanelets whose polygon contains (x, y) within ``tolerance`` meters."""
+    p = np.asarray([x, y], dtype=np.float64)
+    out = []
+    for ll in lanelet_map.laneletLayer:
+        poly = ll.polygon()
+        lo = poly.min(axis=0) - tolerance
+        hi = poly.max(axis=0) + tolerance
+        if not (lo[0] <= p[0] <= hi[0] and lo[1] <= p[1] <= hi[1]):
+            continue
+        if _point_polygon_distance(p, poly) <= tolerance:
+            out.append(ll)
+    return out
+
+
+def find_direction(linestring: Linestring, location) -> float:
+    """
+    Local orientation of a linestring near a point: the direction of the
+    segment between the two linestring points closest to the point's
+    projection. Raises :class:`LaneletError` if those two are not adjacent.
+    """
+    if len(linestring) < 2:
+        raise LaneletError("linestring too short")
+    if hasattr(location, 'x'):
+        q = np.asarray([location.x, location.y], dtype=np.float64)
+    else:
+        q = np.asarray(location[:2], dtype=np.float64)
+    pts = linestring.coords()
+    a, b = pts[:-1], pts[1:]
+    ab = b - a
+    l2 = np.sum(ab * ab, axis=-1)
+    t = np.clip(np.sum((q - a) * ab, axis=-1) / np.maximum(l2, 1e-12), 0, 1)
+    proj = a + t[:, None] * ab
+    ref = proj[int(np.argmin(np.linalg.norm(q - proj, axis=-1)))]
+    order = np.argsort(np.linalg.norm(pts - ref, axis=-1))
+    first, second = int(order[0]), int(order[1])
+    if abs(first - second) != 1:
+        raise LaneletError("Failed to find direction of the linestring at a given point")
+    i, j = (second, first) if first > second else (first, second)
+    return float(np.arctan2(pts[j][1] - pts[i][1], pts[j][0] - pts[i][0]))
+
+
+def find_lanelet_directions(lanelet_map: LaneletMap, x: float, y: float,
+                            tags_to_exclude: Optional[List[str]] = None,
+                            lanelet_dist_tolerance: float = 1.0) -> List[float]:
+    """
+    Local orientations of every lanelet containing the point. As in the
+    reference, an excluded tag on any candidate clears the whole result.
+    """
+    tags_to_exclude = tags_to_exclude or []
+    directions = []
+    for ll in lanelets_containing(lanelet_map, x, y, lanelet_dist_tolerance):
+        centerline = ll.centerline
+        if len(centerline) < 2:
+            continue
+        if any(tag in ll.attributes for tag in tags_to_exclude):
+            return []
+        directions.append(find_direction(centerline, (x, y)))
+    return directions
 
 
 def pick_random_point_and_orientation(lanelet_map: LaneletMap,

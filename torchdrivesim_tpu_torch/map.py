@@ -102,7 +102,7 @@ class MapConfig:
         if not cache or not os.path.exists(cache):
             raise FileNotFoundError(
                 f"no baked grid cache for map {self.name!r} ({cache}); bake it "
-                "with the JAX package (torchdrivesim_tpu MapConfig.grids)")
+                "with the JAX package (its MapConfig.grids)")
         return load_map_grids(cache, device=device)
 
 

@@ -31,6 +31,14 @@ class BadMeshFormat(RuntimeError):
     """Mesh data on disk had the wrong format."""
 
 
+def _host_index(idx) -> np.ndarray:
+    """A batch selection as a host int64 index array (batch dim kept)."""
+    if torch.is_tensor(idx):
+        idx = idx.cpu().numpy()
+    return np.asarray(idx, dtype=np.int64).reshape(-1) if np.ndim(idx) == 0 \
+        else np.asarray(idx, dtype=np.int64)
+
+
 def _pad_stack(arrays: List[np.ndarray], fill) -> np.ndarray:
     """Stack variable-length arrays along a new batch dim with padding."""
     max_len = max(a.shape[0] for a in arrays)
@@ -66,6 +74,17 @@ class BaseMesh:
         return dataclasses.replace(
             self, verts=np.repeat(self.verts, size, axis=0),
             faces=np.repeat(self.faces, size, axis=0))
+
+    def select_batch_elements(self, idx) -> "BaseMesh":
+        """The batch elements ``idx`` (an int, list, array or tensor); a
+        batch-1 mesh shared by every environment stays as it is."""
+        if self.batch_size == 1:
+            return self
+        idx = _host_index(idx)
+        return dataclasses.replace(self, verts=self.verts[idx], faces=self.faces[idx])
+
+    def __getitem__(self, item) -> "BaseMesh":
+        return self.select_batch_elements(item)
 
     @classmethod
     def collate(cls, meshes: Sequence["BaseMesh"]) -> "BaseMesh":
@@ -110,6 +129,13 @@ class BirdviewMesh(BaseMesh):
         base = super().expand(size)
         return dataclasses.replace(
             base, vert_category=np.repeat(self.vert_category, size, axis=0))
+
+    def select_batch_elements(self, idx) -> "BirdviewMesh":
+        if self.batch_size == 1:
+            return self
+        base = super().select_batch_elements(idx)
+        return dataclasses.replace(
+            base, vert_category=self.vert_category[_host_index(idx)])
 
     @classmethod
     def _deserialize_tensors(cls, data: Dict) -> Dict:

@@ -5,7 +5,9 @@ The port's bird's-eye-view renderer (counterpart of
 * typed primitives (``render_prims_chw``): composited over the baked map
   texture by the fused render where a mip level covers the view (up to
   128 pixels; a larger view as n x n sub-camera views of at most 128
-  pixels in one launch); over the background color without a texture, or over the
+  pixels in one launch; past the per-type cap of 56 or the 127-primitive
+  rank space each type sorted and capped first); over the background
+  color without a texture, or over the
   full-resolution nearest sample of the texture where no mip level covers
   the view, by the banded primitive raster (any multiple of 16); in
   differentiable mode by the reference's plain fallback (the prims culled
@@ -28,6 +30,7 @@ background (ROADMAP A12).
 """
 from __future__ import annotations
 
+import logging
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -37,7 +40,7 @@ from torchdrivesim_tpu_torch.mesh import RGBMesh
 from torchdrivesim_tpu_torch.ops.fused import MAX_CAMERAS, render_coefs_fused
 from torchdrivesim_tpu_torch.ops.grids import Grid2D
 from torchdrivesim_tpu_torch.ops.hard import hard_operands, raster
-from torchdrivesim_tpu_torch.ops.prims import rasterize_hard_prims_banded
+from torchdrivesim_tpu_torch.ops.prims import prep_prims, rasterize_hard_prims_banded
 from torchdrivesim_tpu_torch.ops.rasterize import (
     camera_rows_cols, cull_faces_to_view, cull_prims_to_view, face_arrays,
     n_bands_for, pack_texture_rgb8, prep_sorted_prim_coefs, rasterize_hard_faces,
@@ -52,6 +55,8 @@ from torchdrivesim_tpu_torch.rendering.base import (
     Cameras, RendererConfig, get_default_color_map, get_default_rendering_levels,
 )
 from torchdrivesim_tpu_torch.utils import Resolution
+
+logger = logging.getLogger(__name__)
 
 
 def pack_rgb8_chw(image: torch.Tensor) -> torch.Tensor:
@@ -129,6 +134,34 @@ def _pad_camera_shift(cam_xy: torch.Tensor, cam_sc: torch.Tensor, size: int,
     return torch.stack([cx, cy], dim=-1)
 
 
+def fused_prim_operands(sq, qz, qcolors, st, tz, tcolors, size: int, cap: int,
+                        force_sort: bool = False):
+    """
+    The fused render's primitive operands of screen-space prims: those of
+    ``prep_sorted_prim_coefs`` where both types fit the per-type ``cap``
+    and the 127-primitive rank space; else, as the reference's sort branch,
+    each type row-major sorted and capped to the ``cap`` prims nearest the
+    view's center (``sort_prims_rowmajor_with_masks``), then packed by
+    ``prims.prep_prims``. Where both apply the two give the same image bit
+    for bit; ``force_sort`` takes the second.
+
+    Returns:
+        ((qcoef, qpk, qmask, tcoef, tpk, tmask), whether the sort route ran).
+    """
+    n_bands = n_bands_for(size)
+    if not force_sort:
+        prep = prep_sorted_prim_coefs(sq, qz, qcolors, st, tz, tcolors, size,
+                                      cap, n_bands)
+        if prep is not None:
+            return prep, False
+    sq, qz, qcolors, qmask = sort_prims_rowmajor_with_masks(sq, qz, qcolors, size,
+                                                            cap, n_bands)
+    st, tz, tcolors, tmask = sort_prims_rowmajor_with_masks(st, tz, tcolors, size,
+                                                            cap, n_bands)
+    qcoef, qpk, tcoef, tpk = prep_prims(sq, qz, qcolors, st, tz, tcolors)
+    return (qcoef, qpk, qmask, tcoef, tpk, tmask), True
+
+
 class Renderer:
     """
     Renders typed primitives over :attr:`background_texture` on ``device``.
@@ -158,6 +191,8 @@ class Renderer:
         self._packed_texture: Optional[Grid2D] = None
         #: device copies of :func:`_subcamera_offsets`, by its arguments
         self._tile_offsets: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+        #: (quads, triangles) per camera whose sort route has been logged
+        self._warned_sort = set()
 
     def get_color(self, element_type: str) -> Tuple[int, int, int]:
         return self.color_map[element_type]
@@ -317,13 +352,15 @@ class Renderer:
         return pack_rgb8_chw(image) if packed else image
 
     def fused_frame_operands(self, quads, qz, qcolors, tris, tz, tcolors,
-                             size: int, cameras: Cameras):
+                             size: int, cameras: Cameras, force_sort: bool = False):
         """
         The fused render's operands for a frame a mip level serves, as
         :meth:`render_prims_chw` passes them to
         ``ops.fused.render_coefs_fused``; above 128 pixels those of the
         n x n sub-camera views (:meth:`_tiled_mip`), every sub-view with
-        its own sort, cap and band masks, all in one launch.
+        its own sort, cap and band masks, all in one launch. The primitive
+        operands are :func:`fused_prim_operands`' (``force_sort`` takes its
+        sort route under the cap too).
 
         Returns:
             ``(mip, (fcoef, icoef, qcoef, qpk, tcoef, tpk, qmask, tmask),
@@ -351,14 +388,16 @@ class Renderer:
             sq, st, qz, qcolors, tz, tcolors, cam_xy, cam_sc = _expand_subcameras(
                 sq, st, qz, qcolors, tz, tcolors, cam_xy, cam_sc, offs, off_fl)
             scale_k = cameras.scale * size / size_k
-        prep = prep_sorted_prim_coefs(sq, qz, qcolors, st, tz, tcolors, size_k,
-                                      self._prim_cap, n_bands_for(size_k))
-        if prep is None:
-            raise NotImplementedError(
-                f"{qz.shape[1]} quads / {tz.shape[1]} triangles exceed the "
-                f"per-type cap {self._prim_cap} or the 127-primitive rank "
-                "space; the fused render's sorting fallback is not ported")
-        qcoef, qpk, qmask, tcoef, tpk, tmask = prep
+        (qcoef, qpk, qmask, tcoef, tpk, tmask), sorted_ = fused_prim_operands(
+            sq, qz, qcolors, st, tz, tcolors, size_k, self._prim_cap, force_sort)
+        key = (qz.shape[1], tz.shape[1])
+        if sorted_ and not force_sort and key not in self._warned_sort:
+            self._warned_sort.add(key)
+            logger.warning(
+                '%d quads / %d triangles per camera exceed the per-type cap %d or '
+                'the 127-primitive rank space: the fused render sorts and caps '
+                'each type first, keeping the prims nearest the view center',
+                key[0], key[1], self._prim_cap)
         fcoef, icoef = warp_coefficients(
             mip, cam_xy, cam_sc, scale_k, self._background_color,
             left_handed=self.cfg.left_handed_coordinates, res=size_k)

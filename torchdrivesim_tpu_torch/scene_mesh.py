@@ -1,11 +1,12 @@
 """
 Per-frame scene primitives and meshes from precomputed templates
 (counterpart of ``torchdrivesim_tpu/scene_mesh.py``): the typed-primitive
-generator of the env step (actor boxes and stoplines as quads, direction
-markers as triangles; absent agents' primitives are degenerate, all-zero
-corners) and the per-camera RGB mesh of the differentiable render
-(background mesh, actors, traffic lights, waypoints; absent agents' faces
-collapse onto vertex 0).
+generator of the env step and the simulator's render (actor boxes and
+stoplines as quads, direction markers and waypoint discs as triangles;
+absent agents' primitives are degenerate, all-zero corners) and the
+per-camera RGB mesh of the differentiable render (background mesh,
+actors, traffic lights, waypoints; absent agents' faces collapse onto
+vertex 0).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from torchdrivesim_tpu_torch.mesh import (
     BirdviewMesh, RGBMesh, generate_disc_mesh, set_colors_with_defaults,
     tensor_color,
 )
-from torchdrivesim_tpu_torch.utils import rotate
+from torchdrivesim_tpu_torch.utils import as_batch_index, rotate
 
 #: verts per actor: 4 box corners + 3 direction-triangle verts
 ACTOR_BOX_VERTS = 4
@@ -168,16 +169,59 @@ class BirdviewRGBMeshGenerator:
         """(B, Nl) light states -> (B, Nl, 3) colors."""
         return self.light_color_table[traffic_light_state.long()]
 
+    def copy(self) -> "BirdviewRGBMeshGenerator":
+        """A copy sharing the (never written) templates."""
+        other = self.__class__.__new__(self.__class__)
+        other.__dict__.update(self.__dict__)
+        other._constants = dict(self._constants)
+        return other
+
+    def select_batch_elements(self, idx) -> "BirdviewRGBMeshGenerator":
+        """A copy holding the batch elements ``idx`` of the templates (and
+        of a batched background mesh)."""
+        other = self.copy()
+        dev = next(t.device for t in (self.actor_verts, self.light_quads)
+                   if t is not None)
+        idx = as_batch_index(idx, dev)
+        pick = lambda x: None if x is None else x[idx]
+        other.actor_verts = pick(self.actor_verts)
+        other.actor_attrs = pick(self.actor_attrs)
+        other.actor_z = pick(self.actor_z)
+        other.light_quads = pick(self.light_quads)
+        mesh = self.background_mesh
+        if mesh is not None and mesh.batch_size > 1:
+            other.background_mesh = mesh.select_batch_elements(idx)
+            other._constants = {}
+        return other
+
+    def worst_case_prim_counts(self, waypoint_count: int = 0) -> Tuple[int, int]:
+        """
+        Per-camera primitive counts of :meth:`generate_prims` with all
+        content visible at once: (quads, triangles), the agent boxes and
+        stoplines, and the direction markers and ``waypoint_count``
+        waypoint discs' triangles.
+        """
+        n_all = self.actor_verts.shape[1] if self.actor_verts is not None else 0
+        nl = self.light_quads.shape[1] if self.light_quads is not None else 0
+        tris = n_all if self.render_agent_direction else 0
+        tris += int(waypoint_count) * int(self.waypoint_template_faces.shape[0])
+        return n_all + nl, tris
+
     def generate_prims(self, agent_state: torch.Tensor,
                        present_mask: Optional[torch.Tensor] = None,
-                       traffic_light_state: Optional[torch.Tensor] = None):
+                       traffic_light_state: Optional[torch.Tensor] = None,
+                       waypoints: Optional[torch.Tensor] = None,
+                       waypoints_rendering_mask: Optional[torch.Tensor] = None):
         """
         Typed primitives of the frame: actor boxes and stoplines as quads in
-        cycle order, direction markers as triangles.
+        cycle order, direction markers and waypoint discs (each a fan of
+        the disc template's triangles) as triangles.
 
         Args:
             agent_state: (B, All, 4); present_mask: (B, All).
             traffic_light_state: (B, Nl) indices into the light states.
+            waypoints: (B, M, 2) disc centers; waypoints_rendering_mask:
+                (B, M), the discs drawn (the others are degenerate).
         Returns:
             (quads (B, Q, 4, 2), qz (B, Q), qcolors (B, Q, 3),
              tris (B, T, 3, 2), tz (B, T), tcolors (B, T, 3)).
@@ -220,6 +264,20 @@ class BirdviewRGBMeshGenerator:
             quads.append(light_quads)
             qz.append(torch.full((b, nl), self.light_z, device=world.device))
             qcol.append(self._light_colors(traffic_light_state))
+
+        if waypoints is not None:
+            m = waypoints.shape[1]
+            fd = self.waypoint_template_faces.shape[0]
+            disc = self._on('disc_tris', world.device, lambda d: torch.as_tensor(
+                self.waypoint_template_verts[self.waypoint_template_faces], device=d))
+            wcorners = disc[None, None] + waypoints[:, :, None, None, :]  # B,M,Fd,3,2
+            if waypoints_rendering_mask is not None:
+                wcorners = torch.where(waypoints_rendering_mask[..., None, None, None],
+                                       wcorners, zero)
+            tris.append(wcorners.reshape(b, m * fd, 3, 2))
+            tz.append(torch.full((b, m * fd), self.waypoint_z, device=world.device))
+            tcol.append(self._on('waypoint_color', world.device, lambda d: torch.as_tensor(
+                self.waypoint_color, device=d)).expand(b, m * fd, 3))
 
         quads = torch.cat(quads, dim=1)
         qz = torch.cat(qz, dim=1)

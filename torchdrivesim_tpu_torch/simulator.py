@@ -1,40 +1,78 @@
 """
-Simulator state and the pure env step (counterpart of
-``torchdrivesim_tpu/simulator.py``; the state, ``functional_step`` with
-the per-agent kinematic dispatch, ``fit_action``, the static NPC
-controller, the batch ``extend``, ``render`` and the facade subset the
-benchmark uses).
+The simulator (counterpart of ``torchdrivesim_tpu/simulator.py``): the
+state, the pure env step ``functional_step`` with the per-agent kinematic
+dispatch, the static NPC controller, and the stateful :class:`Simulator`
+facade with the reference's method surface (``step``, ``set_state``,
+``copy``, ``extend``, ``select_batch_elements``, the getters, ``render``,
+``render_egocentric``, the four ``compute_*`` metrics and
+``check_prim_budget``).
 
 :class:`SimulatorState` is a dataclass of tensors on one device, time
 included, so a step launches device work without waiting on the host.
 PyTorch runs eagerly: a rollout is a Python loop over
-:meth:`Simulator.functional_step`.
+:meth:`Simulator.step` or :meth:`Simulator.functional_step`.
+
+Not ported: observation noise (``noisy_perception``, the ``get_noisy_*``
+getters), lane features, custom agent colors, and the replay, compound
+and spawn NPC controllers.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import logging
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from enum import Enum
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from torchdrivesim_tpu_torch import kinematic as K
-from torchdrivesim_tpu_torch.goals import WaypointGoalState, step_waypoints
-from torchdrivesim_tpu_torch.map_grids import MapGrids
+from torchdrivesim_tpu_torch.goals import (
+    WaypointGoal, WaypointGoalState, gather_current, step_waypoints,
+)
+from torchdrivesim_tpu_torch.infractions import (
+    compute_agent_collisions_metric, compute_agent_collisions_metric_pytorch3d,
+    compute_collision_matrix, lanelet_orientation_loss, offroad_infraction_loss,
+)
+from torchdrivesim_tpu_torch.map_grids import (
+    MapGrids, offroad_loss_from_grid, wrong_way_loss_from_grid,
+)
 from torchdrivesim_tpu_torch.rendering.base import Cameras, RendererConfig
 from torchdrivesim_tpu_torch.rendering.renderer import Renderer
 from torchdrivesim_tpu_torch.scene_mesh import BirdviewRGBMeshGenerator
-from torchdrivesim_tpu_torch.traffic_controls import BaseTrafficControl
-from torchdrivesim_tpu_torch.utils import Resolution
+from torchdrivesim_tpu_torch.traffic_controls import (
+    BaseTrafficControl, red_light_violations,
+)
+from torchdrivesim_tpu_torch.utils import (
+    Resolution, as_batch_index, assert_equal, host_repeat, relative,
+)
+
+logger = logging.getLogger(__name__)
+
+
+class CollisionMetric(Enum):
+    """How :meth:`Simulator.compute_collision` measures overlap."""
+    iou = 'iou'
+    discs = 'discs'
+    nograd = 'nograd'
+    nograd_pytorch3d = 'nograd-pytorch3d'
 
 
 @dataclass
 class TorchDriveConfig:
-    """Top-level simulator configuration (the fields the env step reads)."""
+    """Top-level simulator configuration."""
     renderer: RendererConfig = field(default_factory=RendererConfig)
+    #: render_egocentric: each agent's camera shows itself and the NPCs only
+    single_agent_rendering: bool = False
+    collision_metric: CollisionMetric = field(
+        default_factory=lambda: CollisionMetric.discs)
     offroad_threshold: float = 0.5
     left_handed_coordinates: bool = False
+    wrong_way_angle_threshold: float = float(np.pi / 2)
+    #: the host wrong-way path's distance tolerance to a lanelet
+    lanelet_inclusion_tolerance: float = 1.0
     waypoint_removal_threshold: float = 2.0
 
 
@@ -56,104 +94,179 @@ class SimulatorState:
 
 
 class NPCController:
-    """NPCs that keep their states (no spawning); static attributes only,
-    the dynamic NPC state lives in :class:`SimulatorState`."""
-    def __init__(self, npc_size: torch.Tensor, npc_state: torch.Tensor,
-                 npc_present_mask: Optional[torch.Tensor] = None):
-        self.npc_size = npc_size
-        self.initial_npc_state = npc_state
+    """
+    NPCs that keep their states (no spawning): static attributes only, the
+    dynamic NPC state lives in :class:`SimulatorState`. Tensors are on the
+    device of ``npc_state``; every change rebinds an attribute, so a
+    :meth:`copy` is independent.
+    """
+    def __init__(self, npc_size, npc_state, npc_present_mask=None,
+                 npc_types=None, agent_type_names: Optional[List[str]] = None):
+        self.initial_npc_state = torch.as_tensor(npc_state, dtype=torch.float32)
+        dev = self.initial_npc_state.device
+        self.npc_size = torch.as_tensor(npc_size, dtype=torch.float32, device=dev)
+        shape = self.initial_npc_state.shape[:-1]
         self.initial_npc_present_mask = (
-            npc_present_mask if npc_present_mask is not None
-            else torch.ones(npc_state.shape[:-1], dtype=torch.bool,
-                            device=npc_state.device))
+            torch.as_tensor(npc_present_mask, dtype=torch.bool, device=dev)
+            if npc_present_mask is not None
+            else torch.ones(shape, dtype=torch.bool, device=dev))
+        self.npc_types = (torch.as_tensor(npc_types, dtype=torch.int32, device=dev)
+                          if npc_types is not None
+                          else torch.zeros(shape, dtype=torch.int32, device=dev))
+        self.agent_type_names = agent_type_names or ['vehicle']
 
     def advance(self, npc_state: torch.Tensor, npc_present_mask: torch.Tensor,
                 time: torch.Tensor):
         """(state, mask, time) -> (state, mask); static NPCs hold."""
         return npc_state, npc_present_mask
 
-    def extend(self, n: int) -> "NPCController":
-        """A copy with every batch element repeated ``n`` times."""
-        rep = lambda x: torch.repeat_interleave(x, n, dim=0)
-        return NPCController(rep(self.npc_size), rep(self.initial_npc_state),
-                             rep(self.initial_npc_present_mask))
+    def get_npc_state(self) -> torch.Tensor:
+        """The initial NPC states; the live ones are ``SimulatorState.npc_state``."""
+        return self.initial_npc_state
+
+    def get_npc_present_mask(self) -> torch.Tensor:
+        return self.initial_npc_present_mask
+
+    def get_npc_size(self) -> torch.Tensor:
+        return self.npc_size
+
+    def get_npc_types(self) -> torch.Tensor:
+        return self.npc_types
+
+    def to(self, device=None) -> "NPCController":
+        return self
+
+    def copy(self) -> "NPCController":
+        return copy.copy(self)
+
+    _BATCHED = ('npc_size', 'initial_npc_state', 'initial_npc_present_mask',
+                'npc_types')
+
+    def _map(self, f, in_place: bool) -> "NPCController":
+        target = self if in_place else self.copy()
+        for name in self._BATCHED:
+            setattr(target, name, f(getattr(self, name)))
+        return target
+
+    def extend(self, n: int, in_place: bool = True) -> "NPCController":
+        """Every batch element repeated ``n`` times contiguously."""
+        return self._map(lambda x: host_repeat(x, n), in_place)
+
+    def select_batch_elements(self, idx, in_place: bool = True) -> "NPCController":
+        idx = as_batch_index(idx, self.initial_npc_state.device)
+        return self._map(lambda x: x[idx], in_place)
 
     @classmethod
-    def empty(cls, batch_size: int, *, device) -> "NPCController":
+    def empty(cls, batch_size: int, agent_type_names: Optional[List[str]] = None,
+              *, device) -> "NPCController":
         return cls(npc_size=torch.zeros((batch_size, 0, 2), device=device),
                    npc_state=torch.zeros((batch_size, 0, 4), device=device),
                    npc_present_mask=torch.zeros((batch_size, 0), dtype=torch.bool,
-                                                device=device))
+                                                device=device),
+                   agent_type_names=agent_type_names)
 
 
 class Simulator:
     """
-    Facade holding the static parameters (sizes, kinematic parameters,
-    controls, grids, renderer) and the current :attr:`state`.
+    Stateful facade holding the static parameters (sizes, kinematic
+    parameters, controls, grids, renderer) and the current :attr:`state`,
+    with the reference's constructor keywords and method surface.
 
     Everything lives on the device of the kinematic model's state.
 
     Args:
-        road_mesh: the map's drivable-area mesh (host BirdviewMesh, or
-            None): the background of the per-camera meshes
-            (``birdview_mesh_generator.generate``); the textured render does
-            not read it.
+        road_mesh: the map's drivable-area mesh (host ``BirdviewMesh``, of
+            batch B or of batch 1 shared by every environment, or None):
+            the background of the per-camera meshes and the exact offroad
+            metric's surface; the textured render does not read it.
         kinematic_model: holds the initial agent states and parameters.
         agent_size: BxAx2 (length, width).
         initial_present_mask: BxA bool.
-        waypoints: optional BxAxNxMx2 waypoint goals, all active at first.
+        cfg: configuration.
+        renderer: a :class:`Renderer` to use instead of one built from
+            ``cfg.renderer``.
+        lanelet_map: B lanelet maps (or None) for the host wrong-way path.
+        recenter_offset: Bx2 offset added to states for map lookups.
+        waypoint_goals: a :class:`WaypointGoal` (BxAxNxMx2 waypoints).
+        agent_types / agent_type_names: BxA indices into the names
+            (default all 'vehicle').
+        agent_lr: BxA rear-axle distances reported by :meth:`get_agent_lr`.
+        action_model_extras: passed through :meth:`get_action_model_extras`.
+        lane_features, observation_noise_model: must be None (not ported).
     """
     def __init__(self, road_mesh, kinematic_model: K.KinematicModel,
                  agent_size, initial_present_mask, cfg: TorchDriveConfig,
+                 renderer: Optional[Renderer] = None,
+                 lanelet_map: Optional[List] = None,
+                 recenter_offset=None,
+                 birdview_mesh_generator: Optional[BirdviewRGBMeshGenerator] = None,
+                 internal_time: int = 0,
                  traffic_controls: Optional[Dict[str, BaseTrafficControl]] = None,
-                 map_grids: Optional[MapGrids] = None,
+                 waypoint_goals: Optional[WaypointGoal] = None,
+                 agent_types=None, agent_type_names: Optional[List[str]] = None,
                  npc_controller: Optional[NPCController] = None,
-                 waypoints: Optional[torch.Tensor] = None,
-                 internal_time: int = 0):
+                 agent_lr=None, lane_features=None, observation_noise_model=None,
+                 action_model_extras: Optional[Dict[str, Any]] = None,
+                 map_grids: Optional[MapGrids] = None):
+        if lane_features is not None or observation_noise_model is not None:
+            raise NotImplementedError(
+                "lane features and observation noise are not ported (ROADMAP A15)")
         self.device = kinematic_model.get_state().device
+        dev = self.device
         self.road_mesh = road_mesh
+        self.lanelet_map = lanelet_map
+        self.recenter_offset = None if recenter_offset is None else \
+            torch.as_tensor(recenter_offset, dtype=torch.float32, device=dev)
         self.kinematic_model = kinematic_model
-        self.agent_size = torch.as_tensor(agent_size, dtype=torch.float32,
-                                          device=self.device)
+        self.agent_size = torch.as_tensor(agent_size, dtype=torch.float32, device=dev)
         self._batch_size = self.agent_size.shape[0]
-        self.cfg = cfg
+        present = torch.as_tensor(initial_present_mask, dtype=torch.bool, device=dev)
+        shape = present.shape
+        self._agent_types = agent_type_names or ['vehicle']
+        self.agent_type = (torch.zeros(shape, dtype=torch.int32, device=dev)
+                           if agent_types is None else torch.as_tensor(
+                               agent_types, dtype=torch.int32, device=dev).expand(shape))
+        self.agent_lr = (torch.zeros(shape, dtype=torch.float32, device=dev)
+                         if agent_lr is None else torch.as_tensor(
+                             agent_lr, dtype=torch.float32, device=dev).expand(shape))
+        self.action_model_extras = action_model_extras
         self.map_grids = map_grids
+        self.cfg = cfg
         self.traffic_controls = traffic_controls
-        self.waypoints = waypoints
+        self.waypoint_goals = waypoint_goals
         self.npc_controller = npc_controller or NPCController.empty(
-            self._batch_size, device=self.device)
-        cfg.renderer.left_handed_coordinates = cfg.left_handed_coordinates
-        self.renderer = Renderer(cfg.renderer, self.device)
-        self.birdview_mesh_generator = BirdviewRGBMeshGenerator(
-            self.renderer.color_map, self.renderer.rendering_levels,
-            render_agent_direction=cfg.renderer.render_agent_direction,
-            background_mesh=road_mesh)
-        all_size = self.get_all_agent_size()
-        self.birdview_mesh_generator.initialize_actors_mesh(
-            all_size, torch.zeros(all_size.shape[:2], dtype=torch.int64,
-                                  device=self.device), ['vehicle'])
-        if traffic_controls is not None:
-            self.birdview_mesh_generator.initialize_traffic_controls_mesh(
-                traffic_controls)
+            self._batch_size, self._agent_types, device=dev)
+        if renderer is None:
+            cfg.renderer.left_handed_coordinates = cfg.left_handed_coordinates
+            renderer = Renderer(cfg.renderer, dev)
+        self.renderer = renderer
+        if birdview_mesh_generator is None:
+            birdview_mesh_generator = BirdviewRGBMeshGenerator(
+                self.renderer.color_map, self.renderer.rendering_levels,
+                render_agent_direction=self.renderer.cfg.render_agent_direction,
+                background_mesh=road_mesh)
+            birdview_mesh_generator.initialize_actors_mesh(
+                self.get_all_agent_size(), self.get_all_agent_type(),
+                self._agent_types)
+            if traffic_controls is not None:
+                birdview_mesh_generator.initialize_traffic_controls_mesh(
+                    traffic_controls)
+        self.birdview_mesh_generator = birdview_mesh_generator
+        self._warned_host_wrong_way = False
+        self.check_prim_budget()
 
-        as_time = lambda t: torch.tensor(t, dtype=torch.int32, device=self.device)
-        waypoint_state = None
-        if waypoints is not None:
-            waypoint_state = WaypointGoalState(
-                state=torch.zeros(waypoints.shape[:2] + (1,), dtype=torch.int32,
-                                  device=self.device),
-                mask=torch.ones(waypoints.shape[:-1], dtype=torch.bool,
-                                device=self.device))
+        as_time = lambda t: torch.tensor(t, dtype=torch.int32, device=dev)
         self.state = SimulatorState(
-            agent_state=kinematic_model.get_state(),
-            present_mask=torch.as_tensor(initial_present_mask, dtype=torch.bool,
-                                         device=self.device),
+            agent_state=kinematic_model.get_state(), present_mask=present,
             npc_state=self.npc_controller.initial_npc_state,
             npc_present_mask=self.npc_controller.initial_npc_present_mask,
             traffic_control_state={k: v.state for k, v in
                                    (traffic_controls or {}).items()},
-            waypoint_state=waypoint_state,
+            waypoint_state=None if waypoint_goals is None else waypoint_goals._state,
             time=as_time(internal_time), npc_time=as_time(0))
+        self.validate_tensor_shapes()
+
+    # --- properties ---------------------------------------------------------
 
     @property
     def batch_size(self) -> int:
@@ -164,58 +277,39 @@ class Simulator:
         return self.agent_size.shape[-2]
 
     @property
+    def npc_count(self) -> int:
+        return self.npc_controller.npc_size.shape[-2]
+
+    @property
+    def agent_types(self) -> List[str]:
+        return self._agent_types
+
+    @property
     def action_size(self) -> int:
-        """Width of the actions :meth:`functional_step` takes."""
+        """Width of the actions :meth:`step` takes."""
         return self.kinematic_model.action_size
 
-    def fit_action(self, future_state: torch.Tensor,
-                   current_state: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The kinematic model's inverse dynamics from ``current_state``
-        (the current agent states by default) to ``future_state``."""
-        return self.kinematic_model.fit_action(
-            future_state, self.state.agent_state if current_state is None
-            else current_state)
+    @property
+    def internal_time(self) -> int:
+        """The step counter, read from the device (a host sync: the step,
+        render and grid-metric paths never read it)."""
+        return int(self.state.time)
 
-    def get_all_agent_size(self) -> torch.Tensor:
-        return torch.cat([self.agent_size, self.npc_controller.npc_size], dim=-2)
+    @property
+    def present_mask(self) -> torch.Tensor:
+        return self.state.present_mask
 
-    def extend(self, n: int, in_place: bool = True) -> "Simulator":
-        """
-        Multiply the batch dimension: every environment repeated ``n`` times
-        contiguously (sizes, kinematic state and parameters, controls, mesh
-        generator, NPC controller, waypoints and the state). A road mesh of
-        batch 1 is shared by every environment as it is.
+    def validate_tensor_shapes(self) -> None:
+        b, a = self.batch_size, self.agent_count
+        assert_equal(tuple(self.state.agent_state.shape[:2]), (b, a))
+        assert_equal(tuple(self.agent_size.shape), (b, a, 2))
+        assert_equal(tuple(self.agent_type.shape), (b, a))
+        assert_equal(tuple(self.agent_lr.shape), (b, a))
+        assert_equal(tuple(self.state.present_mask.shape), (b, a))
+        if self.road_mesh is not None and self.road_mesh.batch_size != 1:
+            assert_equal(self.road_mesh.batch_size, b)
 
-        Returns:
-            this simulator, or with ``in_place=False`` an extended copy (the
-            renderer, the configuration and the map grids, which hold no
-            batch, are shared).
-        """
-        target = self if in_place else copy.copy(self)
-        rep = lambda x: None if x is None else torch.repeat_interleave(x, n, dim=0)
-        if self.road_mesh is not None and self.road_mesh.batch_size > 1:
-            target.road_mesh = self.road_mesh.expand(n)
-        target.agent_size = rep(self.agent_size)
-        target._batch_size = self._batch_size * n
-        target.kinematic_model = copy.copy(self.kinematic_model)
-        target.kinematic_model.extend(n)
-        if self.traffic_controls is not None:
-            target.traffic_controls = {k: v.extend(n)
-                                       for k, v in self.traffic_controls.items()}
-        target.waypoints = rep(self.waypoints)
-        target.npc_controller = self.npc_controller.extend(n)
-        target.birdview_mesh_generator = self.birdview_mesh_generator.extend(n)
-        st = self.state
-        wp = st.waypoint_state
-        target.state = SimulatorState(
-            agent_state=rep(st.agent_state), present_mask=rep(st.present_mask),
-            npc_state=rep(st.npc_state), npc_present_mask=rep(st.npc_present_mask),
-            traffic_control_state={k: rep(v) for k, v in
-                                   st.traffic_control_state.items()},
-            waypoint_state=None if wp is None else WaypointGoalState(
-                state=rep(wp.state), mask=rep(wp.mask)),
-            time=st.time, npc_time=st.npc_time)
-        return target
+    # --- the pure step ------------------------------------------------------
 
     def functional_step(self, state: SimulatorState, agent_action: torch.Tensor
                         ) -> SimulatorState:
@@ -237,8 +331,9 @@ class Simulator:
         tc_state = {kind: control.advance(state.traffic_control_state[kind], time)
                     for kind, control in (self.traffic_controls or {}).items()}
         wp_state = state.waypoint_state
-        if self.waypoints is not None and wp_state is not None:
-            wp_state = step_waypoints(self.waypoints, wp_state, agent_state,
+        if self.waypoint_goals is not None and wp_state is not None:
+            wp_state = step_waypoints(self.waypoint_goals.waypoints, wp_state,
+                                      agent_state,
                                       threshold=self.cfg.waypoint_removal_threshold)
         return SimulatorState(
             agent_state=agent_state, present_mask=state.present_mask,
@@ -246,67 +341,291 @@ class Simulator:
             traffic_control_state=tc_state, waypoint_state=wp_state,
             time=time, npc_time=npc_time)
 
-    def render(self, camera_xy: torch.Tensor, camera_psi: torch.Tensor,
-               res: Optional[Resolution] = None,
-               rendering_mask: Optional[torch.Tensor] = None,
-               fov: Optional[float] = None,
-               waypoints: Optional[torch.Tensor] = None,
-               waypoints_rendering_mask: Optional[torch.Tensor] = None,
-               custom_agent_colors: Optional[torch.Tensor] = None,
-               noisy_perception: bool = False) -> torch.Tensor:
-        """
-        Bird's-eye views of the current state from arbitrary cameras: with a
-        background texture, the typed primitives by the fused render; else
-        the frame's mesh (the map mesh, the actors and the lights) by the
-        renderer's mesh render (hard by default).
+    # --- the mutating facade ------------------------------------------------
 
-        Args:
-            camera_xy: (B, Nc, 2) or (B, 2) centers; camera_psi: (B, Nc, 1)
-                or (B, 1) headings.
-            rendering_mask: (B, Nc, All) which agents each camera shows.
-            waypoints: (B, Nc, M, 2) discs to draw (mesh render only);
-                waypoints_rendering_mask: (B, Nc, M).
-        Returns:
-            (B, Nc, 3, H, W) float images in [0, 255].
-        """
-        if custom_agent_colors is not None or noisy_perception:
+    def step(self, agent_action: torch.Tensor) -> None:
+        """Advance :attr:`state` one step under BxAxaction_size actions."""
+        agent_action = torch.as_tensor(agent_action, device=self.device)
+        assert_equal(agent_action.dim(), 3)
+        assert_equal(agent_action.shape[0], self.batch_size)
+        assert_equal(agent_action.shape[-2], self.agent_count)
+        self.state = self.functional_step(self.state, agent_action)
+        self._sync_legacy_state()
+
+    def _sync_legacy_state(self) -> None:
+        """Keep the objects' own state attributes equal to :attr:`state`."""
+        self.kinematic_model.set_state(self.state.agent_state)
+        for kind, control in (self.traffic_controls or {}).items():
+            control.state = self.state.traffic_control_state[kind]
+        if self.waypoint_goals is not None and self.state.waypoint_state is not None:
+            self.waypoint_goals._state = self.state.waypoint_state
+
+    def set_state(self, agent_state: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> None:
+        """Overwrite the agent states (their leading channels when
+        ``agent_state`` is narrower than 4) where ``mask`` (BxA) holds."""
+        agent_state = torch.as_tensor(agent_state, dtype=torch.float32,
+                                      device=self.device)
+        assert_equal(agent_state.dim(), 3)
+        assert_equal(agent_state.shape[0], self.batch_size)
+        assert_equal(agent_state.shape[-2], self.agent_count)
+        current = self.state.agent_state
+        if agent_state.shape[-1] < current.shape[-1]:
+            agent_state = torch.cat([agent_state, current[..., agent_state.shape[-1]:]],
+                                    dim=-1)
+        if mask is not None:
+            mask = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
+            agent_state = torch.where(mask[..., None], agent_state, current)
+        self.state = dataclasses.replace(self.state, agent_state=agent_state)
+        self.kinematic_model.set_state(agent_state)
+
+    def update_present_mask(self, present_mask: torch.Tensor) -> None:
+        present_mask = torch.as_tensor(present_mask, dtype=torch.bool,
+                                       device=self.device)
+        assert_equal(tuple(present_mask.shape), tuple(self.state.present_mask.shape))
+        self.state = dataclasses.replace(self.state, present_mask=present_mask)
+
+    def fit_action(self, future_state: torch.Tensor,
+                   current_state: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The kinematic model's inverse dynamics from ``current_state``
+        (the current agent states by default) to ``future_state``."""
+        return self.kinematic_model.fit_action(
+            future_state, self.state.agent_state if current_state is None
+            else current_state)
+
+    # --- copies and batch operations ---------------------------------------
+
+    def to(self, device=None) -> "Simulator":
+        """This simulator; it stays on the device it was built on."""
+        if device is not None and torch.device(device) != self.device:
             raise NotImplementedError(
-                "custom agent colors and noisy perception are not ported")
-        camera_sc = torch.cat([torch.sin(camera_psi), torch.cos(camera_psi)], dim=-1)
-        if camera_xy.dim() == 2:
-            camera_xy, camera_sc = camera_xy[:, None], camera_sc[:, None]
-        b, n_cameras = camera_xy.shape[0], camera_xy.shape[1]
-        state = self.state
-        all_state = torch.cat([state.agent_state, state.npc_state], dim=-2)
-        present = torch.cat([state.present_mask, state.npc_present_mask], dim=-1)
-        n_all = present.shape[-1]
-        present = present[:, None].expand(b, n_cameras, n_all)
-        rendering_mask = present if rendering_mask is None \
-            else present & rendering_mask
-        light_state = state.traffic_control_state.get('traffic_light')
-        res_used = res or self.renderer.res
-        generator = self.birdview_mesh_generator
-        if self.renderer.background_texture is not None:
-            if waypoints is not None:
-                raise NotImplementedError(
-                    "waypoint discs are not ported to the primitive render")
-            flat = lambda x: torch.repeat_interleave(x, n_cameras, dim=0)
-            prims = generator.generate_prims(
-                flat(all_state), present_mask=rendering_mask.reshape(b * n_cameras, n_all),
-                traffic_light_state=None if light_state is None else flat(light_state))
-            scale = (2.0 / fov) if fov is not None else self.renderer.scale
-            image = self.renderer.render_prims_chw(
-                *prims, res_used, Cameras(camera_xy.reshape(-1, 2),
-                                          camera_sc.reshape(-1, 2), scale))
+                f"the simulator lives on {self.device}; build it on {device}")
+        return self
+
+    def copy(self) -> "Simulator":
+        """An independent copy: stepping, setting the state of or changing
+        the batch of either leaves the other as it was. The tensors, which
+        are never written in place, are shared, and so are the map grids
+        and the lanelet maps."""
+        other = copy.copy(self)
+        other.kinematic_model = self.kinematic_model.copy()
+        other.renderer = copy.copy(self.renderer)
+        other.birdview_mesh_generator = self.birdview_mesh_generator.copy()
+        if self.traffic_controls is not None:
+            other.traffic_controls = {k: v.copy()
+                                      for k, v in self.traffic_controls.items()}
+        if self.waypoint_goals is not None:
+            other.waypoint_goals = self.waypoint_goals.copy()
+        other.npc_controller = self.npc_controller.copy()
+        other._sync_legacy_state()
+        return other
+
+    def _map_batch(self, f, n_batch: int, mesh_f, lanelets_f) -> None:
+        """Apply the batch map ``f`` to every batched tensor and object."""
+        self.agent_size = f(self.agent_size)
+        self.agent_type = f(self.agent_type)
+        self.agent_lr = f(self.agent_lr)
+        if self.recenter_offset is not None:
+            self.recenter_offset = f(self.recenter_offset)
+        if self.road_mesh is not None and self.road_mesh.batch_size > 1:
+            self.road_mesh = mesh_f(self.road_mesh)
+        if self.lanelet_map is not None:
+            self.lanelet_map = lanelets_f(self.lanelet_map)
+        self._batch_size = n_batch
+        st = self.state
+        wp = st.waypoint_state
+        self.state = SimulatorState(
+            agent_state=f(st.agent_state), present_mask=f(st.present_mask),
+            npc_state=f(st.npc_state), npc_present_mask=f(st.npc_present_mask),
+            traffic_control_state={k: f(v) for k, v in
+                                   st.traffic_control_state.items()},
+            waypoint_state=None if wp is None else WaypointGoalState(
+                state=f(wp.state), mask=f(wp.mask)),
+            time=st.time, npc_time=st.npc_time)
+
+    def extend(self, n: int, in_place: bool = True) -> "Simulator":
+        """
+        Multiply the batch dimension: every environment repeated ``n``
+        times contiguously. A road mesh of batch 1 stays shared by every
+        environment.
+
+        Returns:
+            this simulator, or with ``in_place=False`` an extended copy.
+        """
+        if not in_place:
+            return self.copy().extend(n, in_place=True)
+        self.kinematic_model.extend(n)
+        if self.traffic_controls is not None:
+            self.traffic_controls = {k: v.extend(n, in_place=False)
+                                     for k, v in self.traffic_controls.items()}
+        if self.waypoint_goals is not None:
+            self.waypoint_goals = self.waypoint_goals.extend(n, in_place=False)
+        self.npc_controller = self.npc_controller.extend(n, in_place=False)
+        self.birdview_mesh_generator = self.birdview_mesh_generator.extend(n)
+        self._map_batch(lambda x: host_repeat(x, n), self._batch_size * n,
+                        lambda m: m.expand(n),
+                        lambda maps: [m for m in maps for _ in range(n)])
+        return self
+
+    def select_batch_elements(self, idx, in_place: bool = True) -> "Simulator":
+        """
+        Keep the environments ``idx`` (an int, list, array or tensor of
+        indices, repeats allowed).
+
+        Returns:
+            this simulator, or with ``in_place=False`` a copy.
+        """
+        if not in_place:
+            return self.copy().select_batch_elements(idx, in_place=True)
+        idx = as_batch_index(idx, self.device)
+        host_idx = idx.cpu().numpy()
+        self.kinematic_model.select_batch_elements(idx)
+        if self.traffic_controls is not None:
+            self.traffic_controls = {k: v.select_batch_elements(idx, in_place=False)
+                                     for k, v in self.traffic_controls.items()}
+        if self.waypoint_goals is not None:
+            self.waypoint_goals = self.waypoint_goals.select_batch_elements(
+                idx, in_place=False)
+        self.npc_controller = self.npc_controller.select_batch_elements(
+            idx, in_place=False)
+        self.birdview_mesh_generator = \
+            self.birdview_mesh_generator.select_batch_elements(idx)
+        self._map_batch(lambda x: x[idx], len(host_idx),
+                        lambda m: m.select_batch_elements(host_idx),
+                        lambda maps: [maps[int(i)] for i in host_idx])
+        return self
+
+    def __getitem__(self, item) -> "Simulator":
+        return self.select_batch_elements(item, in_place=False)
+
+    # --- getters --------------------------------------------------------------
+
+    def get_world_center(self) -> Optional[torch.Tensor]:
+        """Bx2 midpoint of the bounding box of the road mesh's 'road'
+        faces' vertices (of every vertex without that category), or None
+        without a road mesh."""
+        mesh = self.road_mesh
+        if mesh is None:
+            return None
+        verts = np.asarray(mesh.verts)[..., :2]
+        faces = np.asarray(mesh.faces).astype(np.int64)
+        categories = list(getattr(mesh, 'categories', []))
+        if 'road' in categories and mesh.vert_category is not None:
+            keep = np.asarray(mesh.vert_category) == categories.index('road')
+            parts = []
+            for i in range(mesh.batch_size):
+                used = np.unique(faces[i][keep[i][faces[i]].any(axis=-1)])
+                parts.append(verts[i][used])
+            n = max(len(p) for p in parts)
+            # the reference pads the shorter batch elements with zeros
+            parts = [np.concatenate([p, np.zeros((n - len(p), 2), p.dtype)])
+                     for p in parts]
+            verts = np.stack(parts)
+        if verts.shape[-2] == 0:
+            center = np.zeros((verts.shape[0], 2), np.float32)
         else:
-            mesh = generator.generate(
-                n_cameras, agent_state=all_state[:, None].expand(b, n_cameras, n_all, 4),
-                present_mask=rendering_mask, traffic_light_state=light_state,
-                waypoints=waypoints, waypoints_rendering_mask=waypoints_rendering_mask,
-                include_background=True)
-            image = self.renderer.render_frame(mesh, camera_xy, camera_sc,
-                                               res=res, fov=fov)
-        return image.reshape(b, n_cameras, 3, res_used.height, res_used.width)
+            center = (verts.max(axis=-2) + verts.min(axis=-2)) / 2
+        center = torch.as_tensor(center, dtype=torch.float32, device=self.device)
+        # a batch-1 road mesh is every environment's
+        return center.expand(self.batch_size, 2)
+
+    def get_state(self) -> torch.Tensor:
+        return self.state.agent_state
+
+    def get_waypoints(self, count: int = 1) -> Optional[torch.Tensor]:
+        """BxAx(count*M)x2 of the current and next ``count - 1`` waypoint
+        collections, or None without waypoint goals."""
+        if self.waypoint_goals is None:
+            return None
+        return gather_current(self.waypoint_goals.waypoints,
+                              self.state.waypoint_state, count)[0]
+
+    def get_waypoints_state(self) -> Optional[torch.Tensor]:
+        wp = self.state.waypoint_state
+        return None if wp is None else wp.state
+
+    def get_waypoints_mask(self, count: int = 1) -> Optional[torch.Tensor]:
+        if self.waypoint_goals is None:
+            return None
+        return gather_current(self.waypoint_goals.waypoints,
+                              self.state.waypoint_state, count)[1]
+
+    def get_agent_size(self) -> torch.Tensor:
+        return self.agent_size
+
+    def get_agent_type(self) -> torch.Tensor:
+        return self.agent_type
+
+    def get_agent_type_names(self) -> List[str]:
+        return self._agent_types
+
+    def get_agent_lr(self) -> torch.Tensor:
+        return self.agent_lr
+
+    def get_present_mask(self) -> torch.Tensor:
+        return self.state.present_mask
+
+    def get_npc_state(self) -> torch.Tensor:
+        return self.state.npc_state
+
+    def get_npc_size(self) -> torch.Tensor:
+        return self.npc_controller.npc_size
+
+    def get_npc_present_mask(self) -> torch.Tensor:
+        return self.state.npc_present_mask
+
+    def get_npc_types(self) -> torch.Tensor:
+        return self.npc_controller.npc_types
+
+    def get_all_agent_state(self) -> torch.Tensor:
+        return torch.cat([self.get_state(), self.get_npc_state()], dim=-2)
+
+    def get_all_agent_size(self) -> torch.Tensor:
+        return torch.cat([self.agent_size, self.get_npc_size()], dim=-2)
+
+    def get_all_agent_present_mask(self) -> torch.Tensor:
+        return torch.cat([self.get_present_mask(), self.get_npc_present_mask()],
+                         dim=-1)
+
+    def get_all_agent_type(self) -> torch.Tensor:
+        return torch.cat([self.agent_type, self.get_npc_types()], dim=-1)
+
+    def get_all_agents_absolute(self) -> torch.Tensor:
+        """Bx(A+Npc)x6: x, y, psi, length, width, present."""
+        return torch.cat([self.get_all_agent_state()[..., :3],
+                          self.get_all_agent_size(),
+                          self.get_all_agent_present_mask()[..., None].to(
+                              self.agent_size.dtype)], dim=-1)
+
+    def get_all_agents_relative(self, exclude_self: bool = True) -> torch.Tensor:
+        """BxAx(A+Npc)x6 (BxAx(A+Npc-1)x6 with ``exclude_self``): every
+        agent and NPC in each agent's frame (x, y, psi), with its length,
+        width and presence."""
+        return _relative_views(self.get_all_agents_absolute(), self.agent_count,
+                               exclude_self)
+
+    def get_traffic_controls(self) -> Optional[Dict[str, BaseTrafficControl]]:
+        return self.traffic_controls
+
+    def get_traffic_light_state(self) -> Optional[torch.Tensor]:
+        return self.state.traffic_control_state.get('traffic_light')
+
+    def get_action_model_extras(self) -> Dict[str, Any]:
+        """The extras given at construction; per-agent target speeds
+        (``target_speeds``, ``target_speeds_mask``: BxAxTx...) as each
+        agent's first, (B*A)x..., under ``target_speed`` and
+        ``target_speed_mask``."""
+        if self.action_model_extras is None:
+            return {}
+        renamed = {'target_speeds': 'target_speed',
+                   'target_speeds_mask': 'target_speed_mask'}
+        out = {}
+        for k, v in self.action_model_extras.items():
+            if k in renamed and v is not None:
+                out[renamed[k]] = v.reshape(-1, *v.shape[2:])[:, 0]
+            else:
+                out[k] = v
+        return out
 
     def set_light_schedule(self, schedule) -> None:
         """
@@ -324,3 +643,294 @@ class Simulator:
                 self.state, traffic_control_state={
                     **self.state.traffic_control_state, 'traffic_light': now})
             control.state = now
+
+    # --- rendering --------------------------------------------------------------
+
+    def check_prim_budget(self, waypoint_count: Optional[int] = None,
+                          strict: bool = False) -> None:
+        """
+        Warn (or with ``strict`` raise ``ValueError``) when the scene's
+        worst case, every agent, light and waypoint visible in one camera,
+        exceeds the primitive render's per-type cap ``min(max(8,
+        band_budget), 56)``: past it the fused render keeps each type's
+        prims nearest the view center and drops the rest.
+
+        Args:
+            waypoint_count: waypoints rendered per camera; one per agent by
+                default when waypoint goals are set.
+        """
+        budget = getattr(self.renderer.cfg, 'band_budget', None)
+        if budget is None:
+            return
+        cap = min(max(8, int(budget)), 56)
+        if waypoint_count is None:
+            waypoint_count = self.agent_count if self.waypoint_goals is not None else 0
+        quads, tris = self.birdview_mesh_generator.worst_case_prim_counts(
+            waypoint_count)
+        if quads <= cap and tris <= cap:
+            return
+        msg = (f"scene content can exceed the renderer's per-camera prim budget: "
+               f"worst case {quads} quads / {tris} triangles vs band_budget cap "
+               f"{cap} (per type). Frames where more than {cap} prims of one type "
+               f"are visible in a single camera will drop the farthest ones. "
+               f"Reduce agents/lights/waypoints per scene or raise "
+               f"RendererConfig.band_budget (hard max 56).")
+        if strict:
+            raise ValueError(msg)
+        logger.warning(msg)
+
+    def render(self, camera_xy: torch.Tensor, camera_psi: torch.Tensor,
+               res: Optional[Resolution] = None,
+               rendering_mask: Optional[torch.Tensor] = None,
+               fov: Optional[float] = None,
+               waypoints: Optional[torch.Tensor] = None,
+               waypoints_rendering_mask: Optional[torch.Tensor] = None,
+               custom_agent_colors: Optional[torch.Tensor] = None,
+               noisy_perception: bool = False) -> torch.Tensor:
+        """
+        Bird's-eye views of the current state from arbitrary cameras: with a
+        background texture, the typed primitives by the primitive render;
+        else the frame's mesh (the map mesh, the actors, the lights and the
+        waypoints) by the renderer's mesh render (hard by default).
+
+        Args:
+            camera_xy: (B, Nc, 2) or (B, 2) centers; camera_psi: (B, Nc, 1)
+                or (B, 1) headings.
+            rendering_mask: (B, Nc, All) which agents each camera shows.
+            waypoints: (B, Nc, M, 2) discs to draw;
+                waypoints_rendering_mask: (B, Nc, M).
+        Returns:
+            (B, Nc, 3, H, W) float images in [0, 255].
+        """
+        if custom_agent_colors is not None or noisy_perception:
+            raise NotImplementedError(
+                "custom agent colors and noisy perception are not ported (ROADMAP A15)")
+        res_used = res or self.renderer.res
+        if self.renderer.background_texture is not None:
+            prims, cameras = self.prim_frame(camera_xy, camera_psi, rendering_mask,
+                                             fov, waypoints, waypoints_rendering_mask)
+            image = self.renderer.render_prims_chw(*prims, res_used, cameras)
+        else:
+            camera_xy, camera_sc, shown = self._camera_masks(camera_xy, camera_psi,
+                                                             rendering_mask)
+            b, n_cameras, n_all = shown.shape
+            mesh = self.birdview_mesh_generator.generate(
+                n_cameras, agent_state=self.get_all_agent_state()[:, None].expand(
+                    b, n_cameras, n_all, 4),
+                present_mask=shown, traffic_light_state=self.get_traffic_light_state(),
+                waypoints=waypoints, waypoints_rendering_mask=waypoints_rendering_mask,
+                include_background=True)
+            image = self.renderer.render_frame(mesh, camera_xy, camera_sc,
+                                               res=res, fov=fov)
+        return image.reshape(camera_xy.shape[0], -1, 3, res_used.height,
+                             res_used.width)
+
+    def _camera_masks(self, camera_xy: torch.Tensor, camera_psi: torch.Tensor,
+                      rendering_mask: Optional[torch.Tensor]):
+        """(B, Nc, 2) centers, (B, Nc, 2) (sin, cos) headings and (B, Nc,
+        All) agents shown (present and in ``rendering_mask``)."""
+        camera_sc = torch.cat([torch.sin(camera_psi), torch.cos(camera_psi)], dim=-1)
+        if camera_xy.dim() == 2:
+            camera_xy, camera_sc = camera_xy[:, None], camera_sc[:, None]
+        b, n_cameras = camera_xy.shape[0], camera_xy.shape[1]
+        present = self.get_all_agent_present_mask()
+        present = present[:, None].expand(b, n_cameras, present.shape[-1])
+        shown = present if rendering_mask is None else present & rendering_mask
+        return camera_xy, camera_sc, shown
+
+    def prim_frame(self, camera_xy: torch.Tensor, camera_psi: torch.Tensor,
+                   rendering_mask: Optional[torch.Tensor] = None,
+                   fov: Optional[float] = None,
+                   waypoints: Optional[torch.Tensor] = None,
+                   waypoints_rendering_mask: Optional[torch.Tensor] = None):
+        """
+        The typed primitives of :meth:`render`'s textured frame, one batch
+        element per camera (B * Nc, camera fastest), and its cameras:
+        ``((quads, qz, qcolors, tris, tz, tcolors), Cameras)``, as the
+        renderer's ``render_prims_chw`` takes them.
+        """
+        camera_xy, camera_sc, shown = self._camera_masks(camera_xy, camera_psi,
+                                                         rendering_mask)
+        b, n_cameras = camera_xy.shape[0], camera_xy.shape[1]
+        flat = lambda x: None if x is None else x.reshape(
+            (b * n_cameras,) + tuple(x.shape[2:]))
+        rep = lambda x: None if x is None else torch.repeat_interleave(
+            x, n_cameras, dim=0)
+        prims = self.birdview_mesh_generator.generate_prims(
+            rep(self.get_all_agent_state()), present_mask=flat(shown),
+            traffic_light_state=rep(self.get_traffic_light_state()),
+            waypoints=flat(waypoints),
+            waypoints_rendering_mask=flat(waypoints_rendering_mask))
+        scale = (2.0 / fov) if fov is not None else self.renderer.scale
+        return prims, Cameras(camera_xy.reshape(-1, 2), camera_sc.reshape(-1, 2),
+                              scale)
+
+    def render_egocentric(self, ego_rotate: bool = True,
+                          res: Optional[Resolution] = None,
+                          fov: Optional[float] = None,
+                          visibility_matrix: Optional[torch.Tensor] = None,
+                          custom_agent_colors: Optional[torch.Tensor] = None,
+                          n_subsequent_waypoints: int = 1,
+                          noisy_perception: bool = False) -> torch.Tensor:
+        """
+        One camera per agent, centered on it (heading up with
+        ``ego_rotate``), showing its own next ``n_subsequent_waypoints``
+        waypoint collections; with ``cfg.single_agent_rendering`` each
+        camera shows its own agent and the NPCs only.
+
+        Returns:
+            BxAx3xHxW float images in [0, 255].
+        """
+        xy, psi, mask = self._egocentric_cameras(ego_rotate, visibility_matrix)
+        return self.render(xy, psi, res=res, rendering_mask=mask, fov=fov,
+                           **self._egocentric_waypoints(n_subsequent_waypoints),
+                           custom_agent_colors=custom_agent_colors,
+                           noisy_perception=noisy_perception)
+
+    def egocentric_prim_frame(self, fov: Optional[float] = None,
+                              n_subsequent_waypoints: int = 1,
+                              ego_rotate: bool = True,
+                              visibility_matrix: Optional[torch.Tensor] = None):
+        """:meth:`prim_frame` of :meth:`render_egocentric`'s cameras:
+        (primitives of the B * A cameras, Cameras)."""
+        xy, psi, mask = self._egocentric_cameras(ego_rotate, visibility_matrix)
+        return self.prim_frame(xy, psi, mask, fov,
+                               **self._egocentric_waypoints(n_subsequent_waypoints))
+
+    def _egocentric_cameras(self, ego_rotate: bool,
+                            visibility_matrix: Optional[torch.Tensor]):
+        """(camera_xy, camera_psi, rendering_mask) of one camera per agent."""
+        camera_xy = self.get_state()[..., :2]
+        camera_psi = self.get_state()[..., 2:3]
+        if not ego_rotate:
+            camera_psi = torch.full_like(camera_psi, np.pi / 2)
+        rendering_mask = visibility_matrix
+        if self.cfg.single_agent_rendering:
+            a = self.agent_count
+            own = torch.cat([torch.eye(a, dtype=torch.bool, device=self.device),
+                             torch.ones((a, self.npc_count), dtype=torch.bool,
+                                        device=self.device)], dim=-1)
+            rendering_mask = own[None].expand(self.batch_size, a, a + self.npc_count)
+        return camera_xy, camera_psi, rendering_mask
+
+    def _egocentric_waypoints(self, count: int) -> Dict[str, Optional[torch.Tensor]]:
+        """Each agent's camera's own next ``count`` waypoint collections."""
+        waypoints = self.get_waypoints(count=count)
+        return dict(waypoints=waypoints, waypoints_rendering_mask=None
+                    if waypoints is None else self.get_waypoints_mask(count=count))
+
+    # --- infractions --------------------------------------------------------------
+
+    def compute_offroad(self) -> torch.Tensor:
+        """BxA offroad losses: from the baked distance grid when there is
+        one, else by the exact distance to the road mesh."""
+        if self.map_grids is not None:
+            loss = offroad_loss_from_grid(self.map_grids, self.get_state(),
+                                          self.agent_size,
+                                          threshold=self.cfg.offroad_threshold)
+        else:
+            loss = offroad_infraction_loss(self.get_state(), self.agent_size,
+                                           self.road_mesh,
+                                           threshold=self.cfg.offroad_threshold)
+        return loss * self.get_present_mask()
+
+    def compute_wrong_way(self) -> torch.Tensor:
+        """BxA wrong-way losses: from the baked direction grid when there is
+        one, else by lanelet queries on the host (it reads the states back),
+        else zeros."""
+        state = self.get_state()
+        if self.map_grids is not None and self.map_grids.direction is not None:
+            if self.recenter_offset is not None:
+                state = torch.cat([state[..., :2] + self.recenter_offset[:, None],
+                                   state[..., 2:]], dim=-1)
+            return wrong_way_loss_from_grid(
+                self.map_grids, state,
+                angle_threshold=self.cfg.wrong_way_angle_threshold
+            ) * self.get_present_mask()
+        if self.lanelet_map is not None:
+            b, a = state.shape[:2]
+            if b * a > 64 and not self._warned_host_wrong_way:
+                logger.warning(
+                    "compute_wrong_way is using the host lanelet path, which is "
+                    "O(batch x agents) Python (%d x %d here), far slower than the "
+                    "baked grid path; give the simulator map_grids with a "
+                    "direction field for lookups on the device.", b, a)
+                self._warned_host_wrong_way = True
+            return lanelet_orientation_loss(
+                self.lanelet_map, state, self.recenter_offset,
+                direction_angle_threshold=self.cfg.wrong_way_angle_threshold,
+                lanelet_dist_tolerance=self.cfg.lanelet_inclusion_tolerance,
+            ) * self.get_present_mask()
+        return torch.zeros(state.shape[:2], device=self.device)
+
+    def compute_traffic_lights_violations(self) -> torch.Tensor:
+        """BxA bool: agents whose rear crosses a red stopline."""
+        state = self.get_state()
+        control = (self.traffic_controls or {}).get('traffic_light')
+        if control is None:
+            return torch.zeros(state.shape[:2], dtype=torch.bool, device=self.device)
+        boxes = torch.cat([state[..., :2], self.agent_size, state[..., 2:3]], dim=-1)
+        v = red_light_violations(
+            boxes, control.corners, self.state.traffic_control_state['traffic_light'],
+            red_index=control.allowed_states.index('red'))
+        return v & self.get_present_mask()
+
+    def compute_collision(self, agent_types: Optional[List[str]] = None
+                          ) -> torch.Tensor:
+        """
+        BxA collision values by ``cfg.collision_metric``: against agents and
+        NPCs (of ``agent_types`` only, when given) by discs or IoU, or the
+        exact counts against the other agents (no ``agent_types``).
+        """
+        metric = self.cfg.collision_metric
+        states = self.get_state()
+        if metric in (CollisionMetric.nograd, CollisionMetric.nograd_pytorch3d):
+            assert agent_types is None, \
+                'agent_types unsupported by the selected collision metric'
+            boxes = torch.cat([states[..., :2], self.agent_size, states[..., 2:3]],
+                              dim=-1)
+            present = self.get_present_mask()
+            if metric == CollisionMetric.nograd:
+                return compute_agent_collisions_metric(boxes, present, present)
+            return compute_agent_collisions_metric_pytorch3d(boxes, present)
+        all_states = self.get_all_agent_state()
+        mask = self.get_all_agent_present_mask()
+        if agent_types is not None:
+            allowed = torch.as_tensor(
+                [self._agent_types.index(t) for t in agent_types
+                 if t in self._agent_types], dtype=torch.int32, device=self.device)
+            mask = mask & torch.isin(self.get_all_agent_type(), allowed)
+        all_boxes = torch.cat([all_states[..., :2], self.get_all_agent_size(),
+                               all_states[..., 2:3]], dim=-1)
+        collisions = compute_collision_matrix(all_boxes, mask, metric=metric.value)
+        return collisions[..., :self.agent_count]
+
+
+def _relative_views(abs_pos: torch.Tensor, agent_count: int,
+                    exclude_self: bool) -> torch.Tensor:
+    """BxAxTx6 views of the Bx(T)x6 absolute entries from each of the
+    first ``agent_count``: positions and headings relative, the rest as
+    they are."""
+    xy = abs_pos[..., :agent_count, :2]
+    psi = abs_pos[..., :agent_count, 2:3]
+    rel_xy, rel_psi = relative(origin_xy=xy[..., :, None, :],
+                               origin_psi=psi[..., :, None, :],
+                               target_xy=abs_pos[..., None, :, :2],
+                               target_psi=abs_pos[..., None, :, 2:3])
+    rel_state = torch.cat([rel_xy, rel_psi], dim=-1)
+    info = abs_pos[..., None, :, 3:].expand(
+        rel_state.shape[:-1] + (abs_pos.shape[-1] - 3,))
+    rel = torch.cat([rel_state, info], dim=-1)
+    return _drop_self(rel, agent_count) if exclude_self else rel
+
+
+def _drop_self(rel: torch.Tensor, agent_count: int) -> torch.Tensor:
+    """(..., A, T, D) -> (..., A, T - 1, D): each agent's own entry removed,
+    by one gather: row i keeps the columns j of ``~eye(A, T)``, whose k-th
+    is ``k + (k >= i)``."""
+    total = rel.shape[-2]
+    k = torch.arange(total - 1, device=rel.device)
+    i = torch.arange(agent_count, device=rel.device)[:, None]
+    idx = (k + (k >= i).to(k.dtype))[..., None]
+    return torch.gather(rel, -2, idx.expand(rel.shape[:-3] + (
+        agent_count, total - 1, rel.shape[-1])))

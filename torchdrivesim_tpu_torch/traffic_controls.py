@@ -15,7 +15,7 @@ import torch
 from torchdrivesim_tpu_torch.ops.box import (
     box2corners, box2corners_with_rear_factor, boxes_overlap_sat_cross,
 )
-from torchdrivesim_tpu_torch.utils import time_slice
+from torchdrivesim_tpu_torch.utils import as_batch_index, host_repeat, time_slice
 
 #: far-away placeholder for masked stopline corners
 MASKED_CORNER_VALUE = -1000.0
@@ -107,14 +107,45 @@ class BaseTrafficControl:
         return torch.zeros(self.pos.shape[:2], dtype=torch.int32,
                            device=self.pos.device)
 
-    def extend(self, n: int) -> "BaseTrafficControl":
-        """A copy with every batch element repeated ``n`` times."""
+    @property
+    def total_replay_time(self) -> int:
+        return self.replay_states.shape[-1]
+
+    #: the batched tensors that ``extend`` and ``select_batch_elements`` map
+    _BATCHED = ('pos', 'corners', 'mask', 'replay_states', 'state')
+
+    def copy(self) -> "BaseTrafficControl":
+        """A copy sharing the (never written) tensors: every change rebinds
+        an attribute. Unlike the reference's, it keeps ``actor_ids`` and a
+        light schedule."""
         other = self.__class__.__new__(self.__class__)
         other.__dict__.update(self.__dict__)
-        for name in ('pos', 'corners', 'mask', 'replay_states', 'state'):
-            setattr(other, name,
-                    torch.repeat_interleave(getattr(self, name), n, dim=0))
+        other.allowed_states = list(self.allowed_states)
         return other
+
+    def to(self, device=None) -> "BaseTrafficControl":
+        return self
+
+    def _map(self, f, in_place: bool) -> "BaseTrafficControl":
+        target = self if in_place else self.copy()
+        for name in self._BATCHED:
+            setattr(target, name, f(getattr(self, name)))
+        return target
+
+    def extend(self, n: int, in_place: bool = True) -> "BaseTrafficControl":
+        """Every batch element repeated ``n`` times contiguously: this
+        control, or with ``in_place=False`` a copy."""
+        return self._map(lambda x: host_repeat(x, n), in_place)
+
+    def select_batch_elements(self, idx, in_place: bool = True
+                              ) -> "BaseTrafficControl":
+        """The batch elements ``idx``: this control, or with
+        ``in_place=False`` a copy."""
+        idx = as_batch_index(idx, self.pos.device)
+        return self._map(lambda x: x[idx], in_place)
+
+    def set_state(self, state: torch.Tensor) -> None:
+        self.state = state
 
     def compute_state(self, state: torch.Tensor, time: torch.Tensor
                       ) -> torch.Tensor:
@@ -125,6 +156,16 @@ class BaseTrafficControl:
         """The control state advance: replay -> compute_state -> hold."""
         return replay_or_hold_state(self.compute_state(state, time),
                                     self.replay_states, time)
+
+    def step(self, time) -> None:
+        """Advance :attr:`state` to ``time`` (an int or a 0-dim tensor)."""
+        self.state = self.advance(self.state, torch.as_tensor(
+            time, dtype=torch.int32, device=self.pos.device))
+
+    def compute_violation(self, agent_state: torch.Tensor) -> torch.Tensor:
+        """Base controls report no violations: (B, A) False."""
+        return torch.zeros(agent_state.shape[:2], dtype=torch.bool,
+                           device=agent_state.device)
 
 
 class TrafficLightControl(BaseTrafficControl):
@@ -157,3 +198,18 @@ class TrafficLightControl(BaseTrafficControl):
             return state
         lights = self.schedule.states_at(time.to(torch.float32) * self.dt)
         return torch.broadcast_to(lights[None], state.shape).to(state.dtype)
+
+    def compute_violation(self, agent_state: torch.Tensor) -> torch.Tensor:
+        """(B, A) agents of (B, A, 5) boxes overlapping a red stopline."""
+        return red_light_violations(
+            agent_state, self.corners, self.state,
+            red_index=self.allowed_states.index('red'),
+            rear_factor=self.violation_rear_factor)
+
+
+class YieldControl(BaseTrafficControl):
+    """Yield signs; no violations are computed."""
+
+
+class StopSignControl(BaseTrafficControl):
+    """Stop signs; no violations are computed."""

@@ -1,6 +1,6 @@
 """
 Geometric tensor helpers shared by the port (counterpart of
-``torchdrivesim_tpu/utils.py``; only what the env step uses).
+``torchdrivesim_tpu/utils.py``).
 """
 import collections
 
@@ -8,6 +8,22 @@ import numpy as np
 import torch
 
 Resolution = collections.namedtuple('Resolution', ['width', 'height'])
+
+
+def host_repeat(x: torch.Tensor, n: int, dim: int = 0) -> torch.Tensor:
+    """Every element along ``dim`` repeated ``n`` times contiguously (the
+    batch ``extend`` of every class), on the tensor's own device."""
+    return torch.repeat_interleave(x, n, dim=dim)
+
+
+def as_batch_index(idx, device=None) -> torch.Tensor:
+    """A batch selection (int, list, numpy array or tensor) as an int64
+    index tensor on ``device``; a scalar keeps its batch dimension."""
+    if torch.is_tensor(idx):
+        out = idx.to(dtype=torch.int64, device=device)
+    else:
+        out = torch.as_tensor(np.asarray(idx, dtype=np.int64), device=device)
+    return out.reshape(-1) if out.dim() == 0 else out
 
 
 def normalize_angle(angle):
@@ -32,7 +48,69 @@ def rotate(v: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
     return torch.stack([x, y], dim=-1)
 
 
+def relative(origin_xy: torch.Tensor, origin_psi: torch.Tensor,
+             target_xy: torch.Tensor, target_psi: torch.Tensor):
+    """
+    Position and orientation of ``target`` in the frame of ``origin``:
+    ``*_xy`` are (..., 2), ``*_psi`` (..., 1).
+
+    Returns:
+        (rel_xy (..., 2), rel_psi (..., 1)).
+    """
+    rel_xy = rotate(target_xy - origin_xy, -origin_psi)
+    rel_psi = normalize_angle(target_psi - origin_psi)
+    return rel_xy, rel_psi
+
+
+def transform(points: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
+    """
+    Points given relative to a pose, in absolute coordinates.
+
+    Args:
+        points: (..., N, 2) relative points.
+        pose: (..., 3) pose (x, y, yaw).
+    Returns:
+        (..., N, 2) absolute points.
+    """
+    return rotate(points, pose[..., None, 2:3]) + pose[..., None, :2]
+
+
+def isin(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Whether each element of ``x`` is in the 1-D ``y``."""
+    return torch.isin(x, y)
+
+
+def is_inside_polygon(point: torch.Tensor, polygon: torch.Tensor) -> torch.Tensor:
+    """
+    Whether points lie inside a convex polygon winding either way (points on
+    the boundary count as inside in one of the two orientations).
+
+    Args:
+        point: (B..., P..., 2) points (zero or more batch dims, zero or more
+            point dims).
+        polygon: (B..., N, 2) polygon vertices.
+    Returns:
+        (B..., P...) bool.
+    """
+    batch_dims = polygon.dim() - 2
+    assert batch_dims >= 0
+    assert polygon.shape[:batch_dims] == point.shape[:batch_dims]
+    for _ in point.shape[batch_dims:-1]:
+        polygon = polygon.unsqueeze(-3)
+    start = polygon
+    end = torch.roll(polygon, -1, dims=-2)
+    a = end[..., 1] - start[..., 1]
+    b = start[..., 0] - end[..., 0]
+    c = -a * start[..., 0] - b * start[..., 1]
+    is_right = a * point[..., None, 0] + b * point[..., None, 1] + c >= 0
+    return is_right.all(dim=-1) | (~is_right).all(dim=-1)
+
+
 def time_slice(arr: torch.Tensor, t: torch.Tensor, dim: int) -> torch.Tensor:
     """Index a (replay) time axis by a scalar tensor, clamped to range."""
     t = torch.clamp(t.long(), 0, arr.shape[dim] - 1).reshape(1)
     return torch.index_select(arr, dim, t).squeeze(dim)
+
+
+def assert_equal(x, y):
+    assert x == y, f"{x} != {y}"
