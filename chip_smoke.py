@@ -1,6 +1,6 @@
 """
 Smoke run of the PyTorch port on one CUDA card. Builds every kernel from the
-checkout (one ``nvcc`` per source, all at once), then drives eight paths:
+checkout (one ``nvcc`` per source, all at once), then drives eleven paths:
 
 * the headline env step (carla_Town02, 256 environments, 20 vehicles,
   128 x 128 render plus all metrics): the fused render kernel against its
@@ -78,6 +78,26 @@ checkout (one ``nvcc`` per source, all at once), then drives eight paths:
   offroad on the last state against the CPU; the port's
   ``examples/simulate.py`` for 20 steps; times, bound, device operations
   and iterations/s.
+* NPC replay (``examples/replay.py`` on INTERACTION-layout data written
+  at run time from the bundled Town02 map: case 1, the first agent a
+  teleporting ego, 19 replayed NPCs, 39 frames of ``render_egocentric`` at
+  256 x 256, fov 100 m, over the untextured Town02 mesh, ~17,000 faces):
+  the hard raster's chunked kernel against its plain version on the first
+  and the last frame, 3 frames against the CPU, the example counting
+  launches, a replayed step captured in a CUDA graph against the eager
+  one, times, bound and frames/s;
+* imitation learning on INTERACTION cases (the example's dataset branch:
+  16 segments of the written data, the ego a simple-model agent, 19
+  replayed NPCs drawn in every frame, horizon 39, 64 x 64 over the road
+  mesh triangulated from Town02's .osm, ~3,400 faces): the grouped soft
+  raster's two kernels against their plain versions and their tile lists
+  against the plain cull on the first and the last frame, a small
+  gradient step against the CPU, the example's training steps counting
+  launches, times, bounds and grad-rollouts/s;
+* the single-ego ``GymEnv`` (Town02, 6 agents, textured, 64 x 64 through
+  ``SingleAgentWrapper``): the fused render kernel against its plain
+  version on the first and the last frame, 3 steps against the CPU, an
+  episode of 100 steps counting launches, times, bound and env steps/s.
 
     python3 chip_smoke.py
 
@@ -1740,11 +1760,11 @@ def tile_pairs(corners, valid, res) -> int:
     return int((tiles * valid).sum())
 
 
-def hard_tile_pairs(venv, mesh, cams, valid, res) -> int:
+def hard_tile_pairs(renderer, mesh, cams, valid, res) -> int:
     """:func:`tile_pairs` of the hard raster's faces."""
     from torchdrivesim_tpu_torch.ops.rasterize import camera_rows_cols, face_arrays
     rc = camera_rows_cols(mesh.verts[..., :2], cams.xy, cams.sc, cams.scale, res,
-                          left_handed=venv.sim.renderer.cfg.left_handed_coordinates)
+                          left_handed=renderer.cfg.left_handed_coordinates)
     corners, _, _ = face_arrays(torch.cat([rc, mesh.verts[..., 2:3]], dim=-1),
                                 mesh.faces, mesh.attrs)
     return tile_pairs(corners, valid, res)
@@ -2049,9 +2069,10 @@ def rl_path(device, card):
     tcoef, tz, trgb = town_ops
     tb, tf = tz.shape
     tiles = hard.hard_tiles(RL_RES)
-    pairs_a = hard_tile_pairs(venv, mesh, cams, pk != hard.PACKED_SENTINEL, RL_RES)
-    pairs = hard_tile_pairs(untextured, town_mesh, town_cams, tz != hard.Z_SENTINEL,
-                            RL_RES)
+    pairs_a = hard_tile_pairs(venv.sim.renderer, mesh, cams, pk != hard.PACKED_SENTINEL,
+                              RL_RES)
+    pairs = hard_tile_pairs(untextured.sim.renderer, town_mesh, town_cams,
+                            tz != hard.Z_SENTINEL, RL_RES)
     listed_a = hard.hard_tile_keep_reference(coef, pk, hard.PACKED_SENTINEL, RL_RES)
     listed = hard.hard_tile_keep_reference(tcoef, tz, hard.Z_SENTINEL, RL_RES)
     for label, n_pairs, keep, nb, nf in (('RL view', pairs_a, listed_a, b, n_faces),
@@ -3024,6 +3045,544 @@ def facade_path(device, card):
             'library_ms': None}
 
 
+# --- NPC replay, the INTERACTION data path and the single GymEnv -------------
+
+#: the INTERACTION-layout data written at run time: cases of frames, each
+#: with vehicles (half typed 'car') and pedestrians (present for
+#: INTERACTION_PED_FRAMES frames, with empty psi, length and width)
+INTERACTION_CASES, INTERACTION_FRAMES = 16, 40
+INTERACTION_VEHICLES, INTERACTION_PEDESTRIANS, INTERACTION_PED_FRAMES = 16, 4, 25
+INTERACTION_COLUMNS = ('case_id', 'track_id', 'frame_id', 'timestamp_ms', 'agent_type',
+                       'x', 'y', 'vx', 'vy', 'psi_rad', 'length', 'width')
+
+
+def interaction_rows(case_id: int, lanelet_map):
+    """One case's rows in the INTERACTION v1.2 layout: vehicles placed by
+    ``heuristic_initialize`` from ``random.Random(case_id)`` moving at
+    their speed along their heading (dt 0.1 s), pedestrians beside the
+    first vehicles walking at 1.2 m/s; track ids (vehicles 1..,
+    pedestrians after them) written in an order shuffled by
+    ``np.random.RandomState(case_id)``, each track's rows in frame order."""
+    import random
+    from torchdrivesim_tpu_torch.behavior.heuristic import heuristic_initialize
+    attrs, states = heuristic_initialize(lanelet_map, INTERACTION_VEHICLES,
+                                         random.Random(case_id), min_speed=1,
+                                         max_speed=8)
+    tracks = {}
+    frames = np.arange(1, INTERACTION_FRAMES + 1)
+    for i, (x, y, psi, v) in enumerate(states[0].astype(np.float64)):
+        vx, vy = v * math.cos(psi), v * math.sin(psi)
+        tracks[i + 1] = [['car' if i % 2 else 'vehicle', x + vx * 0.1 * (f - 1),
+                          y + vy * 0.1 * (f - 1), vx, vy, psi, *attrs[0, i, :2]]
+                         for f in frames]
+    start = (INTERACTION_FRAMES - INTERACTION_PED_FRAMES) // 2
+    for k in range(INTERACTION_PEDESTRIANS):
+        x, y, psi, _ = states[0, k].astype(np.float64)
+        px, py = x - 3.0 * math.sin(psi), y + 3.0 * math.cos(psi)
+        tracks[INTERACTION_VEHICLES + k + 1] = [
+            ['pedestrian/bicycle', px + 0.12 * (f - 1), py, 1.2, 0.0, '', '', '']
+            for f in frames[start:start + INTERACTION_PED_FRAMES]]
+    order = np.random.RandomState(case_id).permutation(sorted(tracks))
+    rows = []
+    for track_id in order:
+        first = 1 + start if track_id > INTERACTION_VEHICLES else 1
+        for f, (kind, x, y, vx, vy, psi, length, width) in enumerate(tracks[track_id],
+                                                                     first):
+            num = lambda value: value if value == '' else f'{value:.3f}'
+            rows.append([case_id, int(track_id), f, f * 100, kind, num(x), num(y),
+                         num(vx), num(vy), num(psi), num(length), num(width)])
+    return rows
+
+
+def write_interaction_data(root: str, cases: int = INTERACTION_CASES) -> str:
+    """An INTERACTION-layout dataset root for carla_Town02 under ``root``:
+    ``maps/carla_Town02.osm`` (a copy of the bundled map, origin (0, 0)),
+    ``train/carla_Town02_train.csv`` (``cases`` cases of
+    :func:`interaction_rows`) and
+    ``recorded_trackfiles/carla_Town02/vehicle_tracks_000.csv`` (case 1's
+    rows without ``case_id``). Returns ``root``."""
+    import csv
+    import os
+    import shutil
+    from torchdrivesim_tpu_torch.lanelet2 import load_lanelet_map
+    from torchdrivesim_tpu_torch.map import find_map_config
+    osm = find_map_config('carla_Town02').lanelet_path
+    for sub in ('maps', 'train', 'recorded_trackfiles/carla_Town02'):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    shutil.copy(osm, os.path.join(root, 'maps', 'carla_Town02.osm'))
+    lanelet_map = load_lanelet_map(osm)
+    per_case = {c: interaction_rows(c, lanelet_map) for c in range(1, cases + 1)}
+    with open(os.path.join(root, 'train', 'carla_Town02_train.csv'), 'w',
+              newline='') as f:
+        out = csv.writer(f)
+        out.writerow(INTERACTION_COLUMNS)
+        for c in per_case:
+            out.writerows(per_case[c])
+    path = os.path.join(root, 'recorded_trackfiles', 'carla_Town02',
+                        'vehicle_tracks_000.csv')
+    with open(path, 'w', newline='') as f:
+        out = csv.writer(f)
+        out.writerow(INTERACTION_COLUMNS[1:])
+        out.writerows(row[1:] for row in per_case[1])
+    return root
+
+
+REPLAY_RES, REPLAY_COMPARE_RES, REPLAY_COMPARE_FRAMES = 256, 64, 3
+DATASET_IL_BATCH, DATASET_IL_HORIZON, DATASET_IL_RES, DATASET_IL_STEPS = 16, 40, 64, 3
+GYM_STEPS = 100
+
+
+def replay_argv(root: str, device, res: int = REPLAY_RES,
+                frames: int = INTERACTION_FRAMES):
+    """The replay example's arguments: case 1 of :func:`write_interaction_data`
+    under ``root`` over the Town02 mesh JSON."""
+    from torchdrivesim_tpu_torch.map import find_map_config
+    return ['--dataset-path', root, '--location', 'carla_Town02', '--map-mesh',
+            find_map_config('carla_Town02').mesh_path, '--segment-length', str(frames),
+            '--res', str(res), '--out', 'build/replay_example.npz', '--device',
+            str(device)]
+
+
+def replay_frame(sim):
+    """B6's operands for ``render_egocentric``'s frame of the untextured
+    simulator ``sim``, from ``Renderer.hard_frame_operands``: (background,
+    operands, mesh, cameras)."""
+    mesh, cams = sim.egocentric_mesh_frame()
+    background, ops, _ = sim.renderer.hard_frame_operands(mesh, sim.renderer.res.width,
+                                                          cams)
+    return background, ops, mesh, cams
+
+
+def replay_compare_with_cpu(root: str, device):
+    """``REPLAY_COMPARE_FRAMES`` frames of the replay at res
+    ``REPLAY_COMPARE_RES`` on the card and on the CPU: views >= 99.9%
+    identical pixels, ego and NPC states and masks to 1e-4."""
+    from torchdrivesim_tpu_torch.examples import replay
+    runs = []
+    for dev in (device, torch.device('cpu')):
+        sim, states = replay.build_simulator(replay.parse_args(
+            replay_argv(root, dev, REPLAY_COMPARE_RES)))
+        out = []
+        for t in range(REPLAY_COMPARE_FRAMES):
+            out.append({'image': sim.render_egocentric().cpu(),
+                        'agents': sim.get_all_agent_state().cpu(),
+                        'present': sim.get_all_agent_present_mask().cpu()})
+            sim.step(states[:, :1, t + 1])
+        runs.append(out)
+    for i, (og, oc) in enumerate(zip(*runs)):
+        same = float((og['image'] == oc['image']).all(dim=2).float().mean())
+        print(f'replay compare frame {i}: {same * 100:.4f}% of pixels identical on the '
+              'card and the CPU')
+        if same < 0.999:
+            raise AssertionError(f'replay frame {i}: images differ')
+        torch.testing.assert_close(og['agents'], oc['agents'], atol=1e-4, rtol=1e-4)
+        if not torch.equal(og['present'], oc['present']):
+            raise AssertionError(f'replay frame {i}: presence differs')
+
+
+def replay_path(device, card, root: str):
+    """NPC replay (``examples/replay.py``: case 1 of the written data, B =
+    1, the first agent a teleporting ego, the other 19 replayed, 39 frames
+    of ``render_egocentric`` at res 256, fov 100 m over the Town02 mesh
+    JSON): B6b against its plain version on the first and the last frame,
+    3 frames against the CPU, the example pinned at one B6b launch per
+    frame and no plain call, a step with the replay controller captured in
+    a CUDA graph against the eager one, times, bound and frames/s. Returns
+    B6b's JSON entry on this path."""
+    from torchdrivesim_tpu_torch.examples import replay
+    from torchdrivesim_tpu_torch.ops import hard
+    t_phase = time.perf_counter()
+    sim, states = replay.build_simulator(replay.parse_args(replay_argv(root, device)))
+    frames = INTERACTION_FRAMES - 1
+
+    # 1. B6b against its plain version on the first frame
+    bg, ops, _, _ = replay_frame(sim)
+    print(f'replay frame: {sim.npc_count} replayed NPCs, {ops[1].shape[1]} faces per '
+          f'camera, res {REPLAY_RES}')
+    if len(ops) != 3:
+        raise AssertionError('replay frame: not the chunked kernel')
+    kind, err = compare_hard(hard, ops, bg, REPLAY_RES, 'replay first frame')
+    errs = [err]
+
+    # 2. the first frames against the CPU
+    replay_compare_with_cpu(root, device)
+
+    # 3. the main path: the example, one B6b launch per frame
+    hard.PACKED_LAUNCHES = hard.CHUNKED_LAUNCHES = 0
+    with count_calls(hard, ['raster_chunked_reference', 'raster_packed_reference']) as plain:
+        t0 = time.perf_counter()
+        sim = replay.main(replay_argv(root, device))
+        torch.cuda.synchronize()
+        example_s = time.perf_counter() - t0
+    launches = {'hard_raster_packed': hard.PACKED_LAUNCHES,
+                'hard_raster_chunked': hard.CHUNKED_LAUNCHES}
+    print(f'replay main path: the example, {frames} frames in {example_s:.2f} s '
+          f'(npz written), launches {launches}, plain calls {plain} [{card}]')
+    if launches != {'hard_raster_packed': 0, 'hard_raster_chunked': frames} or \
+            any(plain.values()):
+        raise AssertionError('replay: expected one B6b launch per frame and no plain call')
+    video = np.load('build/replay_example.npz')['frames']
+    drawn = float((video.reshape(frames, -1, 3).max(axis=-1) > 0).mean())
+    print(f'replay frames {video.shape} {video.dtype}, {drawn * 100:.1f}% of pixels drawn')
+    if video.shape != (frames, REPLAY_RES, REPLAY_RES, 3) or not drawn > 0.05:
+        raise AssertionError('replay: the frames do not show the map')
+    torch.testing.assert_close(sim.get_npc_state(), states[:, 1:, frames])
+    bg, ops, mesh, cams = replay_frame(sim)
+    errs.append(compare_hard(hard, ops, bg, REPLAY_RES, 'replay last frame')[1])
+
+    # 4. no host sync in the replayed step: captured in a CUDA graph
+    action = states[:, :1, 1]
+    step = lambda: sim.functional_step(sim.state, action)
+    eager = step()
+    replayed = graph_replay(step)
+    for name in ('agent_state', 'npc_state', 'npc_present_mask', 'npc_time'):
+        compare_exact(getattr(replayed, name).float(), getattr(eager, name).float(),
+                      f'replay step {name}, CUDA graph replay against eager')
+
+    # 5. times, bound, frames/s
+    coef, zbits, rgb = ops
+    kernel_ms = graph_ms(lambda: hard.raster(ops, bg, REPLAY_RES), 20)
+    plain_ms = cuda_ms(lambda: hard.raster_reference(ops, bg, REPLAY_RES), 2)
+    pairs = hard_tile_pairs(sim.renderer, mesh, cams, zbits != hard.Z_SENTINEL,
+                            REPLAY_RES)
+    listed = hard.hard_tile_keep_reference(coef, zbits, hard.Z_SENTINEL, REPLAY_RES)
+    n_bytes = nbytes(coef, zbits, rgb) + 2 * REPLAY_RES * REPLAY_RES * 3 * 4
+    bound_ms, bound_by = bound(n_bytes, pairs * BOUND_TILE ** 2 * HARD_CHUNKED_FACE_OPS)
+    tiles = hard.hard_tiles(REPLAY_RES)
+    print(f'replay: hard_raster_chunked kernel 1 camera of {REPLAY_RES} px, '
+          f'{zbits.shape[1]} faces: {kernel_ms:.4f} ms (device, graph replay); plain '
+          f'version {plain_ms:.3f} ms; bound {bound_ms * 1e3:.3f} us by {bound_by}; '
+          f'{pairs / tiles:.1f} faces per {BOUND_TILE} x {BOUND_TILE} tile overlap it by '
+          f'bounding box, the plain cull lists {int(listed.sum()) / tiles:.1f} [{card}]')
+    sim, states = replay.build_simulator(replay.parse_args(replay_argv(root, device)))
+
+    def frame(t):
+        image = sim.render_egocentric()
+        sim.step(states[:, :1, t + 1])
+        return image
+
+    frame(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(1, frames):
+        frame(t)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    print(f'replay loop: {(frames - 1) / loop_s:.1f} frames/s (render_egocentric + '
+          f'step, host clock); {device_ops(lambda: frame(0))} device ops per frame '
+          f'[{card}]')
+    profile_step(lambda: frame(0), 'replay frame', card, count=('hard',))
+    print(f'replay phase: {time.perf_counter() - t_phase:.1f} s')
+    return {'name': 'hard_raster_chunked_replay', 'route': 'cuda',
+            'source': 'torchdrivesim_tpu_torch/csrc/hard_raster.cu',
+            'replaces': 'torchdrivesim_tpu/ops/pallas_rasterize.py:152',
+            'launches': launches['hard_raster_chunked'], 'max_abs_err': max(errs),
+            'ms': kernel_ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+            'bound_by': bound_by, 'library_ms': None}
+
+
+def dataset_il_world(root: str, batch: int, horizon: int, res: int, device,
+                     dtype=torch.bfloat16):
+    """The dataset imitation-learning scenario of the example's dataset
+    branch on the written data: (simulator, expert (T, B, 1, 4), policy
+    ``BirdviewCNNPolicy(4, (16, 32))`` in ``dtype`` from seed 0)."""
+    from torchdrivesim_tpu_torch.imitation import (
+        build_dataset_batch, build_synthetic_simulator)
+    road, states0, expert, npc = build_dataset_batch(root, 'carla_Town02', batch,
+                                                     horizon, device)
+    sim = build_synthetic_simulator(road, states0, res=res, npc_controller=npc)
+    return sim, expert, il_policy(IL_FEATURES, dtype, device, action_size=4)
+
+
+def dataset_il_frame(sim, state):
+    """B5's operands for the frame the rollout renders from ``state``
+    (``imitation.ego_view``, ``Renderer.soft_frame_operands``,
+    ``soft.pad_to_groups``): (background, (coef, zw, color))."""
+    from torchdrivesim_tpu_torch.imitation import ego_view
+    from torchdrivesim_tpu_torch.ops import soft
+    mesh, cams = ego_view(sim, state, sim.renderer.scale, include_background=True)
+    background, frame = sim.renderer.soft_frame_operands(mesh, sim.renderer.res.width,
+                                                         cams)
+    return background, tuple(x.contiguous() for x in soft.pad_to_groups(*frame))
+
+
+def dataset_il_compare_with_cpu(root: str, device):
+    """The dataset BC loss and its policy gradients at B = 2, horizon 3,
+    res 32 (float32 policy, cuDNN without TF32) on the card and on the
+    CPU: loss to 1e-4, gradients to rtol 2e-3 (atol 1e-6 of each
+    gradient's largest value)."""
+    from torchdrivesim_tpu_torch.imitation import make_bc_loss_fn
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = {}
+        for dev in (device, torch.device('cpu')):
+            sim, expert, policy = dataset_il_world(root, 2, 3, 32, dev, torch.float32)
+            loss = make_bc_loss_fn(sim, policy, 32)(sim.state, expert)
+            grads = torch.autograd.grad(loss, list(policy.parameters()))
+            runs[dev.type] = (loss.detach().cpu(), [g.cpu() for g in grads])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (lg, gg), (lc, gc) = runs['cuda'], runs['cpu']
+    print(f'dataset IL compare B=2 horizon 3 res 32: loss card {float(lg)!r}, CPU '
+          f'{float(lc)!r}')
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=0)
+    worst = 0.0
+    for a, b in zip(gg, gc):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=1e-6 * float(b.abs().max()))
+        worst = max(worst, float(((a - b).abs() / b.abs().max()).max()))
+    print(f'dataset IL compare: {len(gg)} gradients agree, max difference {worst:.3g} '
+          'of each gradient\'s largest value')
+
+
+def dataset_il_path(device, card, root: str):
+    """Imitation learning on INTERACTION cases (the example's dataset
+    branch on the written data: B = 16 segments, the ego a simple-model
+    agent, 19 replayed NPCs drawn in every frame, horizon 39, res 64 over
+    the road mesh triangulated from Town02's .osm): B5a against its plain
+    version bit for bit, B5b face by face and both kernels' tile lists
+    against the plain cull on the first and the last frame (on the first
+    also B5b for the transp chain alone and a planted fault that must come
+    out over tolerance), a small gradient step against the CPU, the
+    example's training steps pinned at 39 B5a and 38 B5b launches per
+    rollout and no plain call, times, bounds, device ops and
+    grad-rollouts/s. Returns the JSON entries of B5a and B5b on this
+    path."""
+    from torchdrivesim_tpu_torch.examples import imitation_learning
+    from torchdrivesim_tpu_torch.imitation import (
+        make_bc_loss_fn, make_bc_train_step, make_optimizer, render_ego)
+    from torchdrivesim_tpu_torch.ops import soft, warp
+    t_phase = time.perf_counter()
+    sim, expert, policy = dataset_il_world(root, DATASET_IL_BATCH, DATASET_IL_HORIZON,
+                                           DATASET_IL_RES, device)
+    horizon = expert.shape[0]
+    print(f'dataset IL: B={sim.batch_size}, {sim.npc_count} replayed NPCs, horizon '
+          f'{horizon}, road mesh of {sim.road_mesh.faces.shape[-2]} faces')
+    if horizon != min(DATASET_IL_HORIZON, INTERACTION_FRAMES - 1):
+        raise AssertionError(f'horizon {horizon}')
+
+    # 1. the kernels on the first frame: B5a bit for bit, B5b face by face
+    # for the composite's cotangents and for the transp chain alone, the
+    # planted fault seen, the tile lists equal to the plain cull's
+    background, frame = dataset_il_frame(sim, sim.state)
+    (fd, fo), (bd, bo), bits, _, grads, caught = compare_accum(
+        soft, frame, background, DATASET_IL_RES, 31, 'dataset IL first frame')
+    bad = sum(compare_tile_lists(soft, frame, DATASET_IL_RES, grads,
+                                 'dataset IL first frame')[:2])
+    errs, over = {'fwd': [fd], 'bwd': [bd]}, fo + bo
+    if not all(caught):
+        raise AssertionError(f'the planted fault went unseen on the first frame: {caught}')
+
+    # 2. a small gradient step against the CPU
+    dataset_il_compare_with_cpu(root, device)
+
+    # 3. the main path: the example's training steps, then one train step
+    counters = ('LAUNCHES', 'VJP_LAUNCHES')
+    soft_counters = ('FWD_LAUNCHES', 'BWD_LAUNCHES', 'ACCUM_FWD_LAUNCHES',
+                     'ACCUM_BWD_LAUNCHES')
+    for name in counters:
+        setattr(warp, name, 0)
+    for name in soft_counters:
+        setattr(soft, name, 0)
+    with count_calls(soft, ['soft_accum_fwd_reference', 'soft_accum_bwd_reference']) \
+            as plain:
+        t0 = time.perf_counter()
+        losses = imitation_learning.main([
+            '--dataset-path', root, '--location', 'carla_Town02', '--batch',
+            str(DATASET_IL_BATCH), '--horizon', str(DATASET_IL_HORIZON), '--res',
+            str(DATASET_IL_RES), '--steps', str(DATASET_IL_STEPS)])
+        torch.cuda.synchronize()
+        example_s = time.perf_counter() - t0
+    launches = {**{f'warp.{n}': getattr(warp, n) for n in counters},
+                **{f'soft.{n}': getattr(soft, n) for n in soft_counters}}
+    print(f'dataset IL main path: the example, {DATASET_IL_STEPS} training steps in '
+          f'{example_s:.2f} s, losses {[round(x, 4) for x in losses]}, launches '
+          f'{launches}, plain calls {plain} [{card}]')
+    want = {'warp.LAUNCHES': 0, 'warp.VJP_LAUNCHES': 0, 'soft.FWD_LAUNCHES': 0,
+            'soft.BWD_LAUNCHES': 0, 'soft.ACCUM_FWD_LAUNCHES': DATASET_IL_STEPS * horizon,
+            'soft.ACCUM_BWD_LAUNCHES': DATASET_IL_STEPS * (horizon - 1)}
+    if launches != want or any(plain.values()):
+        raise AssertionError(f'dataset IL launches {launches}, expected {want}, and no '
+                             'plain call')
+    if not all(np.isfinite(losses)):
+        raise AssertionError('dataset IL: non-finite loss')
+
+    # the kernels on the frame of the state the rollout ends on
+    with torch.no_grad():
+        state = sim.state
+        for _ in range(horizon):
+            image = render_ego(sim, state, DATASET_IL_RES, sim.renderer.scale, True)
+            state = sim.functional_step(state, policy(image)[:, None, :])
+    image = render_ego(sim, state, DATASET_IL_RES, sim.renderer.scale, True)
+    poses = len(torch.unique(torch.round(state.agent_state[:, 0, :2] * 100), dim=0))
+    shown = int((state.npc_present_mask.sum(dim=-1) > 0).sum())
+    print(f'dataset IL last frame: {poses} distinct camera positions, NPCs present in '
+          f'{shown} of {DATASET_IL_BATCH} environments')
+    if not torch.isfinite(image).all() or poses != DATASET_IL_BATCH:
+        raise AssertionError('dataset IL last frame: non-finite or repeated views')
+    # on the last frame, B5a bit for bit and B5b face by face for the
+    # composite's cotangents (the plain versions' calls timed)
+    background, frame = dataset_il_frame(sim, state)
+    plain_fwd, fwd_ms = cuda_ms_once(
+        lambda: soft.soft_accum_fwd_reference(*frame, DATASET_IL_RES))
+    got = soft.soft_accum_fwd(*frame, DATASET_IL_RES)
+    torch.cuda.synchronize()
+    last_bits = sum(int((a != p).sum()) for a, p in zip(got, plain_fwd))
+    errs['fwd'].append(max(float((a - p).abs().max()) for a, p in zip(got, plain_fwd)))
+    print(f'dataset IL last frame: forward {last_bits} values differ from the plain version '
+          'in any bit')
+    frame_grads = composite_cotangents(soft, plain_fwd, background, 32)
+    got = soft.soft_accum_bwd(*frame, *frame_grads)
+    plain_bwd, bwd_ms = cuda_ms_once(
+        lambda: soft.soft_accum_bwd_reference(*frame, *frame_grads))
+    exact = soft.soft_accum_bwd_reference(*(x.double() for x in frame),
+                                          *(g.double() for g in frame_grads))
+    torch.cuda.synchronize()
+    diff, last_over = judge_rows(got, plain_bwd, exact,
+                                 'last frame backward, composite cotangents')
+    errs['bwd'].append(diff)
+    bad += sum(compare_tile_lists(soft, frame, DATASET_IL_RES, frame_grads,
+                                  'dataset IL last frame')[:2])
+    over, bits = over + last_over, bits + last_bits
+    print(f'dataset IL: {over} values over tolerance, {bits} forward values off in any '
+          f'bit, {bad} tile-list counts and entries differ from the plain cull')
+    if over or bits or bad:
+        raise AssertionError('dataset IL: the grouped kernels disagree with their plain '
+                             'versions')
+
+    # 4. times, bounds, device ops, grad-rollouts/s
+    entries = []
+    for name, fn, plain_ms, reps, backward, replaces, err, n in (
+            ('soft_accum_fwd_dataset', lambda: soft.soft_accum_fwd(*frame, DATASET_IL_RES),
+             fwd_ms, 20, False, 'torchdrivesim_tpu/ops/pallas_soft.py:393',
+             max(errs['fwd']), launches['soft.ACCUM_FWD_LAUNCHES']),
+            ('soft_accum_bwd_dataset', lambda: soft.soft_accum_bwd(*frame, *frame_grads),
+             bwd_ms, 10, True, 'torchdrivesim_tpu/ops/pallas_soft.py:414',
+             max(errs['bwd']), launches['soft.ACCUM_BWD_LAUNCHES'])):
+        ms = graph_ms(fn, reps)
+        (bound_ms, bound_by), pairs = accum_bound(frame, DATASET_IL_RES, backward)
+        print(f'{name} kernel B={DATASET_IL_BATCH} res={DATASET_IL_RES} '
+              f'F={frame[0].shape[1]}: {ms:.4f} ms (device, graph replay); plain version '
+              f'{plain_ms:.3f} ms (one call); bound {bound_ms * 1e3:.3f} us by {bound_by} '
+              f'({pairs} (pixel, face) pairs can contribute) [{card}]')
+        entries.append({'name': name, 'route': 'cuda',
+                        'source': 'torchdrivesim_tpu_torch/csrc/soft_accum.cu',
+                        'replaces': replaces, 'launches': n, 'max_abs_err': err,
+                        'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+                        'bound_by': bound_by, 'library_ms': None})
+    train_step = make_bc_train_step(sim, policy, make_optimizer(policy), DATASET_IL_RES)
+    train_step(sim.state, expert)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DATASET_IL_STEPS):
+        train_step(sim.state, expert)
+    torch.cuda.synchronize()
+    rate = DATASET_IL_STEPS / (time.perf_counter() - t0)
+    loss_fn = make_bc_loss_fn(sim, policy, DATASET_IL_RES)
+    rollout = lambda: loss_fn(sim.state, expert).backward()
+    print(f'dataset IL gradient step B={DATASET_IL_BATCH} horizon {horizon}: {rate:.3f} '
+          f'grad-rollouts/s ({rate * DATASET_IL_BATCH * horizon:.1f} env-steps/s, host '
+          f'clock over {DATASET_IL_STEPS} train steps) [{card}]')
+    profile_step(rollout, 'dataset IL gradient rollout', card, count=('accum_',))
+    print(f'dataset IL phase: {time.perf_counter() - t_phase:.1f} s')
+    return entries
+
+
+def gym_compare_with_cpu(device):
+    """Three steps of ``GymEnv`` on the card and on the CPU: observations
+    >= 99.9% identical pixels, rewards and infos to 1e-4."""
+    from torchdrivesim_tpu_torch.gym_env import GymEnv, GymEnvConfig
+    actions = np.random.RandomState(0).uniform(-1, 1, (COMPARE_STEPS, 2))
+    runs = []
+    for dev in (device, torch.device('cpu')):
+        env = GymEnv(GymEnvConfig(), device=dev)
+        runs.append([env.reset()[0]] + [env.step(a) for a in actions])
+    for i, (og, oc) in enumerate(zip(*runs)):
+        if i:
+            for k in oc[4]:
+                np.testing.assert_allclose(og[4][k], oc[4][k], atol=1e-4, rtol=1e-4,
+                                           err_msg=k)
+            np.testing.assert_allclose(og[1], oc[1], atol=1e-4, rtol=1e-4)
+            og, oc = og[0], oc[0]
+        same = float((og == oc).all(axis=0).mean())
+        print(f'gym compare observation {i}: {same * 100:.4f}% of pixels identical on the '
+              'card and the CPU')
+        if same < 0.999:
+            raise AssertionError(f'gym observation {i}: images differ')
+
+
+def gym_env_path(device, card):
+    """The single-ego ``GymEnv`` (carla_Town02, 6 agents, textured, res 64,
+    fov 35 m; one camera per agent, the ego's view observed) through
+    ``SingleAgentWrapper``: B1 against its plain version on the first and
+    the last observation's frame, 3 steps against the CPU, an episode of
+    ``GYM_STEPS`` steps pinned at one B1 launch per observation and no
+    plain call, times, bound and env steps/s. Returns B1's JSON entry on
+    this path."""
+    from torchdrivesim_tpu_torch.gym_env import GymEnv, GymEnvConfig, SingleAgentWrapper
+    from torchdrivesim_tpu_torch.ops import fused
+    t_phase = time.perf_counter()
+    cfg = GymEnvConfig(max_steps=GYM_STEPS)
+    env = SingleAgentWrapper(GymEnv(cfg, device=device))
+    env.reset()
+
+    def frame():
+        prims, cams = env.env.sim.egocentric_prim_frame()
+        mip, ops, res, n, screen = env.env.sim.renderer.fused_frame_operands(
+            *prims, cfg.res, cams)
+        return mip, ops, res, screen
+
+    mip, ops, res, _ = frame()
+    print(f'gym frame: {ops[0].shape[0]} cameras of {res} px (one per agent), qcoef '
+          f'{tuple(ops[2].shape)}, tcoef {tuple(ops[4].shape)}')
+    errs = [compare_fused(fused, mip, ops, 'gym first frame', res)]
+    gym_compare_with_cpu(device)
+
+    # the main path: reset and an episode, one B1 launch per observation
+    actions = np.random.RandomState(2).uniform(-0.3, 0.3, (GYM_STEPS, 2))
+    fused.LAUNCHES = 0
+    with count_calls(fused, ['render_coefs_fused_reference']) as plain:
+        t0 = time.perf_counter()
+        obs, _ = env.reset()
+        steps = 0
+        for action in actions:
+            obs, reward, terminated, truncated, info = env.step(action)
+            steps += 1
+            if terminated or truncated:
+                break
+        loop_s = time.perf_counter() - t0
+    launches = fused.LAUNCHES
+    print(f'gym main path: reset and {steps} steps in {loop_s:.2f} s ({steps / loop_s:.1f} '
+          f'env steps/s, host clock, observations read back), fused_render launches '
+          f'{launches}, plain calls {plain["render_coefs_fused_reference"]}; last reward '
+          f'{reward:.3f}, info {info} [{card}]')
+    if launches != steps + 1 or plain['render_coefs_fused_reference']:
+        raise AssertionError('gym: expected one B1 launch per observation, no plain call')
+    if obs.shape != (3, cfg.res, cfg.res) or not np.isfinite(obs).all() or \
+            not np.isfinite(reward):
+        raise AssertionError('gym: bad observation or reward')
+    mip, ops, res, screen = frame()
+    errs.append(compare_fused(fused, mip, ops, 'gym last frame', res))
+
+    kernel_ms = graph_ms(lambda: fused.render_coefs_fused(mip, *ops, res), 50)
+    plain_ms = cuda_ms(lambda: fused.render_coefs_fused_reference(mip, *ops, res), 5)
+    bound_ms, bound_by = fused_bound(mip, ops, screen, res, cfg.fov)
+    step = lambda: env.step(actions[0])
+    print(f'gym: fused_render kernel {ops[0].shape[0]} cameras of {res} px: '
+          f'{kernel_ms:.4f} ms (device, graph replay); plain version {plain_ms:.3f} ms; '
+          f'bound {bound_ms * 1e3:.3f} us by {bound_by}; {device_ops(step)} device ops '
+          f'per env step [{card}]')
+    profile_step(step, 'gym env step', card, count=('fused',))
+    env.close()
+    print(f'gym phase: {time.perf_counter() - t_phase:.1f} s')
+    return {'name': 'fused_render_gym', 'route': 'cuda',
+            'source': 'torchdrivesim_tpu_torch/csrc/fused_render.cu',
+            'replaces': 'torchdrivesim_tpu/ops/pallas_fused.py:69',
+            'launches': launches, 'max_abs_err': max(errs), 'ms': kernel_ms,
+            'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
+            'library_ms': None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -3051,6 +3610,10 @@ def main() -> int:
     kernels.append(config3_path(device, card))
     kernels.append(tiled_path(device, card))
     kernels.append(facade_path(device, card))
+    root = write_interaction_data('build/interaction_data')
+    kernels.append(replay_path(device, card, root))
+    kernels += dataset_il_path(device, card, root)
+    kernels.append(gym_env_path(device, card))
 
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

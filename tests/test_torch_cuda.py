@@ -30,7 +30,10 @@ cull's. The fused render and the primitive rasters also run on the scenes
 that stress their per-tile primitive cull (``chip_smoke.prim_cull_scene``:
 boundary, parallelogram, near-degenerate and larger-than-view prims), bit
 for bit, and on the simulator facade's egocentric frames, under the
-per-type cap and past it (the sort route), bit for bit.
+per-type cap and past it (the sort route), bit for bit. The chunked hard
+raster and the grouped soft raster also run on the frames of the NPC
+replay and of the dataset imitation learning (the INTERACTION-layout data
+that ``chip_smoke.write_interaction_data`` writes).
 """
 import numpy as np
 import pytest
@@ -520,3 +523,54 @@ def test_fused_kernel_on_facade_frames(cuda, count):
     sim.render_egocentric(res=Resolution(128, 128), fov=70.0,
                           n_subsequent_waypoints=count)
     assert fused.LAUNCHES == before + 1
+
+
+@pytest.mark.depends_on_cuda
+def test_hard_chunked_kernel_on_replay_frame(cuda, tmp_path):
+    """B6b on the replay example's frame (case 1 of
+    ``chip_smoke.write_interaction_data``, res 256, fov 100 m, the Town02
+    mesh and 19 replayed actors, one camera) bit for bit its plain
+    version, one launch per frame."""
+    from chip_smoke import replay_argv, replay_frame, write_interaction_data
+    from torchdrivesim_tpu_torch.examples import replay
+    root = write_interaction_data(str(tmp_path), cases=1)
+    sim, states = replay.build_simulator(replay.parse_args(replay_argv(root, cuda)))
+    for t in range(12):
+        sim.step(states[:, :1, t + 1])
+    assert sim.npc_count == 19 and int(sim.get_npc_present_mask().sum()) == 19
+    bg, ops, _, _ = replay_frame(sim)
+    assert len(ops) == 3 and ops[1].shape[1] > 16000 and bg.shape == (1, 3, 256, 256)
+    got = hard.raster(ops, bg, 256)
+    want = hard.raster_reference(ops, bg, 256)
+    torch.cuda.synchronize()
+    assert int((got != want).sum()) == 0
+    before = hard.CHUNKED_LAUNCHES
+    sim.render_egocentric()
+    assert hard.CHUNKED_LAUNCHES == before + 1
+
+
+@pytest.mark.depends_on_cuda
+def test_grouped_soft_kernels_on_dataset_il_frame(cuda, tmp_path):
+    """B5a and B5b on the dataset imitation-learning frame (B = 4 segments
+    of ``chip_smoke.write_interaction_data``, the road mesh of Town02's
+    .osm and 20 actors per camera, res 64): the forward bit for bit its
+    plain version, the backward face by face for the composite's
+    cotangents, the per-tile face lists equal to the plain cull's."""
+    from chip_smoke import (
+        compare_tile_lists, composite_cotangents, dataset_il_frame, dataset_il_world,
+        judge_rows, write_interaction_data)
+    root = write_interaction_data(str(tmp_path), cases=2)
+    sim, _, _ = dataset_il_world(root, 4, 40, 64, cuda)
+    bg, ops = dataset_il_frame(sim, sim.state)
+    assert ops[0].shape[1] > 3384 and ops[0].shape[1] % soft.MAX_FACES == 0
+    plain = soft.soft_accum_fwd_reference(*ops, 64)
+    for a, p in zip(soft.soft_accum_fwd(*ops, 64), plain):
+        assert torch.equal(a, p)
+    grads = composite_cotangents(soft, plain, bg, 3)
+    out = soft.soft_accum_bwd(*ops, *grads)
+    want = soft.soft_accum_bwd_reference(*ops, *grads)
+    exact = soft.soft_accum_bwd_reference(*(x.double() for x in ops),
+                                          *(g.double() for g in grads))
+    torch.cuda.synchronize()
+    assert judge_rows(out, want, exact, 'dataset IL backward')[1] == 0
+    assert compare_tile_lists(soft, ops, 64, grads, 'dataset IL')[:2] == (0, 0)

@@ -295,9 +295,15 @@ def test_port_imports_no_jax():
             'torchdrivesim_tpu_torch.ops.warp, torchdrivesim_tpu_torch.ops.fused, '
             'torchdrivesim_tpu_torch.ops.hard, torchdrivesim_tpu_torch.gym_env, '
             'torchdrivesim_tpu_torch.rl, torchdrivesim_tpu_torch.examples.simulate, '
-            'torchdrivesim_tpu_torch.ops.point_mesh; '
+            'torchdrivesim_tpu_torch.ops.point_mesh, '
+            'torchdrivesim_tpu_torch.behavior.replay, '
+            'torchdrivesim_tpu_torch.behavior.interaction, '
+            'torchdrivesim_tpu_torch.behavior.iai, '
+            'torchdrivesim_tpu_torch.examples.replay, '
+            'torchdrivesim_tpu_torch.examples.imitation_learning; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
-            '("jax", "jaxlib", "flax", "optax", "orbax", "torchdrivesim_tpu")]; '
+            '("jax", "jaxlib", "flax", "optax", "orbax", "torchdrivesim_tpu", '
+            '"pandas", "imageio", "invertedai")]; '
             'assert not bad, bad')
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, '-c', code], cwd=root, check=True,
@@ -311,14 +317,25 @@ def test_entry_points_default_to_the_card():
     import inspect
 
     from torchdrivesim_tpu_torch import benchmark, convert, gym_env, imitation, rl
+    from torchdrivesim_tpu_torch.behavior import iai
+    from torchdrivesim_tpu_torch.behavior.interaction import INTERACTIONDataset
+    from torchdrivesim_tpu_torch.behavior.replay import interaction_replay
+    from torchdrivesim_tpu_torch.examples import imitation_learning, replay
+    from torchdrivesim_tpu_torch.traffic_lights import (
+        current_light_state_tensor_from_controller)
     from torchdrivesim_tpu_torch.rendering.renderer import Renderer
     from torchdrivesim_tpu_torch.traffic_controls import BaseTrafficControl
     for fn in (benchmark.build_benchmark_scenario, benchmark.build_il_scenario,
                convert.scenario_from_arrays, imitation.build_synthetic_batch,
                benchmark.build_rl_env, gym_env.build_gym_sim,
-               gym_env.gym_sim_from_arrays, gym_env.VectorizedGymEnv, rl.build):
+               gym_env.gym_sim_from_arrays, gym_env.VectorizedGymEnv, rl.build,
+               imitation.build_dataset_batch, gym_env.GymEnv, gym_env.IAIGymEnv,
+               interaction_replay, INTERACTIONDataset.collate, iai.iai_initialize,
+               current_light_state_tensor_from_controller):
         assert inspect.signature(fn).parameters['device'].default == 'cuda', fn
     assert "device='cuda'" in inspect.getsource(rl.main)
+    assert replay.parse_args(['--dataset-path', '.']).device == 'cuda'
+    assert imitation_learning.parse_args([]).device == 'cuda'
     for fn in (K.KinematicBicycle, K.SimpleKinematicModel, K.BicycleNoReversing,
                Renderer, BaseTrafficControl, BakedLightSchedule):
         default = inspect.signature(fn).parameters['device'].default

@@ -8,16 +8,13 @@ from typing import Tuple
 
 import numpy as np
 
+from torchdrivesim_tpu_torch.behavior.common import InitializationFailedError
 from torchdrivesim_tpu_torch.lanelet2 import pick_random_point_and_orientation
 
 #: fixed car geometry used by the reference initializer
 CAR_LENGTH = 4.97
 CAR_WIDTH = 2.04
 CAR_LR = 1.96
-
-
-class InitializationFailedError(RuntimeError):
-    """Agents could not be placed without overlaps."""
 
 
 def _discs_np(box: np.ndarray, num_discs: int = 5):

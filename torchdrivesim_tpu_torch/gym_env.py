@@ -1,24 +1,32 @@
 """
-The vectorized driving environment of the RL example (counterpart of
-``examples/gym_env.py``: ``GymEnvConfig``, the simulator of
-``GymEnv._build_sim`` and ``VectorizedGymEnv``).
+The driving environments (counterpart of ``examples/gym_env.py``): the
+single-ego :class:`GymEnv` over the stateful simulator, its variant
+:class:`IAIGymEnv` whose other vehicles the Inverted AI API drives,
+:class:`SingleAgentWrapper`, the example's :func:`main`, and the
+vectorized environment of the RL example, :class:`VectorizedGymEnv`.
 
-B environments live in one batched simulator, each a copy of the same
-scenario: a few no-reversing bicycle cars placed on a CARLA town's lanes,
-the town's traffic lights, its baked grids and, by default, its baked
-texture. Agent 0 of each environment is the ego; the others hold a zero
-action. A step returns ``(state, obs, reward, done)``: the ego's
+The single environments have the Gymnasium-like API (``reset``, ``step``,
+``render``, ``close``) without depending on the gym package: the
+observation is the ego's egocentric view (3, res, res) in [0, 255] as a
+host numpy array, the info the ego's offroad, collision, wrong-way and
+speed.
+
+In :class:`VectorizedGymEnv`, B environments live in one batched
+simulator, each a copy of the same scenario: a few no-reversing bicycle
+cars placed on a CARLA town's lanes, the town's traffic lights, its baked
+grids and, by default, its baked texture. Agent 0 of each environment is
+the ego; the others hold a zero action. A step returns ``(state, obs, reward, done)``: the ego's
 bird's-eye view rendered by the hard mesh render (the z-priority raster
 over the nearest mip warp of the texture, or over the background color
 with the whole map mesh when there is no texture), and the reference's
 shaped reward.
-
-The single environment ``GymEnv`` and ``IAIGymEnv`` need the stateful
-facade and the network API and are not ported.
 """
+import argparse
+import contextlib
 import random
+import signal
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -100,6 +108,198 @@ def build_gym_sim(cfg: GymEnvConfig, device='cuda') -> Simulator:
     """The environment's one-scenario simulator (the reference's
     ``GymEnv._build_sim``), on ``device``."""
     return gym_sim_from_arrays(cfg, initial_arrays(cfg), device)
+
+
+class GymEnv:
+    """
+    The single-ego environment: agent 0 of the scenario of
+    :func:`build_gym_sim` is the ego, the other agents hold a zero action.
+    A reset is a copy of the initial simulator. The reward is the ego's
+    ``speed_reward * speed`` less the offroad, collision and wrong-way
+    penalties; an episode ends on a collision (terminated) or after
+    ``max_steps`` steps (truncated).
+    """
+    def __init__(self, cfg: GymEnvConfig = GymEnvConfig(), device='cuda'):
+        self.cfg = cfg
+        self._sim_template = self._build_sim(device)
+        self.sim: Optional[Simulator] = None
+        self.t = 0
+        self.action_size = 2
+
+    def _build_sim(self, device) -> Simulator:
+        return build_gym_sim(self.cfg, device)
+
+    @property
+    def device(self) -> torch.device:
+        return self._sim_template.device
+
+    def reset(self, seed: Optional[int] = None):
+        """(observation, {}) of a fresh copy of the initial simulator."""
+        self.sim = self._sim_template.copy()
+        self.t = 0
+        return self._observe(), {}
+
+    def _observe(self) -> np.ndarray:
+        """The ego's egocentric view, (3, res, res) in [0, 255]."""
+        return self.sim.render_egocentric()[0, 0].cpu().numpy()
+
+    def _full_action(self, action) -> torch.Tensor:
+        full = torch.zeros((1, self.sim.agent_count, 2), device=self.device)
+        full[0, 0] = torch.as_tensor(np.asarray(action, np.float32), device=self.device)
+        return full
+
+    def step(self, action):
+        """(observation, reward, terminated, truncated, info) after one step
+        with the ego's (2,) action."""
+        assert self.sim is not None, "call reset() first"
+        self.prev_action = np.asarray(action, np.float32)
+        self.sim.step(self._full_action(action))
+        self.t += 1
+        info = {'offroad': float(self.sim.compute_offroad()[0, 0]),
+                'collision': float(self.sim.compute_collision()[0, 0]),
+                'wrong_way': float(self.sim.compute_wrong_way()[0, 0]),
+                'speed': float(self.sim.get_state()[0, 0, 3])}
+        reward = self.get_reward(info)
+        terminated = info['collision'] > 0
+        truncated = self.t >= self.cfg.max_steps
+        return self._observe(), reward, terminated, truncated, info
+
+    def get_reward(self, info) -> float:
+        return (self.cfg.speed_reward * info['speed']
+                - self.cfg.offroad_penalty * info['offroad']
+                - self.cfg.collision_penalty * info['collision']
+                - self.cfg.wrong_way_penalty * info['wrong_way'])
+
+    def render(self):
+        return self._observe()
+
+    def close(self):
+        self.sim = None
+
+
+class IAIGymEnv(GymEnv):
+    """
+    The environment with its other vehicles driven by the Inverted AI API:
+    INITIALIZE places ``agent_count`` vehicles around the map's center,
+    the first becomes the ego (a kinematic bicycle, the only agent of the
+    simulator) and the rest NPCs of an
+    :class:`~torchdrivesim_tpu_torch.behavior.iai.IAINPCController`, which
+    calls DRIVE every step. Resets reuse the same initial conditions. The
+    reward is ``speed - offroad - collision - |action|``, clipped to [-10,
+    10].
+    """
+    def _build_sim(self, device) -> Simulator:
+        from torchdrivesim_tpu_torch.behavior.iai import IAINPCController, iai_initialize
+        device = torch.device(device)
+        cfg_map = find_map_config(self.cfg.map_name)
+        if cfg_map is None:
+            raise FileNotFoundError(f"map {self.cfg.map_name!r} not found")
+        location = cfg_map.iai_location_name
+        attrs, states, recurrent = iai_initialize(
+            location=location, agent_count=self.cfg.agent_count,
+            center=tuple(np.asarray(cfg_map.center)), device=device)
+        left_handed = bool(cfg_map.left_handed_coordinates)
+        kin = K.KinematicBicycle(dt=0.1, left_handed=left_handed, device=device)
+        kin.set_params(lr=attrs[:, :1, 2])
+        kin.set_state(states[:, :1])
+        npc = IAINPCController(
+            npc_size=attrs[:, 1:, :2], npc_state=states[:, 1:], location=location,
+            recurrent_states=recurrent, agent_type_names=['vehicle'])
+        sim = Simulator(
+            road_mesh=cfg_map.road_mesh, kinematic_model=kin,
+            agent_size=attrs[:, :1, :2],
+            initial_present_mask=torch.ones((1, 1), dtype=torch.bool),
+            cfg=TorchDriveConfig(left_handed_coordinates=left_handed),
+            npc_controller=npc, map_grids=cfg_map.grids(device=device))
+        sim.renderer.res = Resolution(self.cfg.res, self.cfg.res)
+        sim.renderer.scale = 2.0 / self.cfg.fov
+        if self.cfg.use_background_texture:
+            sim.renderer.background_texture = load_or_bake_texture(cfg_map)
+        return sim
+
+    def _full_action(self, action) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(action, np.float32),
+                               device=self.device).reshape(1, 1, 2)
+
+    def get_reward(self, info) -> float:
+        r = (info['speed'] - info['offroad'] - info['collision']
+             - float(np.linalg.norm(self.prev_action)))
+        return float(np.clip(r, -10.0, 10.0))
+
+
+class SingleAgentWrapper:
+    """
+    The environment's interface without its leading singleton batch and
+    agent dimensions (only safe when both are 1); duck-type compatible
+    with gymnasium's ``Wrapper``.
+    """
+    def __init__(self, env):
+        self.env = env
+
+    @staticmethod
+    def _squeeze(x):
+        """Up to two leading dimensions of size 1 removed, in dicts too."""
+        if isinstance(x, dict):
+            return {k: SingleAgentWrapper._squeeze(v) for k, v in x.items()}
+        if isinstance(x, (np.ndarray, torch.Tensor)):
+            for _ in range(2):
+                if x.ndim > 0 and x.shape[0] == 1:
+                    x = x[0]
+        return x
+
+    def reset(self, seed: Optional[int] = None):
+        obs, info = self.env.reset(seed)
+        return self._squeeze(obs), self._squeeze(info)
+
+    def step(self, action):
+        obs, reward, terminated, truncated, info = self.env.step(
+            np.asarray(action).reshape(-1)[:2])
+        return (self._squeeze(obs), float(reward), bool(terminated), bool(truncated),
+                self._squeeze(info))
+
+    def render(self, *args, **kwargs):
+        return self.env.render(*args, **kwargs)
+
+    def close(self):
+        self.env.close()
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    """Two short episodes accelerating straight; a SIGTERM raises
+    ``InterruptedError`` for a graceful shutdown."""
+    parser = argparse.ArgumentParser(description='Drive the single-ego environment.')
+    parser.add_argument('--map', default='carla_Town02')
+    parser.add_argument('--agents', type=int, default=6)
+    parser.add_argument('--steps', type=int, default=20)
+    parser.add_argument('--res', type=int, default=64)
+    parser.add_argument('--iai', action='store_true',
+                        help='drive NPCs with the Inverted AI API '
+                             '(needs the invertedai package + IAI_API_KEY)')
+    parser.add_argument('--device', default='cuda')
+    args = parser.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device: pass --device cpu to run on the CPU')
+
+    def sigterm_handler(signum, frame):
+        raise InterruptedError("SIGTERM received")
+
+    signal.signal(signal.SIGTERM, sigterm_handler)
+    cfg = GymEnvConfig(map_name=args.map, agent_count=args.agents, res=args.res)
+    env_cls = IAIGymEnv if args.iai else GymEnv
+    with contextlib.closing(SingleAgentWrapper(env_cls(cfg, device))) as env:
+        for episode in range(2):
+            env.reset()
+            action = np.asarray([1.0, 0.0], np.float32)  # accelerate straight
+            for i in range(args.steps):
+                obs, reward, terminated, truncated, info = env.step(action)
+                if info['collision']:
+                    print("collision")
+                if info['offroad']:
+                    print("offroad")
+                if terminated or truncated:
+                    break
+            print(f"episode {episode}: {i + 1} steps, last reward {reward:.2f}")
 
 
 def _all_agents(state: SimulatorState) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -187,3 +387,7 @@ class VectorizedGymEnv:
             return state, obs, reward, collision > 0
 
         return step_fn
+
+
+if __name__ == '__main__':
+    main()

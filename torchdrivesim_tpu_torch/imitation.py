@@ -7,7 +7,10 @@ and every soft bird's-eye-view render of the rollout.
 
 The synthetic scenario is a straight two-lane road (a lanelet map
 triangulated into a road mesh, rendered under every frame) with a
-lane-keeping expert, so the loop runs without a dataset.
+lane-keeping expert, so the loop runs without a dataset. The dataset
+scenario takes INTERACTION cases: each ego is a recorded vehicle track,
+the case's other agents are replayed as NPCs and drawn in every frame, and
+the road mesh is triangulated from the location's lanelet map.
 
 No activation checkpointing: each step keeps its render outputs, the
 render Functions' saved inputs and the policy's activations for the backward
@@ -15,7 +18,7 @@ pass (a few MB per step at the IL configuration), so every render kernel
 runs once per step forward and the soft raster's backward kernel once per
 step backward, and nothing is recomputed.
 """
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,7 +30,7 @@ from torchdrivesim_tpu_torch.lanelet2 import (
 from torchdrivesim_tpu_torch.mesh import BirdviewMesh
 from torchdrivesim_tpu_torch.rendering.base import Cameras, RendererConfig
 from torchdrivesim_tpu_torch.simulator import (
-    Simulator, SimulatorState, TorchDriveConfig,
+    NPCController, ReplayController, Simulator, SimulatorState, TorchDriveConfig,
 )
 from torchdrivesim_tpu_torch.utils import Resolution
 
@@ -72,11 +75,43 @@ def build_synthetic_batch(batch_size: int, horizon: int, seed: int = 0,
     return road, as_t(states0), as_t(traj)
 
 
+def build_dataset_batch(dataset_path: str, location: Optional[str], batch: int,
+                        horizon: int, device='cuda'
+                        ) -> Tuple[BirdviewMesh, torch.Tensor, torch.Tensor,
+                                   ReplayController]:
+    """
+    ``batch`` INTERACTION segments (``subsample(batch, seed=0)`` of the
+    location's, or of every location's when ``location`` is None) as the
+    example's scenario: each segment's ego (its first agent) is controlled
+    and follows its recorded track as the expert, the other agents are
+    replayed.
+
+    Returns:
+        (road mesh, host BirdviewMesh of batch B; initial ego states (B, 1,
+         4); expert ego states (T, B, 1, 4) for T = min(horizon, frames -
+         1); a ReplayController of agents 1..), the tensors on ``device``.
+    """
+    from torchdrivesim_tpu_torch.behavior.interaction import INTERACTIONDataset
+    ds = INTERACTIONDataset(dataset_path,
+                            location_names=[location] if location else None)
+    ds.subsample(num_segments=batch, seed=0)
+    data = INTERACTIONDataset.collate([ds[i] for i in range(len(ds))], device=device)
+    gt, present = data['agent_states'], data['present_mask']     # B x A x T (x 4)
+    horizon = min(horizon, gt.shape[2] - 1)
+    expert = gt[:, 0, 1:horizon + 1].permute(1, 0, 2)[:, :, None].contiguous()
+    npc = ReplayController(npc_size=data['agent_attributes'][:, 1:, :2],
+                           npc_states=gt[:, 1:], npc_present_masks=present[:, 1:])
+    return data['road_mesh'], gt[:, :1, 0].contiguous(), expert, npc
+
+
 def build_synthetic_simulator(road: BirdviewMesh, states0: torch.Tensor,
-                              res: int = 64, fov: float = 35.0) -> Simulator:
+                              res: int = 64, fov: float = 35.0,
+                              npc_controller: Optional[NPCController] = None
+                              ) -> Simulator:
     """The example's simulator: one simple-model ego per environment on the
-    road mesh, the differentiable renderer at ``res`` and ``fov`` meters,
-    on the device of ``states0``."""
+    road mesh (and the NPCs of ``npc_controller``, drawn in every frame),
+    the differentiable renderer at ``res`` and ``fov`` meters, on the
+    device of ``states0``."""
     b = states0.shape[0]
     kin = K.SimpleKinematicModel(dt=0.1, device=states0.device)
     kin.set_state(states0)
@@ -84,7 +119,8 @@ def build_synthetic_simulator(road: BirdviewMesh, states0: torch.Tensor,
     sim = Simulator(
         road_mesh=road, kinematic_model=kin,
         agent_size=torch.tensor([[[4.6, 2.0]]]).expand(b, 1, 2),
-        initial_present_mask=torch.ones((b, 1), dtype=torch.bool), cfg=cfg)
+        initial_present_mask=torch.ones((b, 1), dtype=torch.bool), cfg=cfg,
+        npc_controller=npc_controller)
     sim.renderer.res = Resolution(res, res)
     sim.renderer.scale = 2.0 / fov
     return sim

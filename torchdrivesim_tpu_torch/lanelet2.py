@@ -4,8 +4,8 @@ Pure-Python Lanelet2 map ingestion (counterpart of
 (Karney's transverse-Mercator series), a small lanelet data model, the
 random centerline sampler the heuristic initializer uses, the point queries
 of the host wrong-way metric (``lanelets_containing``,
-``find_lanelet_directions``), and the road mesh triangulated from the
-lanelets. Host numpy code.
+``find_lanelet_directions``), the road mesh triangulated from the
+lanelets and the lane-marking mesh of their boundaries. Host numpy code.
 
 The parser keeps the reference parser's lanelet order, so a seeded
 ``pick_random_point_and_orientation`` picks the same lanelets.
@@ -20,7 +20,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from torchdrivesim_tpu_torch.mesh import BaseMesh
+from torchdrivesim_tpu_torch.mesh import BaseMesh, BirdviewMesh, rendering_mesh
 
 _WGS84_A = 6378137.0
 _WGS84_F = 1 / 298.257223563
@@ -358,3 +358,79 @@ def _zipper_triangulate(left: Sequence[int], right: Sequence[int]) -> List[List[
             faces.append([left[i], right[j], right[j + 1]])
             j += 1
     return faces
+
+
+def line_segments_to_mesh(points: np.ndarray, line_width: float = 0.3,
+                          eps: float = 1e-6) -> BaseMesh:
+    """
+    Line segments thickened into strips of ``2 * line_width``: 6 vertices
+    (each endpoint shifted by +-``line_width`` along the normal and
+    itself) and 4 faces per segment, in float32.
+
+    Args:
+        points: BxNx2x2 segment endpoints.
+    """
+    points = np.asarray(points, np.float32)
+    b, n = points.shape[0], points.shape[1]
+    d = points[:, :, 1] - points[:, :, 0]
+    d_hat = d / (np.linalg.norm(d, axis=-1, keepdims=True) + np.float32(eps))
+    d_perp = np.stack([-d_hat[..., 1], d_hat[..., 0]], axis=-1)[:, :, None]
+    width = np.float32(line_width)
+    verts = np.concatenate([points + d_perp * width, points, points - d_perp * width],
+                           axis=2).reshape(b, n * 6, 2)
+    base = np.asarray([[0, 1, 2], [1, 2, 3], [2, 3, 4], [3, 4, 5]], dtype=np.int32)
+    faces = (base[None] + (6 * np.arange(n, dtype=np.int32))[:, None, None]
+             ).reshape(n * 4, 3)
+    return BaseMesh(verts=verts, faces=np.broadcast_to(faces, (b, n * 4, 3)).copy())
+
+
+def lanelet_map_to_lane_mesh(lanelet_map: LaneletMap, left_handed: bool = False,
+                             left_right_marking_join_threshold: float = 0.1,
+                             lanelets: Optional[List[int]] = None,
+                             lane_boundary_width: float = 0.275) -> BirdviewMesh:
+    """
+    The lane-marking mesh of a lanelet map (batch 1): every boundary
+    segment once, classed 'joint_lane' (a left boundary segment that is
+    also a right one, its endpoints equal on the grid of
+    ``left_right_marking_join_threshold``), 'left_lane' or 'right_lane'
+    (swapped when ``left_handed``), each thickened into a strip.
+    """
+    left_segments, right_segments = {}, {}
+    pts_by_id = {p.id: p for p in lanelet_map.pointLayer}
+    for ll in lanelet_map.laneletLayer:
+        if lanelets is not None and ll.id not in lanelets:
+            continue
+        for store, bound in ((left_segments, ll.left_bound),
+                             (right_segments, ll.right_bound)):
+            for i in range(len(bound) - 1):
+                key = tuple(sorted([bound[i].id, bound[i + 1].id]))
+                store[key] = key
+
+    def seg_coords(key):
+        p1, p2 = pts_by_id[key[0]], pts_by_id[key[1]]
+        return np.asarray([[p1.x, p1.y], [p2.x, p2.y]], dtype=np.float32)
+
+    def hash_key(seg: np.ndarray) -> tuple:
+        cells = np.round(seg / left_right_marking_join_threshold).astype(np.int64)
+        a, b = tuple(cells[0]), tuple(cells[1])
+        return (a, b) if a <= b else (b, a)
+
+    left_list = [seg_coords(k) for k in left_segments]
+    right_list = [seg_coords(k) for k in right_segments]
+    right_hashes = {hash_key(seg) for seg in right_list}
+    left_hashes = {hash_key(seg) for seg in left_list}
+    joint = [seg for seg in left_list if hash_key(seg) in right_hashes]
+    left_only = [seg for seg in left_list if hash_key(seg) not in right_hashes]
+    right_only = [seg for seg in right_list if hash_key(seg) not in left_hashes]
+    if left_handed:
+        left_only, right_only = right_only, left_only
+
+    def to_mesh(segs, category):
+        if not segs:
+            return BirdviewMesh.empty(dim=2, batch_size=1)
+        return rendering_mesh(line_segments_to_mesh(
+            np.stack(segs, axis=0)[None], line_width=lane_boundary_width), category)
+
+    return BirdviewMesh.concat([to_mesh(joint, 'joint_lane'),
+                                to_mesh(left_only, 'left_lane'),
+                                to_mesh(right_only, 'right_lane')])

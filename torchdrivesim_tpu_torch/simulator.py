@@ -1,7 +1,8 @@
 """
 The simulator (counterpart of ``torchdrivesim_tpu/simulator.py``): the
 state, the pure env step ``functional_step`` with the per-agent kinematic
-dispatch, the static NPC controller, and the stateful :class:`Simulator`
+dispatch, the NPC controllers (static, replayed, compound, with spawning
+and despawning), and the stateful :class:`Simulator`
 facade with the reference's method surface (``step``, ``set_state``,
 ``copy``, ``extend``, ``select_batch_elements``, the getters, ``render``,
 ``render_egocentric``, the four ``compute_*`` metrics and
@@ -13,8 +14,7 @@ PyTorch runs eagerly: a rollout is a Python loop over
 :meth:`Simulator.step` or :meth:`Simulator.functional_step`.
 
 Not ported: observation noise (``noisy_perception``, the ``get_noisy_*``
-getters), lane features, custom agent colors, and the replay, compound
-and spawn NPC controllers.
+getters), lane features and custom agent colors.
 """
 from __future__ import annotations
 
@@ -46,7 +46,8 @@ from torchdrivesim_tpu_torch.traffic_controls import (
     BaseTrafficControl, red_light_violations,
 )
 from torchdrivesim_tpu_torch.utils import (
-    Resolution, as_batch_index, assert_equal, host_repeat, relative,
+    Resolution, as_batch_index, assert_equal, host_repeat, is_inside_polygon,
+    relative, time_slice,
 )
 
 logger = logging.getLogger(__name__)
@@ -93,15 +94,75 @@ class SimulatorState:
         return self.agent_state.shape[0]
 
 
+class SpawnController:
+    """
+    Despawns NPCs that leave ``exit_boundary`` and spawns NPCs from timed
+    tables: at controller time t an absent NPC whose ``spawn_masks`` entry
+    at t holds appears at ``spawn_states``' entry at t (the time axis is
+    clamped to its range).
+
+    Args:
+        exit_boundary: (B, N, 2) convex polygon vertices.
+        spawn_states: (B, Npc, T, 4); spawn_masks: (B, Npc, T) bool.
+        device: where the tables live (their own device by default).
+    """
+    _BATCHED = ('exit_boundary', 'spawn_states', 'spawn_masks')
+
+    def __init__(self, exit_boundary=None, spawn_states=None, spawn_masks=None,
+                 device=None):
+        f = lambda x, dtype: None if x is None else torch.as_tensor(
+            x, dtype=dtype, device=device)
+        self.exit_boundary = f(exit_boundary, torch.float32)
+        self.spawn_states = f(spawn_states, torch.float32)
+        self.spawn_masks = f(spawn_masks, torch.bool)
+
+    def apply(self, npc_state: torch.Tensor, npc_present_mask: torch.Tensor, time):
+        """(state, mask) after despawning and spawning at ``time`` (an int
+        or a 0-dim tensor on the device: no host sync)."""
+        if self.exit_boundary is not None:
+            inside = is_inside_polygon(npc_state[..., :2], self.exit_boundary)
+            npc_present_mask = npc_present_mask & inside
+        if self.spawn_states is not None and self.spawn_masks is not None:
+            time = torch.as_tensor(time, device=npc_state.device)
+            mask_t = time_slice(self.spawn_masks, time, dim=-1)
+            state_t = time_slice(self.spawn_states, time, dim=-2)
+            to_spawn = mask_t & ~npc_present_mask
+            npc_present_mask = npc_present_mask | to_spawn
+            npc_state = torch.where(to_spawn[..., None], state_t, npc_state)
+        return npc_state, npc_present_mask
+
+    def to(self, device=None) -> "SpawnController":
+        """The controller with its tables on ``device``."""
+        return self._map(lambda x: x.to(device), in_place=False)
+
+    def copy(self) -> "SpawnController":
+        return copy.copy(self)
+
+    def _map(self, f, in_place: bool) -> "SpawnController":
+        target = self if in_place else self.copy()
+        for name in self._BATCHED:
+            value = getattr(self, name)
+            setattr(target, name, None if value is None else f(value))
+        return target
+
+    def extend(self, n: int, in_place: bool = True) -> "SpawnController":
+        return self._map(lambda x: host_repeat(x, n), in_place)
+
+    def select_batch_elements(self, idx, in_place: bool = True) -> "SpawnController":
+        return self._map(lambda x: x[as_batch_index(idx, x.device)], in_place)
+
+
 class NPCController:
     """
-    NPCs that keep their states (no spawning): static attributes only, the
-    dynamic NPC state lives in :class:`SimulatorState`. Tensors are on the
-    device of ``npc_state``; every change rebinds an attribute, so a
+    NPCs that keep their states, apart from what their
+    :class:`SpawnController` spawns and despawns: static attributes only,
+    the dynamic NPC state lives in :class:`SimulatorState`. Tensors are on
+    the device of ``npc_state``; every change rebinds an attribute, so a
     :meth:`copy` is independent.
     """
     def __init__(self, npc_size, npc_state, npc_present_mask=None,
-                 npc_types=None, agent_type_names: Optional[List[str]] = None):
+                 npc_types=None, agent_type_names: Optional[List[str]] = None,
+                 spawn_controller: Optional[SpawnController] = None):
         self.initial_npc_state = torch.as_tensor(npc_state, dtype=torch.float32)
         dev = self.initial_npc_state.device
         self.npc_size = torch.as_tensor(npc_size, dtype=torch.float32, device=dev)
@@ -114,11 +175,32 @@ class NPCController:
                           if npc_types is not None
                           else torch.zeros(shape, dtype=torch.int32, device=dev))
         self.agent_type_names = agent_type_names or ['vehicle']
+        self.spawn_controller = (spawn_controller or SpawnController()).to(dev)
 
     def advance(self, npc_state: torch.Tensor, npc_present_mask: torch.Tensor,
-                time: torch.Tensor):
-        """(state, mask, time) -> (state, mask); static NPCs hold."""
-        return npc_state, npc_present_mask
+                time: torch.Tensor, simulator: Optional["Simulator"] = None):
+        """(state, mask, controller time[, simulator]) -> (state, mask):
+        static NPCs hold, the spawn controller applies."""
+        return self.spawn_controller.apply(npc_state, npc_present_mask, time)
+
+    def advance_npcs(self, simulator: "Simulator") -> None:
+        """Advance the simulator's NPCs and controller clock one step."""
+        s = simulator.state
+        npc_time = s.npc_time + 1
+        npc_state, npc_mask = self.advance(s.npc_state, s.npc_present_mask,
+                                           npc_time, simulator)
+        simulator.state = dataclasses.replace(
+            simulator.state, npc_state=npc_state, npc_present_mask=npc_mask,
+            npc_time=npc_time)
+
+    def spawn_despawn_npcs(self, simulator: "Simulator") -> None:
+        """Apply only the spawn controller to the simulator's NPCs at the
+        current controller time."""
+        s = simulator.state
+        npc_state, npc_mask = self.spawn_controller.apply(
+            s.npc_state, s.npc_present_mask, s.npc_time)
+        simulator.state = dataclasses.replace(s, npc_state=npc_state,
+                                              npc_present_mask=npc_mask)
 
     def get_npc_state(self) -> torch.Tensor:
         """The initial NPC states; the live ones are ``SimulatorState.npc_state``."""
@@ -137,15 +219,20 @@ class NPCController:
         return self
 
     def copy(self) -> "NPCController":
-        return copy.copy(self)
+        other = copy.copy(self)
+        other.spawn_controller = self.spawn_controller.copy()
+        return other
 
     _BATCHED = ('npc_size', 'initial_npc_state', 'initial_npc_present_mask',
                 'npc_types')
 
     def _map(self, f, in_place: bool) -> "NPCController":
+        """``f`` applied to every batched tensor, and to the batched tensors
+        of the spawn controller."""
         target = self if in_place else self.copy()
         for name in self._BATCHED:
             setattr(target, name, f(getattr(self, name)))
+        target.spawn_controller = self.spawn_controller._map(f, in_place=False)
         return target
 
     def extend(self, n: int, in_place: bool = True) -> "NPCController":
@@ -164,6 +251,92 @@ class NPCController:
                    npc_present_mask=torch.zeros((batch_size, 0), dtype=torch.bool,
                                                 device=device),
                    agent_type_names=agent_type_names)
+
+
+class ReplayController(NPCController):
+    """
+    NPCs replayed from recorded trajectories: at controller time t every
+    NPC takes entry ``(t + time) mod T`` of its (B, Npc, T, 4) table (and
+    of its (B, Npc, T) presence), then the spawn controller applies. The
+    index stays on the device (``torch.remainder`` and a gather), so the
+    advance makes no host sync.
+
+    Args:
+        npc_states: (B, Npc, T, 4) recorded states.
+        npc_present_masks: (B, Npc, T) bool, all present by default.
+        time: the table entry of controller time 0.
+    """
+    _BATCHED = NPCController._BATCHED + ('npc_states', 'npc_present_masks')
+
+    def __init__(self, npc_size, npc_states, npc_present_masks=None, time: int = 0,
+                 npc_types=None, agent_type_names: Optional[List[str]] = None,
+                 spawn_controller: Optional[SpawnController] = None):
+        self.npc_states = torch.as_tensor(npc_states, dtype=torch.float32)
+        dev = self.npc_states.device
+        self.npc_present_masks = (
+            torch.as_tensor(npc_present_masks, dtype=torch.bool, device=dev)
+            if npc_present_masks is not None
+            else torch.ones(self.npc_states.shape[:-1], dtype=torch.bool, device=dev))
+        self.start_time = int(time)
+        super().__init__(npc_size, self.npc_states[..., self.start_time, :],
+                         self.npc_present_masks[..., self.start_time], npc_types,
+                         agent_type_names, spawn_controller)
+
+    def advance(self, npc_state, npc_present_mask, time, simulator=None):
+        time = torch.as_tensor(time, device=self.npc_states.device)
+        t = torch.remainder(time + self.start_time, self.npc_states.shape[-2])
+        state = time_slice(self.npc_states, t, dim=-2)
+        mask = time_slice(self.npc_present_masks, t, dim=-1)
+        return self.spawn_controller.apply(state, mask, time)
+
+
+class CompoundNPCController(NPCController):
+    """
+    Each NPC slot driven by one of several controllers over the same slots:
+    slot j of batch element b follows ``controllers[controller_indices[b,
+    j]]``, merged by ``torch.where``.
+
+    Args:
+        controllers: controllers of the same (B, Npc) slots.
+        controller_indices: (B, Npc) index of each slot's controller.
+    """
+    def __init__(self, controllers: List[NPCController], controller_indices):
+        self.controllers = controllers
+        base = controllers[0]
+        dev = base.initial_npc_state.device
+        self.controller_indices = torch.as_tensor(controller_indices, dtype=torch.int64,
+                                                  device=dev)
+        fields = {name: getattr(base, name) for name in NPCController._BATCHED}
+        for i, c in enumerate(controllers):
+            sel = self.controller_indices == i
+            for name, value in fields.items():
+                other = getattr(c, name)
+                fields[name] = torch.where(
+                    sel.reshape(sel.shape + (1,) * (other.dim() - sel.dim())),
+                    other, value)
+        super().__init__(fields['npc_size'], fields['initial_npc_state'],
+                         fields['initial_npc_present_mask'], fields['npc_types'],
+                         base.agent_type_names)
+
+    def advance(self, npc_state, npc_present_mask, time, simulator=None):
+        out_state, out_mask = npc_state, npc_present_mask
+        for i, c in enumerate(self.controllers):
+            s, m = c.advance(npc_state, npc_present_mask, time, simulator)
+            sel = self.controller_indices == i
+            out_state = torch.where(sel[..., None], s, out_state)
+            out_mask = torch.where(sel, m, out_mask)
+        return out_state, out_mask
+
+    def copy(self) -> "CompoundNPCController":
+        other = super().copy()
+        other.controllers = [c.copy() for c in self.controllers]
+        return other
+
+    def _map(self, f, in_place: bool) -> "CompoundNPCController":
+        target = super()._map(f, in_place)
+        target.controller_indices = f(self.controller_indices)
+        target.controllers = [c._map(f, in_place=False) for c in self.controllers]
+        return target
 
 
 class Simulator:
@@ -320,7 +493,7 @@ class Simulator:
         time = state.time + 1
         npc_time = state.npc_time + 1
         npc_state, npc_mask = self.npc_controller.advance(
-            state.npc_state, state.npc_present_mask, npc_time)
+            state.npc_state, state.npc_present_mask, npc_time, self)
         km = self.kinematic_model
         # a compound model dispatches per agent over the ids it holds, with
         # the set in use known on the host
@@ -711,19 +884,10 @@ class Simulator:
                                              fov, waypoints, waypoints_rendering_mask)
             image = self.renderer.render_prims_chw(*prims, res_used, cameras)
         else:
-            camera_xy, camera_sc, shown = self._camera_masks(camera_xy, camera_psi,
-                                                             rendering_mask)
-            b, n_cameras, n_all = shown.shape
-            mesh = self.birdview_mesh_generator.generate(
-                n_cameras, agent_state=self.get_all_agent_state()[:, None].expand(
-                    b, n_cameras, n_all, 4),
-                present_mask=shown, traffic_light_state=self.get_traffic_light_state(),
-                waypoints=waypoints, waypoints_rendering_mask=waypoints_rendering_mask,
-                include_background=True)
-            image = self.renderer.render_frame(mesh, camera_xy, camera_sc,
-                                               res=res, fov=fov)
-        return image.reshape(camera_xy.shape[0], -1, 3, res_used.height,
-                             res_used.width)
+            mesh, cameras = self.mesh_frame(camera_xy, camera_psi, rendering_mask, fov,
+                                            waypoints, waypoints_rendering_mask)
+            image = self.renderer.render_rgb_mesh_chw(mesh, res_used, cameras)
+        return image.reshape(self.batch_size, -1, 3, res_used.height, res_used.width)
 
     def _camera_masks(self, camera_xy: torch.Tensor, camera_psi: torch.Tensor,
                       rendering_mask: Optional[torch.Tensor]):
@@ -737,6 +901,38 @@ class Simulator:
         present = present[:, None].expand(b, n_cameras, present.shape[-1])
         shown = present if rendering_mask is None else present & rendering_mask
         return camera_xy, camera_sc, shown
+
+    def mesh_frame(self, camera_xy: torch.Tensor, camera_psi: torch.Tensor,
+                   rendering_mask: Optional[torch.Tensor] = None,
+                   fov: Optional[float] = None,
+                   waypoints: Optional[torch.Tensor] = None,
+                   waypoints_rendering_mask: Optional[torch.Tensor] = None):
+        """
+        The per-camera mesh of :meth:`render`'s untextured frame (the map
+        mesh, the actors, the lights and the waypoints; B * Nc cameras,
+        camera fastest) and its cameras: ``(RGBMesh, Cameras)``, as the
+        renderer's ``render_rgb_mesh_chw`` takes them.
+        """
+        camera_xy, camera_sc, shown = self._camera_masks(camera_xy, camera_psi,
+                                                         rendering_mask)
+        b, n_cameras, n_all = shown.shape
+        mesh = self.birdview_mesh_generator.generate(
+            n_cameras, agent_state=self.get_all_agent_state()[:, None].expand(
+                b, n_cameras, n_all, 4),
+            present_mask=shown, traffic_light_state=self.get_traffic_light_state(),
+            waypoints=waypoints, waypoints_rendering_mask=waypoints_rendering_mask,
+            include_background=True)
+        scale = (2.0 / fov) if fov is not None else self.renderer.scale
+        return mesh, Cameras(camera_xy.reshape(-1, 2), camera_sc.reshape(-1, 2), scale)
+
+    def egocentric_mesh_frame(self, fov: Optional[float] = None,
+                              n_subsequent_waypoints: int = 1,
+                              ego_rotate: bool = True,
+                              visibility_matrix: Optional[torch.Tensor] = None):
+        """:meth:`mesh_frame` of :meth:`render_egocentric`'s cameras."""
+        xy, psi, mask = self._egocentric_cameras(ego_rotate, visibility_matrix)
+        return self.mesh_frame(xy, psi, mask, fov,
+                               **self._egocentric_waypoints(n_subsequent_waypoints))
 
     def prim_frame(self, camera_xy: torch.Tensor, camera_psi: torch.Tensor,
                    rendering_mask: Optional[torch.Tensor] = None,

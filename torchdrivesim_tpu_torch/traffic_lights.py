@@ -145,6 +145,22 @@ class TrafficLightController:
         return reduce(lambda x, y: {**x, **y},
                       [fsm.get_current_actor_states() for fsm in self.traffic_fsms], {})
 
+    @property
+    def current_state_with_name(self) -> Dict[str, str]:
+        """Each light's current state by name ('red', 'yellow', ...)."""
+        return {k: v.name for k, v in self.current_state.items()}
+
+
+def current_light_state_tensor_from_controller(
+        traffic_light_controller: TrafficLightController,
+        traffic_light_ids: Sequence[int], device='cuda') -> torch.Tensor:
+    """The controller's current state of each light of
+    ``traffic_light_ids``, as int32 indices into the traffic-light
+    control's allowed states, on ``device``."""
+    state = traffic_light_controller.current_state
+    return torch.tensor([CONTROL_STATE_INDEX[state[str(i)].name]
+                         for i in traffic_light_ids], dtype=torch.int32, device=device)
+
 
 class BakedLightSchedule:
     """
