@@ -1,6 +1,6 @@
 """
 Smoke run of the PyTorch port on one CUDA card. Builds every kernel from the
-checkout (one ``nvcc`` per source, all at once), then drives eleven paths:
+checkout (one ``nvcc`` per source, all at once), then drives twelve paths:
 
 * the headline env step (carla_Town02, 256 environments, 20 vehicles,
   128 x 128 render plus all metrics): the fused render kernel against its
@@ -78,6 +78,18 @@ checkout (one ``nvcc`` per source, all at once), then drives eleven paths:
   offroad on the last state against the CPU; the port's
   ``examples/simulate.py`` for 20 steps; times, bound, device operations
   and iterations/s.
+* the facade with noisy perception (BASELINE config 3's world: Town10HD,
+  64 environments, 20 agents, 30 FSM lights, 2 stop signs and 1 yield
+  sign, texture; standard-sensing observation noise from a seeded
+  generator on the card, lane features from the map's centerlines): 20
+  iterations of ``render_egocentric(noisy_perception=True,
+  custom_agent_colors=...)`` (1,280 cameras through the nearest warp
+  under the packed hard raster), ``step``, the four metrics and the
+  noisy getters, then one untextured frame of 4 cameras on the signs
+  (the chunked hard raster over the whole map mesh and the lane markers),
+  counting launches; the three kernels against their plain versions on
+  the first and the last frame, the signs drawn, the first iterations
+  against the CPU, times, bounds, device operations and iterations/s.
 * NPC replay (``examples/replay.py`` on INTERACTION-layout data written
   at run time from the bundled Town02 map: case 1, the first agent a
   teleporting ego, 19 replayed NPCs, 39 frames of ``render_egocentric`` at
@@ -100,6 +112,8 @@ checkout (one ``nvcc`` per source, all at once), then drives eleven paths:
   episode of 100 steps counting launches, times, bound and env steps/s.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py grouped-check-timing   # the grouped plain check's
+                                                 # seconds, face by face and listed
 
 Exits non-zero without printing a result when no CUDA card is present or
 any phase fails. The line before the last is a JSON object describing each
@@ -1523,6 +1537,54 @@ def accum_bound(ops, res, backward: bool):
     return bound(n_bytes, pairs * SOFT_FWD_OPS, pairs * SOFT_FWD_SFU), pairs
 
 
+def grouped_check_timing(device, card):
+    """The card's plain check of B5a/B5b (``compare_accum``) on the first
+    frame of the untextured config-4 rollout (B = 16, 17,024 faces, res 64),
+    first with the plain versions the check had until they folded only the
+    listed faces (``soft_accum_*_facewise``: every face over every pixel,
+    each gradient term summed by ``torch.sum``), then twice with the listed
+    folds: the seconds of each; the forward totals of the two forms must be
+    equal bit for bit (the backward's sums differ in order: its largest
+    difference is printed). ``python3 chip_smoke.py grouped-check-timing``
+    runs it alone."""
+    from torchdrivesim_tpu_torch.benchmark import build_il_scenario, il_view
+    from torchdrivesim_tpu_torch.ops import soft
+    scenario = build_il_scenario(batch_size=IL_BATCH, agent_count=IL_AGENTS, res=IL_RES,
+                                 use_texture=False, n_layouts=IL_BATCH, device=device)
+    mesh, cams = il_view(scenario, scenario.sim.state)
+    background, frame = scenario.sim.renderer.soft_frame_operands(mesh, IL_RES, cams)
+    frame = [x.contiguous() for x in soft.pad_to_groups(*frame)]
+    listed = (soft.soft_accum_fwd_reference, soft.soft_accum_bwd_reference,
+              soft._pixel_total)
+    facewise = (soft.soft_accum_fwd_facewise, soft.soft_accum_bwd_facewise,
+                lambda x, res: x.sum(dim=(-2, -1)))
+    results = {}
+    for label, form in (('face by face', facewise), ('listed', listed),
+                        ('listed again', listed)):
+        soft.soft_accum_fwd_reference, soft.soft_accum_bwd_reference, \
+            soft._pixel_total = form
+        try:
+            t0 = time.perf_counter()
+            out = compare_accum(soft, frame, background, IL_RES, 21, f'timing, {label}')
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            results[label] = (secs, soft.soft_accum_fwd_reference(*frame, IL_RES),
+                              soft.soft_accum_bwd_reference(*frame, *out[4]))
+        finally:
+            soft.soft_accum_fwd_reference, soft.soft_accum_bwd_reference, \
+                soft._pixel_total = listed
+        print(f'grouped plain check ({label}): {secs:.1f} s [{card}]')
+    (a, fa, ba), (b, fb, bb) = results['face by face'], results['listed']
+    bits = sum(int((x != y).sum()) for x, y in zip(fa, fb))
+    rel = max(float((x - y).abs().max() / y.abs().max()) for x, y in zip(ba, bb))
+    print(f'grouped plain check: face by face {a:.1f} s, listed {b:.1f} / '
+          f'{results["listed again"][0]:.1f} s, {a / b:.1f}x; forward totals: {bits} '
+          f'values differ in any bit; gradients: at most {rel:.3g} of the largest apart '
+          f'(the sums\' order) [{card}]')
+    if bits:
+        raise AssertionError('the listed forward differs from the face-by-face forward')
+
+
 def il_untextured_compare_with_cpu(device):
     """The untextured IL gradient step at B = 2, horizon 3, res 32, float32
     policy (cuDNN without TF32), on the card and on the CPU: losses and
@@ -1652,8 +1714,11 @@ def grouped_soft_path(device, card):
     if poses != IL_BATCH:
         raise AssertionError(f'{poses} distinct camera positions, expected {IL_BATCH}')
     # the plain versions' times are those of this comparison's float32 runs
+    t0 = time.perf_counter()
     (fd, fo), (bd, bo), nb, plain_times, frame_grads, caught = compare_accum(
         soft, frame, background, IL_RES, 21, 'last frame')
+    print(f'last frame: the plain check (compare_accum, the listed folds) took '
+          f'{time.perf_counter() - t0:.1f} s [{card}]')
     errs['fwd'].append(fd)
     errs['bwd'].append(bd)
     if fo + bo:
@@ -3045,6 +3110,342 @@ def facade_path(device, card):
             'library_ms': None}
 
 
+# --- the facade's noisy, recolored render (Town10HD, config 3's world) ------
+
+NOISY_BATCH, NOISY_ITERATIONS, NOISY_SIGN_FOV = 64, 20, 20.0
+#: the getters a noisy-perception user reads every iteration
+NOISY_GETTERS = ('get_noisy_state', 'get_noisy_agent_size', 'get_noisy_present_mask',
+                 'get_noisy_all_agents_absolute', 'get_noisy_all_agents_relative')
+
+
+def lane_markers(cfg_map, batch: int, device):
+    """Dense lane features from the map's lanelet centerlines (no file is
+    fetched): one (x, y, psi, width 1.5 m) marker at each centerline vertex
+    but the last, heading to the next; the same for every environment."""
+    from torchdrivesim_tpu_torch.lanelet2 import LaneFeatures
+    rows = []
+    for lanelet in cfg_map.lanelet_map.laneletLayer:
+        c = lanelet.centerline.coords()
+        d = c[1:] - c[:-1]
+        rows.append(np.concatenate([c[:-1], np.arctan2(d[:, 1:], d[:, :1]),
+                                    np.full((len(d), 1), 1.5)], axis=-1))
+    feats = torch.as_tensor(np.concatenate(rows).astype(np.float32), device=device)
+    feats = feats[None].expand(batch, -1, 4).contiguous()
+    return LaneFeatures(feats, torch.ones(feats.shape[:2], dtype=torch.bool, device=device))
+
+
+def noisy_world(batch: int, device):
+    """Config 3's world (Town10HD, left-handed, its texture, 20 agents of
+    three kinematic models by ``np.random.RandomState(0)``, 30 FSM lights,
+    2 stop signs and 1 yield sign) with the centerline markers as its lane
+    features and standard-sensing noise from a generator on ``device``
+    seeded with 0; (simulator, per-camera agent colors (B, A, A, 3) from
+    numpy seed 2)."""
+    from torchdrivesim_tpu_torch.benchmark import build_config3_scenario
+    from torchdrivesim_tpu_torch.map import find_map_config
+    from torchdrivesim_tpu_torch.observation_noise import (
+        StandardSensingObservationNoise, StandardSensingObservationNoiseConfig)
+    sim = build_config3_scenario(batch_size=batch, agent_count=AGENTS, res=RES, fov=FOV,
+                                 device=device).sim
+    sim.lane_features = lane_markers(find_map_config('carla_Town10HD'), batch, device)
+    sim.observation_noise_model = StandardSensingObservationNoise(
+        StandardSensingObservationNoiseConfig(), seed=0, device=device)
+    colors = torch.as_tensor(np.random.RandomState(2).uniform(
+        0, 1, (batch, AGENTS, AGENTS, 3)).astype(np.float32), device=device)
+    return sim, colors
+
+
+def noisy_actions(sim, n: int) -> torch.Tensor:
+    """(n, B, A, action width) small seeded actions."""
+    return torch.as_tensor(np.random.RandomState(3).uniform(
+        -0.02, 0.02, (n, sim.batch_size, AGENTS, sim.action_size)),
+        dtype=torch.float32, device=sim.device)
+
+
+def noisy_iteration(sim, colors, action):
+    """One iteration of the noisy facade loop: the noisy, recolored
+    egocentric views, the step, the four metrics and the noisy getters."""
+    from torchdrivesim_tpu_torch.utils import Resolution
+    out = {'image': sim.render_egocentric(res=Resolution(RES, RES), fov=FOV,
+                                          noisy_perception=True, custom_agent_colors=colors)}
+    sim.step(action)
+    out.update(state=sim.get_state(), offroad=sim.compute_offroad(),
+               wrong_way=sim.compute_wrong_way(),
+               light_violation=sim.compute_traffic_lights_violations(),
+               collision=sim.compute_collision())
+    out.update({name: getattr(sim, name)() for name in NOISY_GETTERS})
+    lanes, road, background, controls = (sim.get_noisy_lane_features(),
+                                         sim.get_noisy_road_mesh(),
+                                         sim.get_noisy_background_mesh(),
+                                         sim.get_noisy_traffic_controls())
+    if lanes is None or road is None or background is None or controls is None:
+        raise AssertionError('noisy facade: a noisy map getter returned nothing')
+    return out
+
+
+def noisy_frame(sim, colors):
+    """The operands of the noisy textured frame from the renderer's own
+    preparation: (background, hard operands, (mip, fcoef, icoef)), (mesh,
+    cameras)."""
+    mesh, cams = sim.egocentric_mesh_frame(fov=FOV, noisy_perception=True,
+                                           custom_agent_colors=colors)
+    return sim.renderer.hard_frame_operands(mesh, RES, cams), (mesh, cams)
+
+
+def sign_world(sim):
+    """Environment 0 of ``sim`` without the texture (the whole Town10HD
+    mesh under every frame) and with a ``MapObservationNoiseFromLog`` whose
+    logged lane features, one per step, are the centerline markers; four
+    cameras on the signs (the two stop signs, the yield sign, and the yield
+    sign turned a quarter): (simulator, camera xy (1, 4, 2), psi (1, 4, 1),
+    each camera's sign kind)."""
+    from torchdrivesim_tpu_torch.map import find_map_config
+    from torchdrivesim_tpu_torch.observation_noise import (
+        MapObservationNoiseFromLog, MapObservationNoiseFromLogConfig)
+    one = sim.select_batch_elements([0], in_place=False)
+    one.renderer.background_texture = None
+    one.observation_noise_model = MapObservationNoiseFromLog(
+        MapObservationNoiseFromLogConfig(),
+        noisy_lane_features=[one.lane_features] * (NOISY_ITERATIONS + 1))
+    signs = [sl for sl in find_map_config('carla_Town10HD').stoplines
+             if sl.agent_type in ('stop_sign', 'yield_sign')]
+    signs = sorted(signs, key=lambda sl: sl.agent_type) + [signs[0]]
+    xy = torch.tensor([[[sl.x, sl.y] for sl in signs]], device=sim.device)
+    psi = torch.tensor([[[sl.orientation] for sl in signs[:-1]]
+                        + [[signs[-1].orientation + np.pi / 2]]], device=sim.device)
+    return one, xy, psi, [sl.agent_type for sl in signs]
+
+
+def sign_frame(one, xy, psi):
+    """B6b's operands of the untextured sign frame: (background, operands),
+    (mesh, cameras)."""
+    mesh, cams = one.mesh_frame(xy, psi, fov=NOISY_SIGN_FOV, noisy_perception=True)
+    bg, ops, _ = one.renderer.hard_frame_operands(mesh, RES, cams)
+    return (bg, ops), (mesh, cams)
+
+
+def check_sign_pixels(image, renderer, kinds, label):
+    """Each camera's central 16 x 16 pixels show its sign's color."""
+    half = RES // 2
+    for cam, kind in enumerate(kinds):
+        color = torch.tensor(renderer.color_map[kind], dtype=torch.float32,
+                             device=image.device)
+        centre = image[cam, :, half - 8:half + 8, half - 8:half + 8]
+        n = int(((centre - color[:, None, None]).abs() < 0.5).all(dim=0).sum())
+        print(f'{label}: camera {cam} on a {kind}: {n} of 256 central pixels in its color')
+        if n == 0:
+            raise AssertionError(f'{label}: the {kind} is not drawn')
+
+
+def culled_tile_pairs(renderer, mesh, cams, valid, res) -> int:
+    """:func:`tile_pairs` of the hard raster's faces after the cull to
+    ``cfg.cull_max_faces`` that the textured render makes."""
+    from torchdrivesim_tpu_torch.ops.rasterize import (
+        camera_rows_cols, cull_faces_to_view, face_arrays)
+    rc = camera_rows_cols(mesh.verts[..., :2], cams.xy, cams.sc, cams.scale, res,
+                          left_handed=renderer.cfg.left_handed_coordinates)
+    corners, z, color = face_arrays(torch.cat([rc, mesh.verts[..., 2:3]], dim=-1),
+                                    mesh.faces, mesh.attrs)
+    corners, _, _ = cull_faces_to_view(corners, z, color, res, renderer.cfg.cull_max_faces)
+    return tile_pairs(corners, valid, res)
+
+
+def noisy_compare_with_cpu(device):
+    """The noisy loop's first ``COMPARE_STEPS`` iterations at B = 4 on the
+    card against the CPU: images >= 99.9% identical pixels, the occlusion
+    present mask exact, states and metrics to 1e-4 + 1e-4 relative (the
+    noisy states draw from each device's own generator and are not
+    compared)."""
+    def run(dev):
+        sim, colors = noisy_world(COMPARE_BATCH, dev)
+        return [{k: v.cpu() for k, v in noisy_iteration(sim, colors, a).items()}
+                for a in noisy_actions(sim, COMPARE_STEPS)]
+
+    card, cpu = (run(dev) for dev in ('cuda', 'cpu'))
+    for i, (og, oc) in enumerate(zip(card, cpu)):
+        same = float((og['image'] == oc['image']).all(dim=2).float().mean())
+        hidden = int((~oc['get_noisy_present_mask']).sum())
+        print(f'noisy facade compare iteration {i}: {same * 100:.4f}% of pixels identical '
+              f'on the card and the CPU; present mask {hidden} hidden entries on the CPU, '
+              f'{int((og["get_noisy_present_mask"] != oc["get_noisy_present_mask"]).sum())} '
+              'differ')
+        if same < 0.999:
+            raise AssertionError(f'noisy facade iteration {i}: images differ')
+        if not torch.equal(og['get_noisy_present_mask'], oc['get_noisy_present_mask']):
+            raise AssertionError(f'noisy facade iteration {i}: present masks differ')
+        for k in ('state', 'offroad', 'wrong_way', 'light_violation', 'collision',
+                  'get_noisy_agent_size'):
+            torch.testing.assert_close(og[k].float(), oc[k].float(), atol=1e-4,
+                                       rtol=1e-4, msg=k)
+
+
+def noisy_facade_path(device, card):
+    """The facade with noisy perception on config 3's world (Town10HD, B =
+    64, 20 agents, 30 FSM lights, 2 stop signs, 1 yield sign, texture;
+    standard-sensing noise, centerline lane markers): ``NOISY_ITERATIONS``
+    iterations of ``render_egocentric(noisy_perception=True,
+    custom_agent_colors=...)`` (1,280 cameras of 128 px: the mesh path, B2
+    under B6a), ``step``, the four metrics and the noisy getters, then one
+    untextured frame of 4 cameras on the signs (B6b over the whole map mesh,
+    the markers from a ``MapObservationNoiseFromLog``), pinned at one B2
+    and one B6a launch per iteration and one B6b, no plain call and no B1;
+    B2, B6a and B6b against their plain versions on the first and the last
+    frame; the signs drawn; the first iterations against the CPU; times,
+    bounds, device ops and iterations/s. Returns the JSON entries of B2, B6a
+    and B6b on this path."""
+    from torchdrivesim_tpu_torch.ops import fused, hard, warp
+    t_phase = time.perf_counter()
+    sim, colors = noisy_world(NOISY_BATCH, device)
+    print(f'noisy facade: carla_Town10HD B={NOISY_BATCH}, {AGENTS} agents, controls '
+          f'{ {k: v.corners.shape[1] for k, v in sim.traffic_controls.items()} }, '
+          f'{sim.lane_features.dense_lane_features.shape[1]} centerline markers, '
+          f'{type(sim.observation_noise_model).__name__}')
+
+    # 1. B2, B6a and B6b against their plain versions on the first frames
+    (bg, ops, (mip, fcoef, icoef)), (mesh, cams) = noisy_frame(sim, colors)
+    if len(ops) != 2:
+        raise AssertionError('noisy facade frame: not the packed kernel')
+    print(f'noisy facade frame: {fcoef.shape[0]} cameras, {mesh.faces.shape[1]} faces per '
+          f'camera culled to {ops[1].shape[1]}, texture level {tuple(mip.data.shape)}')
+    errs = {'warp_nearest': [compare_nearest(warp, mip, fcoef, icoef, RES,
+                                             'noisy facade first')],
+            'hard_raster_packed': [compare_hard(hard, ops, bg, RES,
+                                                'noisy facade first frame')[1]]}
+    one, xy, psi, kinds = sign_world(sim)
+    (sbg, sops), _ = sign_frame(one, xy, psi)
+    if len(sops) != 3:
+        raise AssertionError('sign frame: not the chunked kernel')
+    errs['hard_raster_chunked'] = [compare_hard(hard, sops, sbg, RES, 'sign first frame')[1]]
+    image = one.render(xy, psi, fov=NOISY_SIGN_FOV, noisy_perception=True)[0]
+    check_sign_pixels(image, one.renderer, kinds, 'sign first frame')
+    marker = torch.tensor(one.renderer.color_map['stop_sign'], dtype=torch.float32,
+                          device=device)
+    plain_image = one.render(xy, psi, fov=NOISY_SIGN_FOV)[0]
+    marked = lambda img: int(((img - marker[:, None, None]).abs() < 0.5).all(dim=1).sum())
+    print(f'sign first frame: {marked(image)} pixels in the marker color with noisy '
+          f'perception, {marked(plain_image)} without')
+    if not marked(image) > marked(plain_image):
+        raise AssertionError('sign frame: the lane markers are not drawn')
+
+    # 2. the first iterations against the CPU
+    noisy_compare_with_cpu(device)
+
+    # 3. the main path: the noisy facade loop, then the sign frame
+    actions = noisy_actions(sim, NOISY_ITERATIONS)
+    warp.NEAREST_LAUNCHES = hard.PACKED_LAUNCHES = hard.CHUNKED_LAUNCHES = 0
+    fused.LAUNCHES = 0
+    names = ['raster_packed_reference', 'raster_chunked_reference']
+    with count_calls(hard, names) as plain, \
+            count_calls(warp, ['warp_view_nearest_reference']) as plain_warp:
+        t0 = time.perf_counter()
+        for action in actions:
+            out = noisy_iteration(sim, colors, action)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        one, xy, psi, kinds = sign_world(sim)
+        image = one.render(xy, psi, fov=NOISY_SIGN_FOV, noisy_perception=True)[0]
+        torch.cuda.synchronize()
+    launches = {'warp_nearest': warp.NEAREST_LAUNCHES,
+                'hard_raster_packed': hard.PACKED_LAUNCHES,
+                'hard_raster_chunked': hard.CHUNKED_LAUNCHES, 'fused_render': fused.LAUNCHES}
+    plain = {**plain, **plain_warp}
+    print(f'noisy facade main path: {NOISY_ITERATIONS} iterations at B={NOISY_BATCH} in '
+          f'{loop_s:.2f} s ({NOISY_ITERATIONS / loop_s:.2f} iterations/s, '
+          f'{NOISY_ITERATIONS * NOISY_BATCH / loop_s:.1f} env-steps/s), then the sign '
+          f'frame; launches {launches}, plain calls {plain} [{card}]')
+    want = {'warp_nearest': NOISY_ITERATIONS, 'hard_raster_packed': NOISY_ITERATIONS,
+            'hard_raster_chunked': 1, 'fused_render': 0}
+    if launches != want or any(plain.values()):
+        raise AssertionError(f'noisy facade: launches {launches}, expected {want}, '
+                             'and no plain call')
+    for k, v in out.items():
+        if not torch.isfinite(v.float()).all():
+            raise AssertionError(f'noisy facade {k}: non-finite values')
+    if out['image'].shape != (NOISY_BATCH, AGENTS, 3, RES, RES):
+        raise AssertionError(f'noisy facade image shape {tuple(out["image"].shape)}')
+    painted = int(((out['image'].flatten(0, 1)[:, :, RES // 2, RES // 2] / 255.0)
+                   - colors.diagonal(dim1=1, dim2=2).transpose(1, 2).flatten(0, 1)
+                   ).abs().amax(dim=-1).lt(0.5 / 255 + 1e-6).sum())
+    hidden = int((~out['get_noisy_present_mask']).sum())
+    noise = (out['get_noisy_state'] - sim.get_all_agent_state()[:, None]).abs()
+    print(f'noisy facade: {painted} of {NOISY_BATCH * AGENTS} views show their ego in '
+          f'its custom color at the centre; {hidden} of '
+          f'{out["get_noisy_present_mask"].numel()} (ego, entity) pairs occluded; noisy '
+          f'state deviates up to {float(noise.max()):.3f}')
+    if painted < 0.9 * NOISY_BATCH * AGENTS or hidden == 0 or not float(noise.max()) > 0:
+        raise AssertionError('noisy facade: colors, occlusion or noise missing')
+    check_sign_pixels(image, one.renderer, kinds, 'sign last frame')
+    (bg, ops, (mip, fcoef, icoef)), (mesh, cams) = noisy_frame(sim, colors)
+    errs['warp_nearest'].append(compare_nearest(warp, mip, fcoef, icoef, RES,
+                                                'noisy facade last'))
+    errs['hard_raster_packed'].append(compare_hard(hard, ops, bg, RES,
+                                                   'noisy facade last frame')[1])
+    (sbg, sops), (smesh, scams) = sign_frame(one, xy, psi)
+    errs['hard_raster_chunked'].append(compare_hard(hard, sops, sbg, RES,
+                                                    'sign last frame')[1])
+
+    # 4. times, bounds, device ops
+    coef, pk = ops
+    b = pk.shape[0]
+    pixels = b * RES * RES
+    image_bytes = pixels * 3 * 4
+    pairs_a = culled_tile_pairs(sim.renderer, mesh, cams, pk != hard.PACKED_SENTINEL, RES)
+    scoef, sz, srgb = sops
+    pairs = hard_tile_pairs(one.renderer, smesh, scams, sz != hard.Z_SENTINEL, RES)
+    tiles = hard.hard_tiles(RES)
+    for label, n_pairs, keep, nb, nf in (
+            ('noisy facade view', pairs_a,
+             hard.hard_tile_keep_reference(coef, pk, hard.PACKED_SENTINEL, RES), b,
+             pk.shape[1]),
+            ('sign view', pairs, hard.hard_tile_keep_reference(scoef, sz, hard.Z_SENTINEL,
+                                                               RES), sz.shape[0],
+             sz.shape[1])):
+        print(f'{label}: {n_pairs / (nb * tiles):.1f} of {nf} faces per {BOUND_TILE} x '
+              f'{BOUND_TILE} tile overlap it by bounding box; the plain cull lists '
+              f'{int(keep.sum()) / (nb * tiles):.1f}')
+    entries = []
+    for name, key, fn, plain_fn, reps, plain_reps, n_bytes, n_ops, source, replaces in (
+            ('warp_nearest_noisy_facade', 'warp_nearest',
+             lambda: warp.warp_view_nearest(mip.data, fcoef, icoef, RES),
+             lambda: warp.warp_view_nearest_reference(mip.data, fcoef, icoef, RES),
+             100, 5, nbytes(fcoef, icoef) + texel_bytes(mip, b, FOV) + image_bytes,
+             pixels * NEAREST_PIXEL_OPS,
+             'torchdrivesim_tpu_torch/csrc/warp_nearest.cu',
+             'torchdrivesim_tpu/ops/pallas_warp.py:373'),
+            ('hard_raster_packed_noisy_facade', 'hard_raster_packed',
+             lambda: hard.raster_packed(coef, pk, bg, RES),
+             lambda: hard.raster_packed_reference(coef, pk, bg, RES),
+             100, 5, nbytes(coef, pk) + 2 * image_bytes,
+             pairs_a * BOUND_TILE ** 2 * HARD_FACE_OPS,
+             'torchdrivesim_tpu_torch/csrc/hard_raster.cu',
+             'torchdrivesim_tpu/ops/pallas_rasterize.py:134'),
+            ('hard_raster_chunked_signs', 'hard_raster_chunked',
+             lambda: hard.raster_chunked(scoef, sz, srgb, sbg, RES),
+             lambda: hard.raster_chunked_reference(scoef, sz, srgb, sbg, RES),
+             20, 2, nbytes(scoef, sz, srgb) + 2 * sz.shape[0] * RES * RES * 3 * 4,
+             pairs * BOUND_TILE ** 2 * HARD_CHUNKED_FACE_OPS,
+             'torchdrivesim_tpu_torch/csrc/hard_raster.cu',
+             'torchdrivesim_tpu/ops/pallas_rasterize.py:152')):
+        ms = graph_ms(fn, reps)
+        plain_ms = cuda_ms(plain_fn, plain_reps)
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        print(f'{name} kernel: {ms:.4f} ms (device, graph replay); plain version '
+              f'{plain_ms:.3f} ms; bound {bound_ms * 1e3:.3f} us by {bound_by} '
+              f'({n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.1f} M float32 ALU operations) '
+              f'[{card}]')
+        entries.append({'name': name, 'route': 'cuda', 'source': source,
+                        'replaces': replaces, 'launches': launches[key],
+                        'max_abs_err': max(errs[key]),
+                        'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+                        'bound_by': bound_by, 'library_ms': None})
+    probe = noisy_actions(sim, 1)[0]
+    iteration = lambda: noisy_iteration(sim.copy(), colors, probe)
+    profile_step(iteration, 'noisy facade iteration', card, count=('hard', 'warp'))
+    print(f'noisy facade iteration: {device_ops(iteration)} device ops [{card}]')
+    print(f'noisy facade phase: {time.perf_counter() - t_phase:.1f} s')
+    return entries
+
+
 # --- NPC replay, the INTERACTION data path and the single GymEnv -------------
 
 #: the INTERACTION-layout data written at run time: cases of frames, each
@@ -3601,6 +4002,9 @@ def main() -> int:
     print(f'kernel build ({", ".join(lib.name for lib in libraries)} in parallel): '
           f'{secs:.2f} s (nvcc sm_90a)')
 
+    if sys.argv[1:] == ['grouped-check-timing']:
+        grouped_check_timing(device, card)
+        return 0
     entry, scenario, state = headline(device, card)
     kernels = [entry]
     kernels += il_path(device, card)
@@ -3610,6 +4014,7 @@ def main() -> int:
     kernels.append(config3_path(device, card))
     kernels.append(tiled_path(device, card))
     kernels.append(facade_path(device, card))
+    kernels += noisy_facade_path(device, card)
     root = write_interaction_data('build/interaction_data')
     kernels.append(replay_path(device, card, root))
     kernels += dataset_il_path(device, card, root)

@@ -282,3 +282,35 @@ def test_card_backward_check_sees_a_transp_chain_fault(monkeypatch, seed, b, n_f
     assert (fwd_over, bwd_over, bits) == (0, 0, 0)
     assert all(float(g.abs().max()) > 0 for g in grads)
     assert all(caught) == (n_faces > 129)
+
+
+@pytest.mark.parametrize('kind,seed,b,n_faces,res', [
+    ('random', 21, 2, 300, 40), ('random', 22, 1, 129, 64),
+    ('boundary', 23, 2, 200, 64), ('boundary', 24, 1, 100, 40),
+    ('road', 25, 2, 700, 48)])
+def test_listed_fold_is_bit_equal_to_the_face_by_face_fold(kind, seed, b, n_faces, res):
+    """The plain versions of B5a and B5b, which fold per 16 x 16 tile and
+    group only the faces the plain cull lists, against the fold of every
+    face over every pixel (``soft_accum_*_facewise``): the totals and, for
+    the composite's cotangents and for the transp chain alone, the 13
+    gradient terms of every face equal bit for bit (ragged tiles at res 40;
+    boundary faces whose edge is at or beside -4 at a tile's corner; road
+    faces mostly off view)."""
+    import chip_smoke
+    make = {'random': chip_smoke.accum_random_operands,
+            'boundary': chip_smoke.accum_boundary_operands,
+            'road': chip_smoke.accum_road_operands}[kind]
+    ops, bg = make(seed, b, n_faces, res, 'cpu')
+    keep = soft.soft_tile_lists_reference(ops[0], res)
+    assert 0 < int(keep.sum()) < keep.numel()
+    totals = soft.soft_accum_fwd_facewise(*ops, res)
+    for name, got, want in zip(('num', 'den', 'transp'),
+                               soft.soft_accum_fwd_reference(*ops, res), totals):
+        assert torch.equal(got, want), name
+    grads = chip_smoke.composite_cotangents(soft, totals, bg, seed)
+    for cot in (grads, (torch.zeros_like(grads[0]), torch.zeros_like(grads[1]), grads[2])):
+        got = soft.soft_accum_bwd_reference(*ops, *cot)
+        want = soft.soft_accum_bwd_facewise(*ops, *cot)
+        for name, g, w in zip(('gcoef', 'gzw', 'gcolor'), got, want):
+            assert torch.equal(g, w), name
+        assert float(got[0].abs().max()) > 0

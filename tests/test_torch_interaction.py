@@ -12,6 +12,7 @@ Loaded arrays match exactly, except float fields, which may differ by one
 float32 ulp (pandas' float parser and ``float`` may differ in the last bit
 of a float64).
 """
+import inspect
 import os
 
 import jax
@@ -20,12 +21,16 @@ import numpy as np
 import pytest
 import torch
 
+import torchdrivesim_tpu_torch.lanelet2 as PL
 from tests.test_torch_grouped_soft import jax_grouped  # noqa: F401
 
 torch.set_num_threads(1)
 
 M_PER_DEG = 111319.49
 FLOAT_KEYS = ('agent_attributes', 'agent_states')
+#: the strip half-width of the lane markings (``lanelet_map_to_lane_mesh``)
+LANE_WIDTH = inspect.signature(PL.lanelet_map_to_lane_mesh).parameters[
+    'lane_boundary_width'].default
 
 
 def _write_osm(path, y_left=4.0, y_right=-4.0):
@@ -108,15 +113,50 @@ def _compare_item(got, want, name):
     assert got['location'] == want['location']
 
 
-def _compare_mesh(got, want, name):
+def _compare_mesh(got, want, name, lane=False):
+    """Categories, faces and vertex categories exact; vertices exact, but
+    for a lane mesh (``lane``) whose strip offsets may take either rounding
+    (:func:`_check_lane_verts`)."""
     assert list(got.categories) == list(want.categories), name
     np.testing.assert_array_equal(got.faces, np.asarray(want.faces), err_msg=name)
     np.testing.assert_array_equal(got.vert_category, np.asarray(want.vert_category),
                                   err_msg=name)
-    # 1e-5, and one float32 ulp at the map's coordinates: the packages'
-    # lanelet loaders round a few projected points to neighbouring float32s
-    np.testing.assert_allclose(got.verts, np.asarray(want.verts), rtol=1e-7, atol=1e-5,
-                               err_msg=name)
+    if lane:
+        _check_lane_verts(np.asarray(got.verts), np.asarray(want.verts), name)
+    else:
+        np.testing.assert_array_equal(got.verts, np.asarray(want.verts), err_msg=name)
+
+
+def _check_lane_verts(got, want, name, width=LANE_WIDTH, eps=1e-6):
+    """``line_segments_to_mesh``'s 6 vertices per segment: the endpoints
+    (slots 2 and 3) exact; the offsets ``points +- d_perp * width`` (slots 0,
+    1 and 4, 5) equal to one of the values the two places where the
+    reference's compiled CPU code may contract a product into a sum give:
+    the norm's ``x * x + y * y`` (as the port rounds it, or as ``fma(y, y,
+    x * x)``) and the offset itself (product and sum rounded apart, or
+    once). The port's own value is the first of both."""
+    b = got.shape[0]
+    g, w = got.reshape(b, -1, 6, 2), want.reshape(b, -1, 6, 2)
+    np.testing.assert_array_equal(g[:, :, 2:4], w[:, :, 2:4], err_msg=name)
+    points = g[:, :, 2:4]
+    d = points[:, :, 1] - points[:, :, 0]
+    x, y = d[..., 0:1].astype(np.float64), d[..., 1:2].astype(np.float64)
+    norms = (np.linalg.norm(d, axis=-1, keepdims=True),
+             np.sqrt((y * y + (x * x).astype(np.float32)).astype(np.float32)))
+    ok = np.zeros(w.shape[:2] + (4, 2), bool)
+    for norm in norms:
+        d_hat = d / (norm.astype(np.float32) + np.float32(eps))
+        d_perp = np.stack([-d_hat[..., 1], d_hat[..., 0]], axis=-1)[:, :, None]
+        step = d_perp * np.float32(width)
+        fused = d_perp.astype(np.float64) * np.float64(np.float32(width))
+        for sign, slots, cols in ((1, slice(0, 2), slice(0, 2)),
+                                  (-1, slice(4, 6), slice(2, 4))):
+            for value in (points + sign * step,
+                          (points.astype(np.float64) + sign * fused).astype(np.float32)):
+                ok[:, :, cols] |= w[:, :, slots] == value
+    assert ok.all(), f'{name}: {int((~ok).sum())} offset coordinates off every rounding'
+    print(f'{name}: {int((w != g).any(-1).sum())} of {g.shape[1] * 6} vertices take '
+          'another rounding')
 
 
 def test_dataset_matches_jax(dataset_root):
@@ -140,7 +180,8 @@ def test_dataset_matches_jax(dataset_root):
     assert item['present_mask'][-1].sum() == 25
     for loc in got.location_names:
         _compare_mesh(got.road_meshes[loc], want.road_meshes[loc], f'{loc} road')
-        _compare_mesh(got.lane_meshes[loc], want.lane_meshes[loc], f'{loc} lanes')
+        _compare_mesh(got.lane_meshes[loc], want.lane_meshes[loc], f'{loc} lanes',
+                      lane=True)
 
 
 def test_collate_and_subsample_match_jax(dataset_root):
@@ -156,13 +197,14 @@ def test_collate_and_subsample_match_jax(dataset_root):
     _compare_item({k: v.numpy() if torch.is_tensor(v) else v for k, v in gb.items()},
                   wb, 'batch')
     for key in ('road_mesh', 'lane_mesh'):
-        _compare_mesh(gb[key], wb[key], key)
+        _compare_mesh(gb[key], wb[key], key, lane=key == 'lane_mesh')
     assert gb['location'] == wb['location']
 
 
 def test_town02_lane_mesh_matches_jax():
-    """The lane-marking mesh of Town02's lanelet map: vertices to 1e-5 and
-    one float32 ulp, faces and categories exact; also the lane mesh of
+    """The lane-marking mesh of Town02's lanelet map: faces, categories and
+    segment endpoints exact, strip offsets to either rounding of
+    ``points +- d_perp * width`` (:func:`_check_lane_verts`); also the lane mesh of
     twelve lanelets with a join threshold that finds joint segments,
     right- and left-handed."""
     import torchdrivesim_tpu.lanelet2 as JL
@@ -172,7 +214,7 @@ def test_town02_lane_mesh_matches_jax():
     got = PL.lanelet_map_to_lane_mesh(PL.load_lanelet_map(path))
     want = JL.lanelet_map_to_lane_mesh(JL.load_lanelet_map(path))
     assert got.faces.shape[1] > 10000
-    _compare_mesh(got, want, 'Town02 lanes')
+    _compare_mesh(got, want, 'Town02 lanes', lane=True)
     for left_handed in (False, True):
         g = PL.lanelet_map_to_lane_mesh(PL.load_lanelet_map(path), lanelets=[
             ll.id for ll in PL.load_lanelet_map(path).laneletLayer][:12],
@@ -180,7 +222,7 @@ def test_town02_lane_mesh_matches_jax():
         w = JL.lanelet_map_to_lane_mesh(JL.load_lanelet_map(path), lanelets=[
             ll.id for ll in JL.load_lanelet_map(path).laneletLayer][:12],
             left_handed=left_handed, left_right_marking_join_threshold=2.0)
-        _compare_mesh(g, w, f'Town02 12 lanelets, left_handed {left_handed}')
+        _compare_mesh(g, w, f'Town02 12 lanelets, left_handed {left_handed}', lane=True)
         assert 'joint_lane' in g.categories
 
 

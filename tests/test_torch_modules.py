@@ -300,7 +300,10 @@ def test_port_imports_no_jax():
             'torchdrivesim_tpu_torch.behavior.interaction, '
             'torchdrivesim_tpu_torch.behavior.iai, '
             'torchdrivesim_tpu_torch.examples.replay, '
-            'torchdrivesim_tpu_torch.examples.imitation_learning; '
+            'torchdrivesim_tpu_torch.examples.imitation_learning, '
+            'torchdrivesim_tpu_torch.observation_noise, '
+            'torchdrivesim_tpu_torch.checkpoint, torchdrivesim_tpu_torch.validation, '
+            'torchdrivesim_tpu_torch.iou_utils; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "flax", "optax", "orbax", "torchdrivesim_tpu", '
             '"pandas", "imageio", "invertedai")]; '
@@ -316,7 +319,8 @@ def test_entry_points_default_to_the_card():
     from an argument without a default."""
     import inspect
 
-    from torchdrivesim_tpu_torch import benchmark, convert, gym_env, imitation, rl
+    from torchdrivesim_tpu_torch import (
+        benchmark, checkpoint, convert, gym_env, imitation, observation_noise, rl)
     from torchdrivesim_tpu_torch.behavior import iai
     from torchdrivesim_tpu_torch.behavior.interaction import INTERACTIONDataset
     from torchdrivesim_tpu_torch.behavior.replay import interaction_replay
@@ -331,7 +335,10 @@ def test_entry_points_default_to_the_card():
                gym_env.gym_sim_from_arrays, gym_env.VectorizedGymEnv, rl.build,
                imitation.build_dataset_batch, gym_env.GymEnv, gym_env.IAIGymEnv,
                interaction_replay, INTERACTIONDataset.collate, iai.iai_initialize,
-               current_light_state_tensor_from_controller):
+               current_light_state_tensor_from_controller,
+               observation_noise.StandardSensingObservationNoise,
+               observation_noise.observation_noise_from_config,
+               checkpoint.restore_checkpoint):
         assert inspect.signature(fn).parameters['device'].default == 'cuda', fn
     assert "device='cuda'" in inspect.getsource(rl.main)
     assert replay.parse_args(['--dataset-path', '.']).device == 'cuda'

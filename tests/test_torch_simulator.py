@@ -397,20 +397,39 @@ def test_prim_budget_guard_fires_at_construction(caplog):
     assert any('prim budget' in r.message for r in caplog.records)
 
 
-def test_unported_options_raise():
-    a = world_arrays()
-    sim = port_simulator(a)
-    with pytest.raises(NotImplementedError, match='A15'):
-        sim.render_egocentric(noisy_perception=True)
+def test_unported_options_raise(jax_sim):
+    """The options that raised until they were ported now run and match the
+    JAX package: a simulator built with lane features and an observation
+    noise model (the exact world) gives the reference's ``get_noisy_*``
+    views (1e-4), and ``render_egocentric(noisy_perception=True)`` (the mesh
+    path over the texture) >= 99.9% of the reference's pixels."""
     import torchdrivesim_tpu_torch.kinematic as K
+    from torchdrivesim_tpu_torch.lanelet2 import LaneFeatures
+    from torchdrivesim_tpu_torch.observation_noise import (
+        ObservationNoise, ObservationNoiseConfig)
     from torchdrivesim_tpu_torch.simulator import Simulator, TorchDriveConfig
+    a, jsim, _, _, _ = jax_sim
+    sim = port_simulator(a)
+    lanes = LaneFeatures(torch.zeros((B, 3, 4)), torch.ones((B, 3), dtype=torch.bool))
+    model = ObservationNoise(ObservationNoiseConfig())
     kin = K.KinematicBicycle(dt=0.1, device='cpu')
     kin.set_state(a['agent_state'])
-    for kw in ({'lane_features': object()}, {'observation_noise_model': object()}):
-        with pytest.raises(NotImplementedError, match='A15'):
-            Simulator(road_mesh=None, kinematic_model=kin, agent_size=a['agent_size'],
+    built = Simulator(road_mesh=None, kinematic_model=kin, agent_size=a['agent_size'],
                       initial_present_mask=np.ones((B, A), bool), cfg=TorchDriveConfig(),
-                      **kw)
+                      lane_features=lanes, observation_noise_model=model)
+    assert built.lane_features is lanes and built.observation_noise_model is model
+    assert built.get_noisy_lane_features() is lanes
+    sim.lane_features, sim.observation_noise_model = lanes, model
+    for name in ('get_noisy_state', 'get_noisy_agent_size', 'get_noisy_present_mask',
+                 'get_noisy_all_agents_absolute', 'get_noisy_all_agents_relative'):
+        close(getattr(sim, name)(), getattr(jsim, name)(), name)
+    want = np.asarray(jax.jit(functools.partial(
+        jsim.render_egocentric, fov=FOV, noisy_perception=True))())
+    got = sim.render_egocentric(fov=FOV, noisy_perception=True).numpy()
+    assert got.shape == want.shape == (B, A, 3, RES, RES)
+    same = (got == want).all(axis=2)
+    print(f'noisy perception: {int(same.sum())} of {same.size} pixels identical')
+    assert same.mean() >= 0.999
 
 
 def test_host_wrong_way_warns_above_64_agents(caplog):

@@ -2,8 +2,10 @@
 Infraction metrics (counterpart of ``torchdrivesim_tpu/infractions.py``):
 offroad by the exact point-to-mesh distance, wrong-way by host lanelet
 queries, and the per-agent collision metrics (discs, IoU, and the exact
-non-differentiable counts) in batched ops. The grid paths of offroad and
-wrong-way are in ``map_grids``.
+non-differentiable counts) in batched ops, and the reference-shaped
+helpers ``point_mesh_face_distance``, ``point_to_mesh_distance_pt`` and
+``get_all_intersections``. The grid paths of offroad and wrong-way are in
+``map_grids``.
 """
 from typing import List, Optional
 
@@ -13,6 +15,7 @@ import torch
 from torchdrivesim_tpu_torch.mesh import BaseMesh
 from torchdrivesim_tpu_torch.ops.box import (
     box2corners, iou_differentiable as _iou_pairwise, iou_non_differentiable,
+    oriented_box_intersection_area,
 )
 from torchdrivesim_tpu_torch.ops.collision import collision_matrix_with_discs
 from torchdrivesim_tpu_torch.ops.point_mesh import (
@@ -189,3 +192,118 @@ def compute_collision_matrix(all_boxes: torch.Tensor, mask: torch.Tensor,
     overlap = torch.where(eye, 0.0, overlap)
     overlap = overlap * mask[..., None, :].to(overlap.dtype)
     return overlap.sum(dim=-1)
+
+
+def point_mesh_face_distance(mesh: BaseMesh, points: torch.Tensor,
+                             reduction: str = 'sum', weighted: bool = False,
+                             threshold: float = 0.0) -> torch.Tensor:
+    """
+    Squared distance from each point to the closest face of its batch
+    element's mesh, reduced over the points.
+
+    Args:
+        mesh: B meshes (2D or 3D vertices, host or tensors).
+        points: (B, P, 2) or (B, P, 3) points.
+        reduction: 'none', 'sum', 'mean', 'min' or 'max'.
+        weighted: divide each point's distance by P.
+        threshold: distances at most this become 0 (after weighting).
+    Returns:
+        (B, P) with reduction 'none', else (B, 1).
+    """
+    batch_size, num_points, dim = points.shape
+    if num_points == 0 or mesh.faces_count == 0:
+        d2 = points.new_zeros((batch_size, num_points))
+    else:
+        verts = torch.as_tensor(mesh.verts, dtype=points.dtype,
+                                device=points.device)[..., :dim]
+        faces = torch.as_tensor(mesh.faces, device=points.device).long()
+        faces = faces.expand(verts.shape[0], -1, 3)
+        tris = torch.gather(verts[:, :, None, :].expand(-1, -1, 3, -1), 1,
+                            faces[..., None].expand(-1, -1, -1, dim))
+        if dim == 2:
+            d2 = point_to_triangles_distance_sq_chunked(points, tris)
+        else:
+            d2 = torch.vmap(point_to_mesh_distance_pt, in_dims=(1, None),
+                            out_dims=1)(points, tris)[..., 0]
+    if weighted:
+        d2 = d2 / max(num_points, 1)
+    d2 = torch.nan_to_num(d2, nan=0.0)
+    d2 = torch.where(d2 > threshold, d2, torch.zeros_like(d2))
+    if reduction == 'none':
+        return d2
+    reducers = {'sum': torch.sum, 'mean': torch.mean, 'min': torch.amin,
+                'max': torch.amax}
+    if reduction not in reducers:
+        raise ValueError(f"unknown reduction: {reduction!r}")
+    return reducers[reduction](d2, dim=-1, keepdim=True)
+
+
+def point_to_mesh_distance_pt(points: torch.Tensor, tris: torch.Tensor,
+                              threshold: float = 0.0) -> torch.Tensor:
+    """
+    3D squared point-to-mesh distance: the squared distance to the face's
+    plane where the projection falls inside a face of area at least 5e-3,
+    else the least squared distance to an edge; the least over the faces,
+    values at most ``threshold`` made 0.
+
+    Args:
+        points: (B, 3); tris: (B, F, 3, 3).
+    Returns:
+        (B, 1) squared distances.
+    """
+    p = points[:, None, :]
+    v0, v1, v2 = tris[..., 0, :], tris[..., 1, :], tris[..., 2, :]
+    cross = torch.linalg.cross(v2 - v0, v1 - v0, dim=-1)
+    norm_normal = torch.linalg.vector_norm(cross, dim=-1, keepdim=True)
+    normal = cross / (norm_normal + 1e-8)
+    t = torch.sum((v0 - p) * normal, dim=-1, keepdim=True)
+    p_proj = p + t * normal
+
+    def dot(x, y):
+        return torch.sum(x * y, dim=-1, keepdim=True)
+
+    e0, e1, q = v1 - v0, v2 - v0, p_proj - v0
+    d00, d01, d11 = dot(e0, e0), dot(e0, e1), dot(e1, e1)
+    d20, d21 = dot(q, e0), dot(q, e1)
+    denom = d00 * d11 - d01 * d01 + 1e-8
+    w1 = (d11 * d20 - d01 * d21) / denom
+    w2 = (d00 * d21 - d01 * d20) / denom
+    w0 = 1.0 - w1 - w2
+    inside = ((0.0 <= w0) & (w0 <= 1.0) & (0.0 <= w1) & (w1 <= 1.0)
+              & (0.0 <= w2) & (w2 <= 1.0))
+    inside = inside & (norm_normal / 2.0 >= 5e-3)
+
+    def edge_d2(a, b):
+        ab = b - a
+        l2 = dot(ab, ab)
+        tt = torch.clamp(dot(ab, p - a) / (l2 + 1e-8), 0.0, 1.0)
+        d2 = dot(p - (a + tt * ab), p - (a + tt * ab))
+        return torch.where(l2 <= 1e-8, dot(p - b, p - b), d2)
+
+    dist = torch.minimum(torch.minimum(edge_d2(v0, v1), edge_d2(v0, v2)),
+                         edge_d2(v1, v2))
+    dist = torch.where(inside & (norm_normal > 1e-8), t * t, dist)
+    dist = torch.nan_to_num(torch.amin(dist, dim=-2), nan=0.0)
+    return torch.where(dist > threshold, dist, torch.zeros_like(dist))
+
+
+def get_all_intersections(rects, ego_idx: Optional[int] = None) -> np.ndarray:
+    """
+    0/1 matrix of rotated rectangles that overlap with positive area, on
+    the host.
+
+    Args:
+        rects: (M, 5) x, y, length, width, yaw.
+        ego_idx: only the overlaps with this rectangle.
+    Returns:
+        (M, M) float64 upper-triangular matrix, or (M - 1,) with ``ego_idx``.
+    """
+    corners = box2corners(torch.as_tensor(np.asarray(rects, np.float32)))   # (M, 4, 2)
+    m = corners.shape[0]
+    if ego_idx is None:
+        area = oriented_box_intersection_area(
+            corners[:, None].expand(m, m, 4, 2), corners[None, :].expand(m, m, 4, 2))
+        return np.triu((area > 1e-9).numpy().astype(np.float64), k=1)
+    others = torch.cat([corners[:ego_idx], corners[ego_idx + 1:]])
+    area = oriented_box_intersection_area(corners[ego_idx].expand_as(others), others)
+    return (area > 1e-9).numpy().astype(np.float64)

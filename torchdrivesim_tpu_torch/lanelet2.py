@@ -5,7 +5,9 @@ Pure-Python Lanelet2 map ingestion (counterpart of
 random centerline sampler the heuristic initializer uses, the point queries
 of the host wrong-way metric (``lanelets_containing``,
 ``find_lanelet_directions``), the road mesh triangulated from the
-lanelets and the lane-marking mesh of their boundaries. Host numpy code.
+lanelets and the lane-marking mesh of their boundaries. Host numpy code,
+apart from :class:`LaneFeatures`, the lane feature tensors a simulator
+carries.
 
 The parser keeps the reference parser's lanelet order, so a seeded
 ``pick_random_point_and_orientation`` picks the same lanelets.
@@ -19,8 +21,10 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from torchdrivesim_tpu_torch.mesh import BaseMesh, BirdviewMesh, rendering_mesh
+from torchdrivesim_tpu_torch.utils import as_batch_index, host_repeat
 
 _WGS84_A = 6378137.0
 _WGS84_F = 1 / 298.257223563
@@ -64,8 +68,46 @@ def utm_zone_central_meridian(lon_deg: float) -> float:
     return zone * 6 - 183.0
 
 
+class Lanelet2NotFound(ImportError):
+    """Kept for API parity: this pure-Python implementation needs no native
+    lanelet2 package and never raises it."""
+
+
 class LaneletError(RuntimeError):
     """A lanelet geometric query failed."""
+
+
+@dataclass
+class LaneFeatures:
+    """
+    Dense and sparse lane feature tensors of a batch of environments, each
+    optional: features (B, M, D) with a (B, M) presence mask. The facade's
+    noisy render draws each present dense feature (x, y, psi, width, ...)
+    as a triangle marker.
+    """
+    dense_lane_features: Optional[torch.Tensor] = None        #: (B, M, D)
+    dense_lane_features_mask: Optional[torch.Tensor] = None   #: (B, M)
+    sparse_lane_features: Optional[torch.Tensor] = None       #: (B, N, D)
+    sparse_lane_features_mask: Optional[torch.Tensor] = None  #: (B, N)
+
+    def _map(self, f) -> "LaneFeatures":
+        return LaneFeatures(*[None if x is None else f(x) for x in (
+            self.dense_lane_features, self.dense_lane_features_mask,
+            self.sparse_lane_features, self.sparse_lane_features_mask)])
+
+    def to(self, device) -> "LaneFeatures":
+        return self._map(lambda x: x.to(device))
+
+    def copy(self) -> "LaneFeatures":
+        """A copy sharing the (never written) tensors."""
+        return self._map(lambda x: x)
+
+    def extend(self, n: int) -> "LaneFeatures":
+        """Every batch element repeated ``n`` times contiguously."""
+        return self._map(lambda x: host_repeat(x, n))
+
+    def select_batch_elements(self, idx) -> "LaneFeatures":
+        return self._map(lambda x: x[as_batch_index(idx, x.device)])
 
 
 @dataclass

@@ -18,7 +18,7 @@ import numpy as np
 import torchdrivesim_tpu_torch
 from torchdrivesim_tpu_torch.mesh import BirdviewMesh
 from torchdrivesim_tpu_torch.traffic_controls import (
-    BaseTrafficControl, TrafficLightControl,
+    BaseTrafficControl, StopSignControl, TrafficLightControl, YieldControl,
 )
 from torchdrivesim_tpu_torch.traffic_lights import TrafficLightController
 
@@ -147,16 +147,22 @@ def find_map_config(map_name: str) -> Optional[MapConfig]:
 
 def traffic_controls_from_map_config(cfg: MapConfig, *, device
                                      ) -> Dict[str, BaseTrafficControl]:
-    """Traffic-light controls from the map's stoplines (stop and yield
-    signs are not ported)."""
-    rows, ids = [], []
+    """The map's stoplines as controls of batch 1 on ``device``: a
+    ``TrafficLightControl``, a ``StopSignControl`` and a ``YieldControl``
+    for the kinds the map has, each with the stoplines' ``actor_ids`` in
+    file order."""
+    classes = {'traffic_light': TrafficLightControl, 'stop_sign': StopSignControl,
+               'yield_sign': YieldControl}
+    rows = {kind: [] for kind in classes}
+    ids = {kind: [] for kind in classes}
     for sl in cfg.stoplines:
-        if sl.agent_type == 'traffic_light':
-            rows.append([sl.x, sl.y, sl.length, sl.width, sl.orientation])
-            ids.append(sl.actor_id)
-    if not rows:
-        return {}
-    control = TrafficLightControl(np.asarray(rows, dtype=np.float32)[None],
-                                  device=device)
-    control.actor_ids = ids
-    return {'traffic_light': control}
+        if sl.agent_type in classes:
+            rows[sl.agent_type].append([sl.x, sl.y, sl.length, sl.width, sl.orientation])
+            ids[sl.agent_type].append(sl.actor_id)
+    controls = {}
+    for kind, cls in classes.items():
+        if rows[kind]:
+            control = cls(np.asarray(rows[kind], dtype=np.float32)[None], device=device)
+            control.actor_ids = ids[kind]
+            controls[kind] = control
+    return controls

@@ -7,7 +7,10 @@ and the mesh constructors (trajectories, annuli, boxes).
 
 Map meshes are scenario-construction data and stay host numpy: every
 operation returns a new mesh. RGB meshes built per frame
-(``BirdviewRGBMeshGenerator.generate``) hold tensors.
+(``BirdviewRGBMeshGenerator.generate``) hold tensors, and so do the
+single-category meshes built from tensors on the device (sign boxes, lane
+markers): :meth:`BirdviewMesh.set_properties` and
+:meth:`BirdviewMesh.fill_attr` keep them there.
 """
 from __future__ import annotations
 
@@ -352,13 +355,20 @@ class BirdviewMesh(BaseMesh):
     def set_properties(cls, mesh: BaseMesh, category: str,
                        color: Optional[Color] = None, z: Optional[float] = None
                        ) -> "BirdviewMesh":
-        """Lift a host mesh into a single-category BirdviewMesh."""
-        return cls(verts=np.asarray(mesh.verts), faces=np.asarray(mesh.faces),
-                   categories=[category],
+        """Lift a mesh into a single-category BirdviewMesh: host numpy, or
+        tensors on the device of a mesh of tensors."""
+        b, v = mesh.batch_size, mesh.verts_count
+        if torch.is_tensor(mesh.verts):
+            verts, faces = mesh.verts, mesh.faces
+            vert_category = torch.zeros((b, v), dtype=torch.int32,
+                                        device=mesh.verts.device)
+        else:
+            verts, faces = np.asarray(mesh.verts), np.asarray(mesh.faces)
+            vert_category = np.zeros((b, v), np.int32)
+        return cls(verts=verts, faces=faces, categories=[category],
                    colors={category: tensor_color(color)} if color is not None else {},
                    zs={category: z} if z is not None else {},
-                   vert_category=np.zeros((mesh.batch_size, mesh.verts_count),
-                                          np.int32))
+                   vert_category=vert_category)
 
     @classmethod
     def unify(cls, meshes: Sequence["BirdviewMesh"]) -> List["BirdviewMesh"]:
@@ -424,11 +434,14 @@ class BirdviewMesh(BaseMesh):
 
     def fill_attr(self) -> "RGBMesh":
         """Resolve categories to per-vertex colors and to (x, y, z) vertices
-        whose z is the rendering priority (host numpy)."""
+        whose z is the rendering priority: host numpy, or for a mesh of
+        tensors, tensors on its device (made by fills, no host copy)."""
         missing = [c for c in self.categories
                    if c not in self.colors or c not in self.zs]
         if missing:
             raise RuntimeError(f"Missing colors or z values for categories: {missing}")
+        if torch.is_tensor(self.verts):
+            return self._fill_attr_tensors()
         cat = np.asarray(self.vert_category, np.int32)
         zs = np.asarray([float(self.zs[k]) for k in self.categories], np.float32)
         table = np.stack([tensor_color(self.colors[k]) for k in self.categories]
@@ -437,6 +450,22 @@ class BirdviewMesh(BaseMesh):
         verts = np.concatenate([self.verts[..., :2], zs[cat][..., None]], axis=-1)
         return RGBMesh(verts=verts.astype(np.float32), faces=self.faces,
                        attrs=table[cat])
+
+    def _fill_attr_tensors(self) -> "RGBMesh":
+        """:meth:`fill_attr` of a mesh of tensors: each category's z and
+        color written where its vertices are."""
+        xy = self.verts[..., :2].to(torch.float32)
+        cat = self.vert_category
+        z = xy.new_zeros(xy.shape[:-1])
+        rgb = [xy.new_zeros(xy.shape[:-1]) for _ in range(3)]
+        for i, k in enumerate(self.categories):
+            here = cat == i
+            color = tensor_color(self.colors[k])
+            z = torch.where(here, float(self.zs[k]), z)
+            rgb = [torch.where(here, float(c), x) for c, x in zip(color, rgb)]
+        return RGBMesh(verts=torch.cat([xy, z[..., None]], dim=-1),
+                       faces=torch.as_tensor(self.faces, device=xy.device).long(),
+                       attrs=torch.stack(rgb, dim=-1))
 
 
 @dataclass
@@ -568,16 +597,17 @@ def generate_annulus_polygon_mesh(polygon, scaling_factor: float, origin,
 def build_verts_faces_from_bounding_box(bbs, z: float = 2):
     """
     Two triangles per box: ...xAx4x2 corners (numpy or a tensor) to
-    (...x4Ax2 vertices, ...x2Ax3 faces) of the same kind, faces on the
-    corners' device.
+    (...x4Ax2 vertices, ...x2Ax3 faces) of the same kind; a tensor's faces
+    are made on its device (no host copy).
     """
     batch_dims = tuple(bbs.shape[:-3])
     n = bbs.shape[-3]
     verts = bbs.reshape(batch_dims + (n * 4, 2))
+    if torch.is_tensor(bbs):
+        o = 4 * torch.arange(n, dtype=torch.int32, device=bbs.device)
+        faces = torch.stack([o, o + 1, o + 3, o + 1, o + 3, o + 2], dim=-1)
+        return verts, faces.reshape(n * 2, 3).expand(batch_dims + (n * 2, 3))
     base = np.asarray([[0, 1, 3], [1, 3, 2]], dtype=np.int32)
     faces = (base[None] + (4 * np.arange(n, dtype=np.int32))[:, None, None]
              ).reshape(n * 2, 3)
-    if torch.is_tensor(bbs):
-        faces = torch.as_tensor(faces, device=bbs.device)
-        return verts, faces.expand(batch_dims + (n * 2, 3))
     return verts, np.broadcast_to(faces, batch_dims + (n * 2, 3)).copy()

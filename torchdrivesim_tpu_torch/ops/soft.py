@@ -29,7 +29,10 @@ and maps them to the totals (num, den, transp): each group's partials start
 from 0, 0, 1 and take its faces in ascending order, and the groups combine
 as the reference's XLA does, ``num + n_g``, ``den + d_g``, ``transp * t_g``
 for g = 0, 1, ... One kernel launch covers every group. The composite is
-plain differentiable PyTorch, as in the reference.
+plain differentiable PyTorch, as in the reference. The grouped pair's plain
+versions fold, per 16 x 16 tile and group, only the faces the plain cull
+lists, bit for bit the fold of every face over every pixel
+(``soft_accum_*_facewise``).
 """
 import ctypes
 from typing import Tuple
@@ -174,10 +177,10 @@ def _accumulate(coef, zw, color, px, py, keep=None):
     transp; with ``keep`` (a list) also each face's alpha and exclusive
     prefix product."""
     b, n_faces = coef.shape[:2]
-    res = px.shape[0]
-    num = [coef.new_zeros((b, res, res)) for _ in range(3)]
-    den = coef.new_zeros((b, res, res))
-    transp = coef.new_ones((b, res, res))
+    shape = (b,) + torch.broadcast_shapes(px.shape[-2:], py.shape[-2:])
+    num = [coef.new_zeros(shape) for _ in range(3)]
+    den = coef.new_zeros(shape)
+    transp = coef.new_ones(shape)
     for f in range(n_faces):
         alpha = _face_terms(coef, f, px, py)[-1]
         if keep is not None:
@@ -242,7 +245,8 @@ def soft_raster_bwd_reference(coef: torch.Tensor, zw: torch.Tensor,
             sums[..., 10:13], gbg)
 
 
-def _face_rows(coef, zw, color, kept, chan, offset, k, px, py) -> torch.Tensor:
+def _face_rows(coef, zw, color, kept, chan, offset, k, px, py,
+               total=None) -> torch.Tensor:
     """
     Pass 2 of the backward over one run of faces, in descending order with a
     running suffix product: per face ``dl/dw = sum_c chan_c * color_c +
@@ -252,13 +256,16 @@ def _face_rows(coef, zw, color, kept, chan, offset, k, px, py) -> torch.Tensor:
     Args:
         kept: each face's (alpha, exclusive prefix product) from pass 1.
         chan: the three per-channel cotangents of the weighted color.
+        total: each term's sum over the pixels (``x.sum(dim=(-2, -1))``
+            by default).
     Returns:
         (B, F, 13): [gA gB gC] per edge, gzw, gcolor.
     """
     n_faces = coef.shape[1]
     sums = [None] * n_faces
     suffix = torch.ones_like(offset)
-    total = lambda x: x.sum(dim=(-2, -1))
+    if total is None:
+        total = lambda x: x.sum(dim=(-2, -1))
     for f in range(n_faces - 1, -1, -1):
         alpha, prefix = kept[f]
         except_f = prefix * suffix
@@ -425,13 +432,14 @@ def _groups(n_faces: int):
     return [slice(lo, lo + MAX_FACES) for lo in range(0, n_faces, MAX_FACES)]
 
 
-def soft_accum_fwd_reference(coef: torch.Tensor, zw: torch.Tensor,
-                             color: torch.Tensor, res: int):
+def soft_accum_fwd_facewise(coef: torch.Tensor, zw: torch.Tensor,
+                            color: torch.Tensor, res: int):
     """
-    Plain PyTorch version of the grouped forward kernel (the reference's
-    ``_accum_fwd_kernel`` per group and its XLA combination): each group's
-    partials from its faces in ascending order, combined as ``num + n_g``,
-    ``den + d_g``, ``transp * t_g`` for g = 0, 1, ...
+    The grouped forward folded face by face over every pixel (the
+    reference's ``_accum_fwd_kernel`` per group and its XLA combination):
+    each group's partials from its faces in ascending order, combined as
+    ``num + n_g``, ``den + d_g``, ``transp * t_g`` for g = 0, 1, ...
+    :func:`soft_accum_fwd_reference` equals it bit for bit.
 
     Returns:
         (num (B, 3, R, R), den (B, R, R), transp (B, R, R)).
@@ -449,21 +457,24 @@ def soft_accum_fwd_reference(coef: torch.Tensor, zw: torch.Tensor,
     return num, den, transp
 
 
-def soft_accum_bwd_reference(coef: torch.Tensor, zw: torch.Tensor,
-                             color: torch.Tensor, gnum: torch.Tensor,
-                             gden: torch.Tensor, gtransp: torch.Tensor):
+def soft_accum_bwd_facewise(coef: torch.Tensor, zw: torch.Tensor,
+                            color: torch.Tensor, gnum: torch.Tensor,
+                            gden: torch.Tensor, gtransp: torch.Tensor):
     """
-    Plain PyTorch version of the grouped backward kernel (the reference's
-    ``_accum_bwd_kernel`` per group, with the cotangents its autodiff routes
-    to each group): every group receives ``gnum`` and ``gden``, and its
-    ``t_g`` receives ``P_g * S_g``, where ``P_g`` is the running transp
-    before g and ``S_{G-1} = gtransp``, ``S_g = S_{g+1} * t_{g+1}``.
+    The grouped backward folded face by face over every pixel (the
+    reference's ``_accum_bwd_kernel`` per group, with the cotangents its
+    autodiff routes to each group): every group receives ``gnum`` and
+    ``gden``, and its ``t_g`` receives ``P_g * S_g``, where ``P_g`` is the
+    running transp before g and ``S_{G-1} = gtransp``, ``S_g = S_{g+1} *
+    t_{g+1}``. Each gradient term is summed over the pixels by
+    :func:`_pixel_total`. :func:`soft_accum_bwd_reference` equals it.
 
     Returns:
         (gcoef (B, F, 3, 3), gzw (B, 1, F), gcolor (B, F, 3)).
     """
     b, n_faces = coef.shape[:2]
-    px, py = _pixel_grids(gden.shape[-1], coef)
+    res = gden.shape[-1]
+    px, py = _pixel_grids(res, coef)
     groups = _groups(n_faces)
     ops = lambda s: (coef[:, s], zw[:, :, s], color[:, s])
     t_g = [_accumulate(*ops(s), px, py)[2] for s in groups]
@@ -475,13 +486,220 @@ def soft_accum_bwd_reference(coef: torch.Tensor, zw: torch.Tensor,
     gch = [gnum[:, ch] for ch in range(3)]
     running = torch.ones_like(gden)
     rows = []
+    total = lambda x: _pixel_total(x, res)
     for g, s in enumerate(groups):
         kept = []
         t = _accumulate(*ops(s), px, py, keep=kept)[2]
         gtr = running * carried[g]
-        rows.append(_face_rows(*ops(s), kept, gch, gden, -gtr, px, py))
+        rows.append(_face_rows(*ops(s), kept, gch, gden, -gtr, px, py, total))
         running = running * t
     sums = torch.cat(rows, dim=1)                            # (B, F, 13)
+    return (sums[..., :9].reshape(b, n_faces, 3, 3), sums[..., 9][:, None, :],
+            sums[..., 10:13])
+
+
+def _halving_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim (a power of 2) by halves: element i plus
+    element i + n/2, until one is left. One order, whatever the layout."""
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
+def _tile_count(tiles: int) -> int:
+    """``tiles`` rounded up to a power of 2."""
+    return 1 << max(tiles - 1, 0).bit_length()
+
+
+def _to_tiles(x: torch.Tensor, res: int) -> torch.Tensor:
+    """(..., R, R) -> (..., tiles, 256): the 16 x 16 pixel tiles, row-major,
+    each row-major inside; pixels past a ragged edge are 0."""
+    per = -(-res // ACCUM_TILE)
+    pad = per * ACCUM_TILE - res
+    x = torch.nn.functional.pad(x, (0, pad, 0, pad))
+    lead = x.shape[:-2]
+    x = x.reshape(lead + (per, ACCUM_TILE, per, ACCUM_TILE)).transpose(-3, -2)
+    return x.reshape(lead + (per * per, ACCUM_TILE * ACCUM_TILE))
+
+
+def _from_tiles(x: torch.Tensor, res: int) -> torch.Tensor:
+    """The inverse of :func:`_to_tiles`: (..., tiles, 16, 16) -> (..., R, R)."""
+    per = -(-res // ACCUM_TILE)
+    lead = x.shape[:-3]
+    x = x.reshape(lead + (per, per, ACCUM_TILE, ACCUM_TILE)).transpose(-3, -2)
+    return x.reshape(lead + (per * ACCUM_TILE, per * ACCUM_TILE))[..., :res, :res]
+
+
+def _pixel_total(x: torch.Tensor, res: int) -> torch.Tensor:
+    """(..., R, R) -> (...): each 16 x 16 tile summed by halves, then the
+    tiles (padded to a power of 2) by halves."""
+    tiles = _halving_sum(_to_tiles(x, res))
+    pad = _tile_count(tiles.shape[-1]) - tiles.shape[-1]
+    return _halving_sum(torch.nn.functional.pad(tiles, (0, pad)))
+
+
+class _Slots:
+    """
+    The runs of the listed folds: one slot per (camera, tile, group) whose
+    group has a face that the plain cull lists in the tile, ordered by
+    camera, tile, group; each slot's listed faces ascending, padded to the
+    longest run with faces of alpha exactly 0.
+
+    Attributes:
+        cam, tile: (N,) the slot's camera and tile.
+        faces: (N, L) face indices (0 where padded); valid: (N, L).
+        coef (N, L, 3, 3), zw (N, 1, L), color (N, L, 3): the operands.
+        px (N, 16, 1), py (N, 1, 16): the tile's pixel centres;
+        inside (N, 16, 16): pixels within the image.
+        by_tile: (B * tiles, K) each (camera, tile)'s slots in group order,
+            -1 past its last.
+    """
+    def __init__(self, coef, zw, color, res: int):
+        b, n_faces = coef.shape[:2]
+        dev = coef.device
+        keep = soft_tile_lists_reference(coef, res)              # (B, T, F)
+        tiles = keep.shape[1]
+        group = torch.empty(n_faces, dtype=torch.int64, device=dev)
+        for g, s in enumerate(_groups(n_faces)):
+            group[s] = g
+        cam, tile, face = keep.nonzero(as_tuple=True)           # ascending
+        n_groups = max(len(_groups(n_faces)), 1)
+        key = (cam * tiles + tile) * n_groups + group[face]
+        keys, slot, counts = torch.unique_consecutive(
+            key, return_inverse=True, return_counts=True)
+        n = keys.shape[0]
+        width = int(counts.max()) if n else 0
+        starts = torch.cumsum(counts, 0) - counts
+        pos = torch.arange(face.shape[0], device=dev) - starts[slot]
+        self.faces = torch.zeros((n, width), dtype=torch.int64, device=dev)
+        self.valid = torch.zeros((n, width), dtype=torch.bool, device=dev)
+        self.faces[slot, pos] = face
+        self.valid[slot, pos] = True
+        bt = keys // n_groups
+        self.cam, self.tile = bt // tiles, bt % tiles
+        pick = lambda x: x[self.cam[:, None], self.faces]
+        pad = torch.zeros((3, 3), dtype=coef.dtype, device=dev)
+        pad[:, 2] = -1e9
+        self.coef = torch.where(self.valid[..., None, None], pick(coef), pad)
+        self.zw = torch.where(self.valid, pick(zw[:, 0]), 0.0)[:, None, :]
+        self.color = torch.where(self.valid[..., None], pick(color), 0.0)
+        per = -(-res // ACCUM_TILE)
+        coords = torch.arange(per * ACCUM_TILE, dtype=coef.dtype, device=dev) + 0.5
+        span = torch.arange(ACCUM_TILE, device=dev)
+        rows = (self.tile // per * ACCUM_TILE)[:, None] + span
+        cols = (self.tile % per * ACCUM_TILE)[:, None] + span
+        self.px, self.py = coords[rows][:, :, None], coords[cols][:, None, :]
+        self.inside = (rows < res)[:, :, None] & (cols < res)[:, None, :]
+        # each (camera, tile)'s slots, in group order
+        order = torch.arange(n, device=dev) - torch.searchsorted(bt, bt)
+        k = int(order.max()) + 1 if n else 0
+        self.by_tile = torch.full((b * tiles, k), -1, dtype=torch.int64, device=dev)
+        self.by_tile[bt, order] = torch.arange(n, device=dev)
+        self.n_tiles, self.res = tiles, res
+
+    def fold(self, keep=None):
+        """Pass 1 over each slot's faces in ascending order: (num, den,
+        transp) per slot, (N, 16, 16) each; with ``keep`` also each face's
+        alpha and exclusive prefix product."""
+        return _accumulate(self.coef, self.zw, self.color, self.px, self.py, keep)
+
+    def combine(self, per_slot, identity: float, op):
+        """Per (camera, tile), ``op`` over its slots' values in group order
+        from ``identity`` (+0 or 1, which ``op`` leaves unchanged)."""
+        shape = (self.by_tile.shape[0],) + per_slot.shape[1:]
+        acc = per_slot.new_full(shape, identity)
+        for k in range(self.by_tile.shape[1]):
+            s = self.by_tile[:, k]
+            here = (s >= 0).reshape((-1,) + (1,) * (per_slot.dim() - 1))
+            acc = op(acc, torch.where(here, per_slot[s.clamp(min=0)], identity))
+        return acc
+
+    def image(self, per_tile, batch: int) -> torch.Tensor:
+        """(B * tiles, ..., 16, 16) -> (B, ..., R, R)."""
+        x = per_tile.reshape((batch, self.n_tiles) + per_tile.shape[1:])
+        return _from_tiles(x.movedim(1, -3), self.res)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, ..., R, R) image -> (N, ..., 16, 16): each slot's tile."""
+        t = _to_tiles(x, self.res)                               # (B, ..., T, 256)
+        t = t.movedim(-2, 1)[self.cam, self.tile]                # (N, ..., 256)
+        return t.reshape(t.shape[:-1] + (ACCUM_TILE, ACCUM_TILE))
+
+
+def soft_accum_fwd_reference(coef: torch.Tensor, zw: torch.Tensor,
+                             color: torch.Tensor, res: int):
+    """
+    Plain PyTorch version of the grouped forward kernel: per 16 x 16 tile
+    and group, only the faces the plain cull lists (the rest have alpha
+    exactly 0 there, so they change neither num, den nor transp), in
+    ascending order from 0, 0, 1, the groups combined as ``num + n_g``,
+    ``den + d_g``, ``transp * t_g`` for g = 0, 1, ...: bit for bit
+    :func:`soft_accum_fwd_facewise`.
+
+    Returns:
+        (num (B, 3, R, R), den (B, R, R), transp (B, R, R)).
+    """
+    b = coef.shape[0]
+    slots = _Slots(coef, zw, color, res)
+    num, den, transp = slots.fold()
+    add = lambda x, y: x + y
+    num = slots.combine(torch.stack(num, dim=1), 0.0, add)
+    den = slots.combine(den, 0.0, add)
+    transp = slots.combine(transp, 1.0, lambda x, y: x * y)
+    return slots.image(num, b), slots.image(den, b), slots.image(transp, b)
+
+
+def soft_accum_bwd_reference(coef: torch.Tensor, zw: torch.Tensor,
+                             color: torch.Tensor, gnum: torch.Tensor,
+                             gden: torch.Tensor, gtransp: torch.Tensor):
+    """
+    Plain PyTorch version of the grouped backward kernel: the cotangents of
+    :func:`soft_accum_bwd_facewise` (``P_g * S_g`` to each group's
+    transp), with each (tile, group) run over only the faces the plain cull
+    lists there, each term summed over its tile's pixels by halves and over
+    the tiles by halves: bit for bit the face-by-face fold (a dropped face
+    adds exactly 0 to every term in the tile).
+
+    Returns:
+        (gcoef (B, F, 3, 3), gzw (B, 1, F), gcolor (B, F, 3)).
+    """
+    b, n_faces = coef.shape[:2]
+    res = gden.shape[-1]
+    slots = _Slots(coef, zw, color, res)
+    if slots.faces.shape[0] == 0:       # no face reaches any tile
+        return coef.new_zeros(coef.shape), zw.new_zeros(zw.shape), color.new_zeros(color.shape)
+    kept = []
+    t_slot = slots.fold(kept)[2]
+    n_slots, width = slots.faces.shape
+    # P_g * S_g per slot, from each (camera, tile)'s slots in group order
+    s_g = _to_tiles(gtransp, res).reshape(-1, ACCUM_TILE, ACCUM_TILE)
+    carried = torch.zeros_like(t_slot)
+    for k in range(slots.by_tile.shape[1] - 1, -1, -1):
+        s = slots.by_tile[:, k]
+        here = s >= 0
+        carried[s[here]] = s_g[here]
+        s_g = torch.where(here[:, None, None], s_g * t_slot[s.clamp(min=0)], s_g)
+    running = torch.ones_like(s_g)
+    gtr = torch.zeros_like(t_slot)
+    for k in range(slots.by_tile.shape[1]):
+        s = slots.by_tile[:, k]
+        here = s >= 0
+        gtr[s[here]] = running[here] * carried[s[here]]
+        running = torch.where(here[:, None, None], running * t_slot[s.clamp(min=0)],
+                              running)
+    chan = slots.gather(gnum)
+    inside = slots.inside
+    total = lambda x: _halving_sum(torch.where(inside, x, 0.0).reshape(n_slots, -1))
+    rows = _face_rows(slots.coef, slots.zw, slots.color, kept,
+                      [chan[:, ch] for ch in range(3)], slots.gather(gden), -gtr,
+                      slots.px, slots.py, total)                  # (N, L, 13)
+    tiles = _tile_count(slots.n_tiles)
+    out = coef.new_zeros((b, n_faces, 13, tiles))
+    cam = slots.cam[:, None].expand(n_slots, width)[slots.valid]
+    tile = slots.tile[:, None].expand(n_slots, width)[slots.valid]
+    out[cam, slots.faces[slots.valid], :, tile] = rows[slots.valid]
+    sums = _halving_sum(out)                                  # (B, F, 13)
     return (sums[..., :9].reshape(b, n_faces, 3, 3), sums[..., 9][:, None, :],
             sums[..., 10:13])
 

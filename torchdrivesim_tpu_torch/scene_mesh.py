@@ -3,10 +3,11 @@ Per-frame scene primitives and meshes from precomputed templates
 (counterpart of ``torchdrivesim_tpu/scene_mesh.py``): the typed-primitive
 generator of the env step and the simulator's render (actor boxes and
 stoplines as quads, direction markers and waypoint discs as triangles;
-absent agents' primitives are degenerate, all-zero corners) and the
-per-camera RGB mesh of the differentiable render (background mesh,
-actors, traffic lights, waypoints; absent agents' faces collapse onto
-vertex 0).
+absent agents' primitives are degenerate, all-zero corners; no stop or
+yield sign, as in the reference) and the per-camera RGB mesh of the mesh
+renders (background mesh and the static meshes added to it, actors, stop
+and yield signs, traffic lights, waypoints; absent agents' faces collapse
+onto vertex 0).
 """
 from __future__ import annotations
 
@@ -16,8 +17,8 @@ import numpy as np
 import torch
 
 from torchdrivesim_tpu_torch.mesh import (
-    BirdviewMesh, RGBMesh, generate_disc_mesh, set_colors_with_defaults,
-    tensor_color,
+    BaseMesh, BirdviewMesh, RGBMesh, build_verts_faces_from_bounding_box,
+    generate_disc_mesh, rendering_mesh, set_colors_with_defaults, tensor_color,
 )
 from torchdrivesim_tpu_torch.utils import as_batch_index, rotate
 
@@ -25,6 +26,19 @@ from torchdrivesim_tpu_torch.utils import as_batch_index, rotate
 ACTOR_BOX_VERTS = 4
 ACTOR_DIR_VERTS = 3
 DIRECTION_SIZE = 0.3
+
+
+def _map_rgb(mesh: Optional[RGBMesh], f) -> Optional[RGBMesh]:
+    """``f`` applied to each array of a batched RGB mesh (as tensors); a
+    batch-1 mesh, shared by every environment, as it is."""
+    if mesh is None or mesh.verts.shape[0] == 1:
+        return mesh
+    return RGBMesh(*(f(torch.as_tensor(x)) for x in (mesh.verts, mesh.faces, mesh.attrs)))
+
+
+def _to_batch(mesh: RGBMesh, batch: int) -> RGBMesh:
+    """A batch-1 mesh as a batch of ``batch`` (views); others as they are."""
+    return mesh.broadcast_to(batch) if mesh.verts.shape[0] == 1 and batch > 1 else mesh
 
 
 def make_actor_templates(lenwid: torch.Tensor, render_direction: bool = True
@@ -71,14 +85,17 @@ def make_actor_templates(lenwid: torch.Tensor, render_direction: bool = True
 
 class BirdviewRGBMeshGenerator:
     """
-    Holds the actor and traffic-light templates and produces the per-frame
-    typed primitives.
+    Holds the actor, traffic-light and sign templates and the static
+    meshes, and produces the per-frame typed primitives and RGB meshes.
 
     Args:
         color_map / rendering_levels: category -> color / priority tables.
         background_mesh: the static map mesh (category-annotated, host
             numpy) that :meth:`generate` puts under every frame, or None.
     """
+    #: the static sign controls drawn by :meth:`generate`, in this order
+    SIGN_KINDS = ('stop_sign', 'yield_sign')
+
     def __init__(self, color_map: Dict[str, Tuple[int, int, int]],
                  rendering_levels: Dict[str, float],
                  render_agent_direction: bool = True,
@@ -99,6 +116,47 @@ class BirdviewRGBMeshGenerator:
         self.light_quads = None      # (B, Nl, 4, 2) cycle order
         self.light_z = None
         self.light_color_table = None  # (num_states, 3)
+        self.static_controls_rgb = None  # stop and yield sign boxes, tensors
+        self.static_rgb = []         # RGB meshes added to the background
+        self._controls = None        # the controls the meshes were built from
+
+    def initialize_background_mesh(self, background_mesh: Optional[BirdviewMesh]
+                                   ) -> None:
+        """Put ``background_mesh`` under every frame, without the static
+        meshes added to the previous one."""
+        if background_mesh is not self.background_mesh:
+            self.background_mesh = background_mesh
+            self._forget('background')
+        self.static_rgb = []
+        self._forget('static')
+
+    def add_static_meshes(self, meshes: List[BirdviewMesh]) -> None:
+        """Append static elements to the background, colored by their
+        categories' colors and priorities (the defaults where unset); host
+        numpy meshes or meshes of tensors on the device."""
+        self.static_rgb = self.static_rgb + [
+            set_colors_with_defaults(m, self.color_map, self.rendering_levels)
+            for m in meshes]
+
+    def add_static_rgb_meshes(self, meshes: List[RGBMesh], z: float = 0.0) -> None:
+        """Append colored static elements to the background; vertices
+        without a third column get the rendering priority ``z``."""
+        def lift(m: RGBMesh) -> RGBMesh:
+            if m.verts.shape[-1] != 2:
+                return m
+            if torch.is_tensor(m.verts):
+                col = torch.full(m.verts.shape[:-1] + (1,), float(z),
+                                 dtype=m.verts.dtype, device=m.verts.device)
+                return RGBMesh(torch.cat([m.verts, col], dim=-1), m.faces, m.attrs)
+            col = np.full(m.verts.shape[:-1] + (1,), z, m.verts.dtype)
+            return RGBMesh(np.concatenate([m.verts, col], axis=-1), m.faces, m.attrs)
+        self.static_rgb = self.static_rgb + [lift(m) for m in meshes]
+
+    def _forget(self, prefix: str) -> None:
+        """Drop the cached constants whose name starts with ``prefix``
+        (a new dict: copies sharing the old one keep theirs)."""
+        self._constants = {k: v for k, v in self._constants.items()
+                           if not k[0].startswith(prefix)}
 
     def initialize_actors_mesh(self, lenwid: torch.Tensor,
                                agent_types: torch.Tensor,
@@ -134,7 +192,22 @@ class BirdviewRGBMeshGenerator:
             self.actor_z = box_z[:, :, None].expand(b, a, s)
 
     def initialize_traffic_controls_mesh(self, traffic_controls) -> None:
-        """Traffic lights keep per-frame state; static signs are not ported."""
+        """Stop and yield signs become static boxes colored by kind
+        (tensors on the controls' device); traffic lights keep per-frame
+        state. The same controls again change nothing."""
+        if traffic_controls is self._controls:
+            return
+        self._controls = traffic_controls
+        signs = []
+        for kind in self.SIGN_KINDS:
+            control = traffic_controls.get(kind)
+            if control is None or control.corners.shape[1] == 0:
+                continue
+            verts, faces = build_verts_faces_from_bounding_box(control.corners)
+            signs.append(set_colors_with_defaults(
+                rendering_mesh(BaseMesh(verts=verts, faces=faces), kind),
+                self.color_map, self.rendering_levels))
+        self.static_controls_rgb = RGBMesh.concat(signs) if signs else None
         light = traffic_controls.get('traffic_light')
         if light is not None and light.corners.shape[1] > 0:
             # stoplines as quads in cycle order (corners 0, 1, 3, 2)
@@ -142,9 +215,11 @@ class BirdviewRGBMeshGenerator:
             self.light_quads = torch.stack([c[:, :, 0], c[:, :, 1], c[:, :, 3],
                                             c[:, :, 2]], dim=2)
             self.light_z = float(self.rendering_levels['traffic_light'])
-            self.light_color_table = torch.as_tensor(np.stack([
-                tensor_color(self.color_map[f'traffic_light_{s}'])
-                for s in light.allowed_states]), device=light.corners.device)
+            states = tuple(light.allowed_states)
+            self.light_color_table = self._on(
+                f'light_colors_{states}', c.device, lambda d: torch.as_tensor(np.stack([
+                    tensor_color(self.color_map[f'traffic_light_{s}'])
+                    for s in states]), device=d))
         else:
             self.light_quads = None
 
@@ -159,6 +234,10 @@ class BirdviewRGBMeshGenerator:
         other.actor_attrs = rep(self.actor_attrs)
         other.actor_z = rep(self.actor_z)
         other.light_quads = rep(self.light_quads)
+        other.static_controls_rgb = _map_rgb(self.static_controls_rgb, rep)
+        other.static_rgb = [_map_rgb(m, rep) for m in self.static_rgb]
+        other._forget('static')
+        other._controls = None
         mesh = self.background_mesh
         if mesh is not None and mesh.batch_size > 1:
             other.background_mesh = mesh.expand(n)
@@ -183,11 +262,15 @@ class BirdviewRGBMeshGenerator:
         dev = next(t.device for t in (self.actor_verts, self.light_quads)
                    if t is not None)
         idx = as_batch_index(idx, dev)
-        pick = lambda x: None if x is None else x[idx]
+        pick = lambda x: None if x is None else x[idx.to(x.device)]
         other.actor_verts = pick(self.actor_verts)
         other.actor_attrs = pick(self.actor_attrs)
         other.actor_z = pick(self.actor_z)
         other.light_quads = pick(self.light_quads)
+        other.static_controls_rgb = _map_rgb(self.static_controls_rgb, pick)
+        other.static_rgb = [_map_rgb(m, pick) for m in self.static_rgb]
+        other._forget('static')
+        other._controls = None
         mesh = self.background_mesh
         if mesh is not None and mesh.batch_size > 1:
             other.background_mesh = mesh.select_batch_elements(idx)
@@ -315,32 +398,41 @@ class BirdviewRGBMeshGenerator:
                  traffic_light_state: Optional[torch.Tensor] = None,
                  waypoints: Optional[torch.Tensor] = None,
                  waypoints_rendering_mask: Optional[torch.Tensor] = None,
+                 custom_agent_colors: Optional[torch.Tensor] = None,
                  include_background: bool = True) -> RGBMesh:
         """
         The per-camera RGB mesh of the frame, as tensors: the background
-        mesh (with ``include_background``), the actors transformed by their
-        states, the traffic-light stoplines colored by state and the
-        waypoint discs, concatenated in that order.
+        mesh and the static meshes added to it (with
+        ``include_background``), the actors transformed by their states,
+        the stop and yield signs, the traffic-light stoplines colored by
+        state and the waypoint discs, concatenated in that order.
 
         Args:
             agent_state: (B, Nc, All, 4) states shared or per camera.
             present_mask: (B, Nc, All) which agents each camera renders.
             traffic_light_state: (B, Nl) light state indices.
             waypoints: (B, Nc, M, 2); waypoints_rendering_mask: (B, Nc, M).
+            custom_agent_colors: (B, Nc, All, 3) colors in [0, 1] of each
+                camera's agent boxes (the direction markers keep theirs).
         Returns:
             RGBMesh with batch size B * Nc, verts (x, y, priority z).
         """
         meshes = []
         device = next(t.device for t in (agent_state, traffic_light_state, waypoints)
                       if t is not None)
-        if include_background and self.background_rgb is not None:
-            background = self._on('background', device, self.background_rgb.to)
-            batch = next(t.shape[0] for t in (agent_state, traffic_light_state, waypoints)
-                         if t is not None)
-            if background.verts.shape[0] == 1 and batch > 1:
-                # one map mesh shared by every environment
-                background = background.broadcast_to(batch)
-            meshes.append(background.expand(num_cameras))
+        batch = next(t.shape[0] for t in (agent_state, traffic_light_state, waypoints)
+                     if t is not None)
+        if include_background:
+            parts = [] if self.background_rgb is None else [
+                self._on('background', device, self.background_rgb.to)]
+            parts += [m.to(device) if torch.is_tensor(m.verts)
+                      else self._on(f'static_{i}', device, m.to)
+                      for i, m in enumerate(self.static_rgb)]
+            # a batch-1 map mesh is shared by every environment
+            parts = [_to_batch(m, batch) for m in parts]
+            if parts:
+                background = parts[0] if len(parts) == 1 else RGBMesh.concat(parts)
+                meshes.append(background.expand(num_cameras))
 
         if agent_state is not None and self.actor_verts is not None:
             b, nc, n_all = agent_state.shape[:3]
@@ -351,8 +443,14 @@ class BirdviewRGBMeshGenerator:
             world = rotate(local, psi) + xy                    # B,Nc,All,S,2
             z = self.actor_z[:, None, :, :, None].expand(b, nc, n_all, s, 1)
             verts = torch.cat([world, z], dim=-1).reshape(b * nc, n_all * s, 3)
-            attrs = self.actor_attrs[:, None].expand(b, nc, n_all, s, 3).reshape(
-                b * nc, n_all * s, 3)
+            attrs = self.actor_attrs[:, None].expand(b, nc, n_all, s, 3)
+            if custom_agent_colors is not None:
+                # recolor the box vertices only, keep the direction triangles
+                boxes = custom_agent_colors[..., None, :].to(attrs.dtype).expand(
+                    b, nc, n_all, ACTOR_BOX_VERTS, 3)
+                attrs = torch.cat([boxes, attrs[..., ACTOR_BOX_VERTS:, :]], dim=-2) \
+                    if s > ACTOR_BOX_VERTS else boxes
+            attrs = attrs.reshape(b * nc, n_all * s, 3)
             faces = self._on('actor_faces', device, lambda d: torch.as_tensor(
                 self.actor_faces, dtype=torch.int64, device=d)).expand(b * nc, -1, 3)
             if present_mask is not None:
@@ -361,6 +459,9 @@ class BirdviewRGBMeshGenerator:
                     b * nc, n_all, fpa, 3).reshape(faces.shape)
                 faces = faces * fm
             meshes.append(RGBMesh(verts=verts, faces=faces, attrs=attrs))
+
+        if self.static_controls_rgb is not None:
+            meshes.append(_to_batch(self.static_controls_rgb, batch).expand(num_cameras))
 
         if self.light_quads is not None and traffic_light_state is not None:
             b, nl = self.light_quads.shape[:2]

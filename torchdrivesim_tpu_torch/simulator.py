@@ -4,17 +4,15 @@ state, the pure env step ``functional_step`` with the per-agent kinematic
 dispatch, the NPC controllers (static, replayed, compound, with spawning
 and despawning), and the stateful :class:`Simulator`
 facade with the reference's method surface (``step``, ``set_state``,
-``copy``, ``extend``, ``select_batch_elements``, the getters, ``render``,
-``render_egocentric``, the four ``compute_*`` metrics and
-``check_prim_budget``).
+``copy``, ``extend``, ``select_batch_elements``, the getters and the
+``get_noisy_*`` observations of its observation noise model, ``render``
+and ``render_egocentric`` with noisy perception and custom agent colors,
+the four ``compute_*`` metrics and ``check_prim_budget``).
 
 :class:`SimulatorState` is a dataclass of tensors on one device, time
 included, so a step launches device work without waiting on the host.
 PyTorch runs eagerly: a rollout is a Python loop over
 :meth:`Simulator.step` or :meth:`Simulator.functional_step`.
-
-Not ported: observation noise (``noisy_perception``, the ``get_noisy_*``
-getters), lane features and custom agent colors.
 """
 from __future__ import annotations
 
@@ -36,8 +34,13 @@ from torchdrivesim_tpu_torch.infractions import (
     compute_agent_collisions_metric, compute_agent_collisions_metric_pytorch3d,
     compute_collision_matrix, lanelet_orientation_loss, offroad_infraction_loss,
 )
+from torchdrivesim_tpu_torch.lanelet2 import LaneFeatures
 from torchdrivesim_tpu_torch.map_grids import (
     MapGrids, offroad_loss_from_grid, wrong_way_loss_from_grid,
+)
+from torchdrivesim_tpu_torch.mesh import BaseMesh, BirdviewMesh
+from torchdrivesim_tpu_torch.observation_noise import (
+    ObservationNoise, ObservationNoiseConfig,
 )
 from torchdrivesim_tpu_torch.rendering.base import Cameras, RendererConfig
 from torchdrivesim_tpu_torch.rendering.renderer import Renderer
@@ -47,7 +50,7 @@ from torchdrivesim_tpu_torch.traffic_controls import (
 )
 from torchdrivesim_tpu_torch.utils import (
     Resolution, as_batch_index, assert_equal, host_repeat, is_inside_polygon,
-    relative, time_slice,
+    relative, rotate, time_slice,
 )
 
 logger = logging.getLogger(__name__)
@@ -365,7 +368,10 @@ class Simulator:
             (default all 'vehicle').
         agent_lr: BxA rear-axle distances reported by :meth:`get_agent_lr`.
         action_model_extras: passed through :meth:`get_action_model_extras`.
-        lane_features, observation_noise_model: must be None (not ported).
+        lane_features: a :class:`LaneFeatures` of batch B on the device (or None).
+        observation_noise_model: what the ``get_noisy_*`` getters and the
+            noisy render observe; ``ObservationNoise`` (the exact world)
+            by default.
     """
     def __init__(self, road_mesh, kinematic_model: K.KinematicModel,
                  agent_size, initial_present_mask, cfg: TorchDriveConfig,
@@ -381,9 +387,6 @@ class Simulator:
                  agent_lr=None, lane_features=None, observation_noise_model=None,
                  action_model_extras: Optional[Dict[str, Any]] = None,
                  map_grids: Optional[MapGrids] = None):
-        if lane_features is not None or observation_noise_model is not None:
-            raise NotImplementedError(
-                "lane features and observation noise are not ported (ROADMAP A15)")
         self.device = kinematic_model.get_state().device
         dev = self.device
         self.road_mesh = road_mesh
@@ -404,6 +407,9 @@ class Simulator:
                              agent_lr, dtype=torch.float32, device=dev).expand(shape))
         self.action_model_extras = action_model_extras
         self.map_grids = map_grids
+        self.lane_features = lane_features
+        self.observation_noise_model = observation_noise_model or \
+            ObservationNoise(ObservationNoiseConfig())
         self.cfg = cfg
         self.traffic_controls = traffic_controls
         self.waypoint_goals = waypoint_goals
@@ -600,6 +606,8 @@ class Simulator:
         self.agent_lr = f(self.agent_lr)
         if self.recenter_offset is not None:
             self.recenter_offset = f(self.recenter_offset)
+        if self.lane_features is not None:
+            self.lane_features = self.lane_features._map(f)
         if self.road_mesh is not None and self.road_mesh.batch_size > 1:
             self.road_mesh = mesh_f(self.road_mesh)
         if self.lanelet_map is not None:
@@ -817,6 +825,53 @@ class Simulator:
                     **self.state.traffic_control_state, 'traffic_light': now})
             control.state = now
 
+    # --- noisy observations ---------------------------------------------------
+
+    def get_noisy_state(self) -> torch.Tensor:
+        """BxAx(A+Npc)x4: each agent's view of every state."""
+        return self.observation_noise_model.get_noisy_state(self)
+
+    def get_noisy_agent_size(self) -> torch.Tensor:
+        """BxAx(A+Npc)x2."""
+        return self.observation_noise_model.get_noisy_agent_size(self)
+
+    def get_noisy_present_mask(self) -> torch.Tensor:
+        """BxAx(A+Npc) bool."""
+        return self.observation_noise_model.get_noisy_present_mask(self)
+
+    def get_noisy_all_agents_absolute(self) -> torch.Tensor:
+        """BxAx(A+Npc)x6: x, y, psi, length, width, present as each agent
+        observes them."""
+        return torch.cat([self.get_noisy_state()[..., :3], self.get_noisy_agent_size(),
+                          self.get_noisy_present_mask()[..., None].to(
+                              self.agent_size.dtype)], dim=-1)
+
+    def get_noisy_all_agents_relative(self, exclude_self: bool = True) -> torch.Tensor:
+        """:meth:`get_noisy_all_agents_absolute` in each agent's frame, from
+        its own observed pose (BxAx(A+Npc-1)x6 with ``exclude_self``)."""
+        abs_pos = self.get_noisy_all_agents_absolute()
+        a = self.agent_count
+        idx = torch.arange(a, device=self.device)
+        own = abs_pos[:, idx, idx, :]
+        rel_xy, rel_psi = relative(origin_xy=own[:, :, None, :2],
+                                   origin_psi=own[:, :, None, 2:3],
+                                   target_xy=abs_pos[..., :2],
+                                   target_psi=abs_pos[..., 2:3])
+        rel = torch.cat([rel_xy, rel_psi, abs_pos[..., 3:]], dim=-1)
+        return _drop_self(rel, a) if exclude_self else rel
+
+    def get_noisy_lane_features(self) -> Optional[LaneFeatures]:
+        return self.observation_noise_model.get_noisy_lane_features(self)
+
+    def get_noisy_road_mesh(self):
+        return self.observation_noise_model.get_noisy_road_mesh(self)
+
+    def get_noisy_background_mesh(self):
+        return self.observation_noise_model.get_noisy_background_mesh(self)
+
+    def get_noisy_traffic_controls(self) -> Optional[Dict[str, BaseTrafficControl]]:
+        return self.observation_noise_model.get_noisy_traffic_controls(self)
+
     # --- rendering --------------------------------------------------------------
 
     def check_prim_budget(self, waypoint_count: Optional[int] = None,
@@ -862,9 +917,11 @@ class Simulator:
                noisy_perception: bool = False) -> torch.Tensor:
         """
         Bird's-eye views of the current state from arbitrary cameras: with a
-        background texture, the typed primitives by the primitive render;
-        else the frame's mesh (the map mesh, the actors, the lights and the
-        waypoints) by the renderer's mesh render (hard by default).
+        background texture and neither custom colors nor noisy perception,
+        the typed primitives by the primitive render; else the frame's mesh
+        (the map mesh and its static meshes without a texture, the actors,
+        the signs, the lights and the waypoints) by the renderer's mesh
+        render (hard by default) over the texture or the background color.
 
         Args:
             camera_xy: (B, Nc, 2) or (B, 2) centers; camera_psi: (B, Nc, 1)
@@ -872,20 +929,23 @@ class Simulator:
             rendering_mask: (B, Nc, All) which agents each camera shows.
             waypoints: (B, Nc, M, 2) discs to draw;
                 waypoints_rendering_mask: (B, Nc, M).
+            custom_agent_colors: (B, Nc, All, 3) box colors in [0, 1].
+            noisy_perception: draw the map, lane-feature markers and
+                controls that the observation noise model observes.
         Returns:
             (B, Nc, 3, H, W) float images in [0, 255].
         """
-        if custom_agent_colors is not None or noisy_perception:
-            raise NotImplementedError(
-                "custom agent colors and noisy perception are not ported (ROADMAP A15)")
         res_used = res or self.renderer.res
-        if self.renderer.background_texture is not None:
+        if self.renderer.background_texture is not None and \
+                custom_agent_colors is None and not noisy_perception:
             prims, cameras = self.prim_frame(camera_xy, camera_psi, rendering_mask,
                                              fov, waypoints, waypoints_rendering_mask)
             image = self.renderer.render_prims_chw(*prims, res_used, cameras)
         else:
-            mesh, cameras = self.mesh_frame(camera_xy, camera_psi, rendering_mask, fov,
-                                            waypoints, waypoints_rendering_mask)
+            mesh, cameras = self.mesh_frame(
+                camera_xy, camera_psi, rendering_mask, fov, waypoints,
+                waypoints_rendering_mask, custom_agent_colors=custom_agent_colors,
+                noisy_perception=noisy_perception)
             image = self.renderer.render_rgb_mesh_chw(mesh, res_used, cameras)
         return image.reshape(self.batch_size, -1, 3, res_used.height, res_used.width)
 
@@ -906,33 +966,59 @@ class Simulator:
                    rendering_mask: Optional[torch.Tensor] = None,
                    fov: Optional[float] = None,
                    waypoints: Optional[torch.Tensor] = None,
-                   waypoints_rendering_mask: Optional[torch.Tensor] = None):
+                   waypoints_rendering_mask: Optional[torch.Tensor] = None,
+                   custom_agent_colors: Optional[torch.Tensor] = None,
+                   noisy_perception: bool = False):
         """
-        The per-camera mesh of :meth:`render`'s untextured frame (the map
-        mesh, the actors, the lights and the waypoints; B * Nc cameras,
-        camera fastest) and its cameras: ``(RGBMesh, Cameras)``, as the
-        renderer's ``render_rgb_mesh_chw`` takes them.
+        The per-camera mesh of :meth:`render`'s mesh frame (the map mesh and
+        its static meshes unless a texture is set, the actors, the signs,
+        the lights and the waypoints; B * Nc cameras, camera fastest) and its
+        cameras: ``(RGBMesh, Cameras)``, as the renderer's
+        ``render_rgb_mesh_chw`` takes them.
         """
         camera_xy, camera_sc, shown = self._camera_masks(camera_xy, camera_psi,
                                                          rendering_mask)
         b, n_cameras, n_all = shown.shape
-        mesh = self.birdview_mesh_generator.generate(
+        generator = self._noisy_mesh_generator() if noisy_perception \
+            else self.birdview_mesh_generator
+        mesh = generator.generate(
             n_cameras, agent_state=self.get_all_agent_state()[:, None].expand(
                 b, n_cameras, n_all, 4),
             present_mask=shown, traffic_light_state=self.get_traffic_light_state(),
             waypoints=waypoints, waypoints_rendering_mask=waypoints_rendering_mask,
-            include_background=True)
+            custom_agent_colors=custom_agent_colors,
+            include_background=self.renderer.background_texture is None)
         scale = (2.0 / fov) if fov is not None else self.renderer.scale
         return mesh, Cameras(camera_xy.reshape(-1, 2), camera_sc.reshape(-1, 2), scale)
 
     def egocentric_mesh_frame(self, fov: Optional[float] = None,
                               n_subsequent_waypoints: int = 1,
                               ego_rotate: bool = True,
-                              visibility_matrix: Optional[torch.Tensor] = None):
+                              visibility_matrix: Optional[torch.Tensor] = None,
+                              custom_agent_colors: Optional[torch.Tensor] = None,
+                              noisy_perception: bool = False):
         """:meth:`mesh_frame` of :meth:`render_egocentric`'s cameras."""
         xy, psi, mask = self._egocentric_cameras(ego_rotate, visibility_matrix)
         return self.mesh_frame(xy, psi, mask, fov,
-                               **self._egocentric_waypoints(n_subsequent_waypoints))
+                               **self._egocentric_waypoints(n_subsequent_waypoints),
+                               custom_agent_colors=custom_agent_colors,
+                               noisy_perception=noisy_perception)
+
+    def _noisy_mesh_generator(self) -> BirdviewRGBMeshGenerator:
+        """A copy of the scene generator with the observed map: the noisy
+        background mesh, the noisy dense lane features as triangle markers
+        of the 'stop_sign' category added to it, and the noisy controls."""
+        generator = self.birdview_mesh_generator.copy()
+        background = self.get_noisy_background_mesh()
+        if isinstance(background, BirdviewMesh):
+            generator.initialize_background_mesh(background)
+        lanes = self.get_noisy_lane_features()
+        if lanes is not None and lanes.dense_lane_features is not None:
+            generator.add_static_meshes([lane_feature_markers(lanes)])
+        controls = self.get_noisy_traffic_controls()
+        if controls is not None:
+            generator.initialize_traffic_controls_mesh(controls)
+        return generator
 
     def prim_frame(self, camera_xy: torch.Tensor, camera_psi: torch.Tensor,
                    rendering_mask: Optional[torch.Tensor] = None,
@@ -1118,6 +1204,28 @@ def _relative_views(abs_pos: torch.Tensor, agent_count: int,
         rel_state.shape[:-1] + (abs_pos.shape[-1] - 3,))
     rel = torch.cat([rel_state, info], dim=-1)
     return _drop_self(rel, agent_count) if exclude_self else rel
+
+
+def lane_feature_markers(lanes: LaneFeatures) -> BirdviewMesh:
+    """The dense lane features (B, M, D >= 4: x, y, psi, width, ...) as a
+    'stop_sign'-category mesh of one triangle each, on their device: base
+    of the feature's width across its position, apex 1 m ahead along psi;
+    absent features collapse to the origin."""
+    markers = lanes.dense_lane_features
+    width = markers[..., 3]
+    zero, one = torch.zeros_like(width), torch.ones_like(width)
+    tri = torch.stack([torch.stack([zero, -width / 2], dim=-1),
+                       torch.stack([zero, width / 2], dim=-1),
+                       torch.stack([one, zero], dim=-1)], dim=-2)      # B, M, 3, 2
+    verts = rotate(tri, markers[..., None, 2:3]) + markers[..., None, :2]
+    verts = torch.where(lanes.dense_lane_features_mask[..., None, None], verts,
+                        torch.zeros((), dtype=verts.dtype, device=verts.device))
+    b, m = markers.shape[0], markers.shape[1]
+    faces = (3 * torch.arange(m, dtype=torch.int32, device=markers.device)[:, None]
+             + torch.arange(3, dtype=torch.int32, device=markers.device))
+    return BirdviewMesh.set_properties(
+        BaseMesh(verts=verts.reshape(b, m * 3, 2), faces=faces.expand(b, m, 3)),
+        category='stop_sign')
 
 
 def _drop_self(rel: torch.Tensor, agent_count: int) -> torch.Tensor:

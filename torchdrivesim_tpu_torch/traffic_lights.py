@@ -2,8 +2,9 @@
 Traffic-light state machines (counterpart of
 ``torchdrivesim_tpu/traffic_lights.py``).
 
-1. Host FSM classes with the reference's JSON format and tick semantics.
-   Their random initial states come from an explicit ``random.Random``.
+1. Host FSM classes with the reference's JSON format (``from_json``, and
+   ``to_json`` to write it back) and tick semantics. Their random initial
+   states come from an explicit ``random.Random``.
 2. :class:`BakedLightSchedule`: the FSM cycle unrolled once on the host into
    per-light phase tables, after which the light state at any simulation
    time is a tensor lookup on the device.
@@ -55,6 +56,15 @@ def _group_states_from_json_items(items) -> List[TrafficLightGroupState]:
     ]
 
 
+def _group_state_to_json_item(state: TrafficLightGroupState) -> Dict:
+    return {
+        "actor_states": {k: v.name for k, v in state.actor_states.items()},
+        "state": str(state.sequence_number),
+        "duration": state.duration,
+        "next_state": str(state.next_state),
+    }
+
+
 class TrafficLightStateMachine:
     """
     Cyclic FSM over group states: large dt can skip several states; landing
@@ -69,6 +79,10 @@ class TrafficLightStateMachine:
         self._current_state: Optional[TrafficLightGroupState] = None
         self._duration: Optional[float] = None
         self.reset()
+
+    def to_json(self) -> str:
+        """The group states in the JSON format they are loaded from."""
+        return json.dumps([_group_state_to_json_item(s) for s in self._states])
 
     def reset(self):
         state = self._rng.randint(0, len(self._states) - 1)
@@ -131,6 +145,11 @@ class TrafficLightController:
                 _group_states_from_json_items(sm), rng) for sm in items])
         except KeyError as e:
             raise ValueError(f"KeyError: {e} in {json_file_path}")
+
+    def to_json(self) -> str:
+        """Every machine's group states in the format of :meth:`from_json`."""
+        return json.dumps([[_group_state_to_json_item(s) for s in fsm.states]
+                           for fsm in self.traffic_fsms])
 
     def tick(self, dt: float):
         for fsm in self.traffic_fsms:

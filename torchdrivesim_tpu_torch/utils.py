@@ -114,3 +114,27 @@ def time_slice(arr: torch.Tensor, t: torch.Tensor, dim: int) -> torch.Tensor:
 
 def assert_equal(x, y):
     assert x == y, f"{x} != {y}"
+
+
+def line_circle_intersection_xy(p1x, p1y, p2x, p2y, cx, cy, radius) -> torch.Tensor:
+    """
+    Whether the segment p1 -> p2 meets the circle of ``radius`` about c,
+    on separate x and y planes that broadcast together (no trailing
+    coordinate dimension): the quadratic in the segment parameter has a real
+    root interval that overlaps [0, 1]. Returns a bool tensor.
+    """
+    dx, dy = p2x - p1x, p2y - p1y
+    fx, fy = p1x - cx, p1y - cy
+    a = dx * dx + dy * dy
+    b = 2 * (fx * dx + fy * dy)
+    c = fx * fx + fy * fy - radius * radius
+    discriminant = b * b - 4 * a * c
+    has_intersection = discriminant >= 0
+    sqrt_disc = torch.sqrt(torch.clamp(discriminant, min=0))
+    a_safe = torch.where(torch.abs(a) < 1e-8, torch.full_like(a, 1e-8), a)
+    t1 = (-b - sqrt_disc) / (2 * a_safe)
+    t2 = (-b + sqrt_disc) / (2 * a_safe)
+    t_min = torch.minimum(t1, t2)
+    t_max = torch.maximum(t1, t2)
+    seg_hit = (t_min <= 1) & (t_max >= 0)
+    return has_intersection & seg_hit
