@@ -1,6 +1,6 @@
 """
 Smoke run of the PyTorch port on one CUDA card. Builds every kernel from the
-checkout (one ``nvcc`` per source, all at once), then drives twelve paths:
+checkout (one ``nvcc`` per source, all at once), then drives eighteen paths:
 
 * the headline env step (carla_Town02, 256 environments, 20 vehicles,
   128 x 128 render plus all metrics): the fused render kernel against its
@@ -109,7 +109,35 @@ checkout (one ``nvcc`` per source, all at once), then drives twelve paths:
 * the single-ego ``GymEnv`` (Town02, 6 agents, textured, 64 x 64 through
   ``SingleAgentWrapper``): the fused render kernel against its plain
   version on the first and the last frame, 3 steps against the CPU, an
-  episode of 100 steps counting launches, times, bound and env steps/s.
+  episode of 100 steps counting launches, times, bound and env steps/s;
+* the face-soup render (the headline world, 256 environments, two waypoint
+  discs per camera: ``generate_faces`` -> ``render_faces_chw`` at 128 x
+  128): the nearest warp and the packed hard raster against their plain
+  versions on the first and the last frame, the first frames against the
+  CPU, 100 steps counting launches, one untextured frame and one of a
+  differentiable renderer (each one packed hard raster launch, held to
+  its plain version), times, bounds and frames/s;
+* the reference's renderer configurations (the facade world at 64
+  environments built from ``CV2RendererConfig()``, ``{'backend': 'jax'}``,
+  ``DummyRendererConfig()`` and ``Pytorch3DRendererConfig()`` through
+  ``renderer_from_config``): the same frames and launches as the default
+  configuration, black frames without a launch, a differentiable frame
+  with its gradient to the agent states, its bilinear warp, the warp's
+  VJP and the soft raster's two kernels held to their plain versions;
+* the full-resolution bilinear backgrounds (config 4's world): a gradient
+  rollout with ``diff_fast_background=False`` (the quad background under
+  the soft raster's two kernels) counting launches, its kernels against
+  their plain versions and its gradient against the CPU; a 256 x 256
+  textured differentiable frame (the grouped kernels), against their plain
+  versions and the CPU; a frame over an explicit ``background_texture``,
+  its soft raster kernels against their plain versions;
+* the painter's blend on config 4's frame, card against CPU, forward and
+  backward, ms per frame;
+* teacher-forced behaviour cloning on config 4's world, horizon 40,
+  counting launches, against the CPU, grad-rollouts/s;
+* the examples ``initialize_simulation`` (512 x 512, the whole Town02 mesh:
+  the chunked hard raster, held to its plain version on the frame's
+  operands) and ``lanelet2_to_birdview_mesh`` (Town02's .osm).
 
     python3 chip_smoke.py
     python3 chip_smoke.py grouped-check-timing   # the grouped plain check's
@@ -120,8 +148,10 @@ any phase fails. The line before the last is a JSON object describing each
 kernel; the last line is ``{"ok": true, "device": ...}``.
 """
 import contextlib
+import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -827,34 +857,6 @@ def il_policy(features, dtype, device, action_size=2, seed=0):
     return BirdviewCNNPolicy(action_size, features, dtype=dtype).to(device)
 
 
-def il_compare_with_cpu(device):
-    """The config-4 gradient step at B = 2, horizon 3, float32 policy (and
-    cuDNN without TF32), on the card and on the CPU: losses and gradients to
-    rtol 1e-3 (atol 1e-6 x max|grad|)."""
-    from torchdrivesim_tpu_torch.benchmark import build_il_scenario, make_il_grad_fn
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        runs = {}
-        for dev in (device, torch.device('cpu')):
-            scn = build_il_scenario(batch_size=2, agent_count=IL_AGENTS,
-                                    res=IL_RES, device=dev)
-            policy = il_policy(IL_FEATURES, torch.float32, dev)
-            loss, grads = make_il_grad_fn(scn, policy, horizon=3)(scn.sim.state)
-            runs[dev.type] = (loss.cpu(), [x.cpu() for x in grads])
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
-    (lg, gg), (lc, gc) = runs['cuda'], runs['cpu']
-    print(f'IL compare B=2 horizon 3: loss card {float(lg)!r}, CPU {float(lc)!r}')
-    torch.testing.assert_close(lg, lc, rtol=1e-3, atol=0)
-    worst = 0.0
-    for a, b in zip(gg, gc):
-        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-6 * float(b.abs().max()))
-        worst = max(worst, float(((a - b).abs() / b.abs().max()).max()))
-    print(f'IL compare: {len(gg)} gradients agree, max difference '
-          f'{worst:.3g} of each gradient\'s largest value')
-
-
 def directional_gradcheck(loss_fn, params, grads, state):
     """The reference's on-device check: the derivative of the loss along
     the gradient direction, by central differences at three step sizes,
@@ -1057,7 +1059,7 @@ def il_path(device, card):
           f'contribute of {per_tile.numel() * sops[0].shape[1]} (soft_tile_pairs)')
 
     # 2. a small gradient step on the card against the CPU
-    il_compare_with_cpu(device)
+    il_grad_compare_with_cpu(device, lambda scn: None, 'IL')
 
     # 3. the main path: one full-width gradient step, counting launches
     policy = il_policy(IL_FEATURES, torch.bfloat16, device)
@@ -2860,17 +2862,18 @@ def tiled_path(device, card):
 
 # --- the Simulator facade ------------------------------------------------------
 
-def facade_world(batch: int, device):
+def facade_world(batch: int, device, renderer_config=None):
     """The facade phase's world: the headline's Town02 scenario (4 layouts
     tiled over ``batch``, 20 agents, FSM lights, texture) with a
     ``WaypointGoal`` of ``FACADE_WAYPOINTS`` collections of one waypoint
     per agent, drawn with numpy from seed 0 at 10-60 m along each agent's
-    heading (the same waypoints on every device)."""
-    import dataclasses
+    heading (the same waypoints on every device); its renderer built from
+    ``renderer_config`` when one is given."""
     from torchdrivesim_tpu_torch.benchmark import build_benchmark_scenario
     from torchdrivesim_tpu_torch.goals import WaypointGoal
     scenario = build_benchmark_scenario(batch_size=batch, agent_count=AGENTS, res=RES,
-                                        fov=FOV, device=device)
+                                        fov=FOV, renderer_config=renderer_config,
+                                        device=device)
     sim = scenario.sim
     state = sim.get_state().cpu().numpy()
     dist = np.random.RandomState(0).uniform(10, 60, (batch, AGENTS, FACADE_WAYPOINTS))
@@ -3701,7 +3704,7 @@ def dataset_il_frame(sim, state):
     ``soft.pad_to_groups``): (background, (coef, zw, color))."""
     from torchdrivesim_tpu_torch.imitation import ego_view
     from torchdrivesim_tpu_torch.ops import soft
-    mesh, cams = ego_view(sim, state, sim.renderer.scale, include_background=True)
+    mesh, cams = ego_view(sim, state, sim.renderer.scale)
     background, frame = sim.renderer.soft_frame_operands(mesh, sim.renderer.res.width,
                                                          cams)
     return background, tuple(x.contiguous() for x in soft.pad_to_groups(*frame))
@@ -3812,9 +3815,9 @@ def dataset_il_path(device, card, root: str):
     with torch.no_grad():
         state = sim.state
         for _ in range(horizon):
-            image = render_ego(sim, state, DATASET_IL_RES, sim.renderer.scale, True)
+            image = render_ego(sim, state, DATASET_IL_RES)
             state = sim.functional_step(state, policy(image)[:, None, :])
-    image = render_ego(sim, state, DATASET_IL_RES, sim.renderer.scale, True)
+    image = render_ego(sim, state, DATASET_IL_RES)
     poses = len(torch.unique(torch.round(state.agent_state[:, 0, :2] * 100), dim=0))
     shown = int((state.npc_present_mask.sum(dim=-1) > 0).sum())
     print(f'dataset IL last frame: {poses} distinct camera positions, NPCs present in '
@@ -3984,6 +3987,718 @@ def gym_env_path(device, card):
             'library_ms': None}
 
 
+# --- the rest of the render API -----------------------------------------------
+
+#: the face-soup phase: frames of the headline world, two waypoint discs per
+#: camera (numpy seed 5, one in four hidden)
+FACES_FRAMES, FACES_WAYPOINTS = 100, 2
+#: the textured differentiable view above 128 pixels
+FULL_RES = 256
+
+
+def faces_world(batch: int, device):
+    """The headline world (Town02, 20 vehicles, the baked light schedule,
+    texture) at ``batch`` environments and ``FACES_WAYPOINTS`` waypoint
+    discs per camera, 10-60 m ahead of each ego (numpy seed 5, the same on
+    every device), a quarter of them hidden: (scenario, waypoints (B, M,
+    2), their mask (B, M))."""
+    from torchdrivesim_tpu_torch.benchmark import build_benchmark_scenario
+    scenario = build_benchmark_scenario(batch_size=batch, agent_count=AGENTS, res=RES,
+                                        fov=FOV, device=device)
+    ego = scenario.sim.get_state()[:, 0].cpu().numpy()
+    rng = np.random.RandomState(5)
+    dist = rng.uniform(10, 60, (batch, FACES_WAYPOINTS))
+    head = np.stack([np.cos(ego[:, 2]), np.sin(ego[:, 2])], axis=-1)
+    waypoints = ego[:, None, :2] + dist[..., None] * head[:, None]
+    mask = rng.rand(batch, FACES_WAYPOINTS) > 0.25
+    return (scenario, torch.as_tensor(waypoints.astype(np.float32), device=device),
+            torch.as_tensor(mask, device=device))
+
+
+def faces_frame(scenario, state, waypoints, mask):
+    """The face soup of ``state`` (``generate_faces``: the agents, the
+    lights in their scheduled state, the waypoint discs) and the egos'
+    cameras."""
+    from torchdrivesim_tpu_torch.rendering.base import Cameras
+    sim = scenario.sim
+    faces = sim.birdview_mesh_generator.generate_faces(
+        torch.cat([state.agent_state, state.npc_state], dim=-2),
+        present_mask=torch.cat([state.present_mask, state.npc_present_mask], dim=-1),
+        traffic_light_state=state.traffic_control_state['traffic_light'],
+        waypoints=waypoints, waypoints_rendering_mask=mask)
+    ego = state.agent_state[:, 0]
+    cams = Cameras(ego[:, :2], torch.stack([torch.sin(ego[:, 2]), torch.cos(ego[:, 2])],
+                                           dim=-1), 2.0 / FOV)
+    return faces, cams
+
+
+def faces_iteration(scenario, state, action, waypoints, mask):
+    """One step of the world and the face-soup render of its frame:
+    (state, (B, 3, RES, RES) image)."""
+    from torchdrivesim_tpu_torch.utils import Resolution
+    state = scenario.sim.functional_step(state, action)
+    faces, cams = faces_frame(scenario, state, waypoints, mask)
+    return state, scenario.sim.renderer.render_faces_chw(*faces, Resolution(RES, RES), cams)
+
+
+def faces_operands(renderer, faces, cams):
+    """B2's and B6a's operands of a face-soup frame from
+    ``Renderer.face_frame_operands``: (background, hard operands, screen
+    corners after the cull, (mip, fcoef, icoef) or None)."""
+    from torchdrivesim_tpu_torch.ops.hard import hard_operands
+    bg, (corners, z, colors), warp_ops = renderer.face_frame_operands(*faces, RES, cams)
+    return bg, hard_operands(corners, z, colors), corners, warp_ops
+
+
+def faces_compare_with_cpu(device):
+    """``COMPARE_STEPS`` face-soup frames at B = 4 on the card against the
+    CPU: >= 99.9% identical pixels."""
+    def run(dev):
+        scenario, wps, mask = faces_world(COMPARE_BATCH, dev)
+        state = scenario.sim.state
+        action = torch.zeros((COMPARE_BATCH, AGENTS, 2), device=dev)
+        images = []
+        for _ in range(COMPARE_STEPS):
+            state, image = faces_iteration(scenario, state, action, wps, mask)
+            images.append(image.cpu())
+        return images
+
+    for i, (og, oc) in enumerate(zip(run(device), run(torch.device('cpu')))):
+        same = float((og == oc).all(dim=1).float().mean())
+        print(f'face soup compare frame {i}: {same * 100:.4f}% of pixels identical on '
+              'the card and the CPU')
+        if same < 0.999:
+            raise AssertionError(f'face soup frame {i}: images differ')
+
+
+def faces_path(device, card):
+    """The face-soup render on the headline world (Town02, B = 256, 20
+    vehicles, the baked light schedule, two waypoint discs per camera):
+    ``generate_faces`` -> ``render_faces_chw`` at res 128, fov 70 m over the
+    texture (B2, then B6a over the faces culled to 64), ``FACES_FRAMES``
+    steps pinned at one B2 and one B6a launch per frame, no B1, no B6b, no
+    plain call; B2 and B6a against their plain versions on the first and
+    the last frame; one untextured frame (B6a over the color, culled to 64
+    faces) and one of a differentiable renderer (B6a over the
+    full-resolution nearest sample, no plain call); the first frames
+    against the CPU; times, bounds and frames/s.
+    Returns the JSON entries of B2 and B6a on this path."""
+    from torchdrivesim_tpu_torch.ops import fused, hard, warp
+    from torchdrivesim_tpu_torch.rendering import Renderer
+    from torchdrivesim_tpu_torch.rendering import renderer as renderer_module
+    from torchdrivesim_tpu_torch.utils import Resolution
+    t_phase = time.perf_counter()
+    scenario, wps, mask = faces_world(BATCH, device)
+    sim = scenario.sim
+    faces, cams = faces_frame(scenario, sim.state, wps, mask)
+    bg, ops, corners, (mip, fcoef, icoef) = faces_operands(sim.renderer, faces, cams)
+    print(f'face soup: carla_Town02 B={BATCH}, {faces[1].shape[1]} faces per camera '
+          f'culled to {ops[1].shape[1]}, texture level {tuple(mip.data.shape)}')
+    if len(ops) != 2 or ops[1].shape[1] != sim.renderer.cfg.cull_max_faces:
+        raise AssertionError('face soup frame: not the packed kernel over 64 faces')
+    errs = {'warp_nearest': [compare_nearest(warp, mip, fcoef, icoef, RES, 'face soup first')],
+            'hard_raster_packed': [compare_hard(hard, ops, bg, RES, 'face soup first frame')[1]]}
+    faces_compare_with_cpu(device)
+
+    # the main path: steps and face-soup frames, counting launches
+    action = torch.zeros((BATCH, AGENTS, 2), device=device)
+    state = sim.state
+    warp.NEAREST_LAUNCHES = hard.PACKED_LAUNCHES = hard.CHUNKED_LAUNCHES = 0
+    fused.LAUNCHES = 0
+    with count_calls(hard, ['raster_packed_reference', 'raster_chunked_reference']) as plain, \
+            count_calls(warp, ['warp_view_nearest_reference']) as plain_warp:
+        t0 = time.perf_counter()
+        for _ in range(FACES_FRAMES):
+            state, image = faces_iteration(scenario, state, action, wps, mask)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+    launches = {'warp_nearest': warp.NEAREST_LAUNCHES,
+                'hard_raster_packed': hard.PACKED_LAUNCHES,
+                'hard_raster_chunked': hard.CHUNKED_LAUNCHES, 'fused_render': fused.LAUNCHES}
+    plain = {**plain, **plain_warp}
+    print(f'face soup main path: {FACES_FRAMES} steps and frames at B={BATCH} in '
+          f'{loop_s:.2f} s ({FACES_FRAMES * BATCH / loop_s:.1f} frames/s); launches '
+          f'{launches}, plain calls {plain} [{card}]')
+    want = {'warp_nearest': FACES_FRAMES, 'hard_raster_packed': FACES_FRAMES,
+            'hard_raster_chunked': 0, 'fused_render': 0}
+    if launches != want or any(plain.values()):
+        raise AssertionError(f'face soup: launches {launches}, expected {want}, and no '
+                             'plain call')
+    if image.shape != (BATCH, 3, RES, RES) or not torch.isfinite(image).all():
+        raise AssertionError(f'face soup image: shape {tuple(image.shape)} or non-finite')
+    vehicle = torch.tensor(sim.renderer.color_map['vehicle'], dtype=torch.float32,
+                           device=device)
+    on_car = ((image - vehicle[None, :, None, None]).abs() < 0.5).all(dim=1)
+    with_car = float((on_car.sum(dim=(1, 2)) >= 10).float().mean())
+    print(f'face soup: {with_car * 100:.1f}% of views show vehicle pixels')
+    if with_car < 0.9:
+        raise AssertionError('face soup images do not show the vehicles')
+    faces, cams = faces_frame(scenario, state, wps, mask)
+    bg, ops, corners, (mip, fcoef, icoef) = faces_operands(sim.renderer, faces, cams)
+    errs['warp_nearest'].append(compare_nearest(warp, mip, fcoef, icoef, RES,
+                                                'face soup last'))
+    errs['hard_raster_packed'].append(compare_hard(hard, ops, bg, RES,
+                                                   'face soup last frame')[1])
+
+    # one untextured frame: B6a over the color, the faces culled all the same
+    plain_renderer = Renderer(sim.renderer.cfg, device)
+    ubg, uops, _, uwarp = faces_operands(plain_renderer, faces, cams)
+    if uwarp is not None or len(uops) != 2 or uops[1].shape[1] != 64:
+        raise AssertionError('untextured face soup: not B6a over 64 faces')
+    compare_hard(hard, uops, ubg, RES, 'untextured face soup frame')
+    before = (hard.PACKED_LAUNCHES, warp.NEAREST_LAUNCHES)
+    uimage = plain_renderer.render_faces_chw(*faces, Resolution(RES, RES), cams)
+    torch.cuda.synchronize()
+    if (hard.PACKED_LAUNCHES - before[0], warp.NEAREST_LAUNCHES - before[1]) != (1, 0):
+        raise AssertionError('untextured face soup: not one B6a launch and no B2')
+    print(f'untextured face soup frame: one B6a launch; background pixels '
+          f'{float((uimage == 0).all(dim=1).float().mean()) * 100:.1f}%')
+
+    # one differentiable frame: B6a over the full-resolution nearest sample
+    diff_renderer = Renderer(dataclasses.replace(sim.renderer.cfg, differentiable=True),
+                             device)
+    diff_renderer.background_texture = sim.renderer.background_texture
+    dbg, dops, _, dwarp = faces_operands(diff_renderer, faces, cams)
+    if dwarp is not None or len(dops) != 2 or dops[1].shape[1] != 64:
+        raise AssertionError('differentiable face soup: not B6a over 64 faces')
+    compare_hard(hard, dops, dbg, RES, 'differentiable face soup frame')
+    before = count_kernels()
+    with count_calls(hard, ['raster_packed_reference', 'raster_chunked_reference']) as plain, \
+            count_calls(renderer_module, ['rasterize_hard_faces']) as plain_faces:
+        dimage = diff_renderer.render_faces_chw(*faces, Resolution(RES, RES), cams)
+        torch.cuda.synchronize()
+    ran = launched_since(before)
+    if ran != {'hard_raster_packed': 1} or any({**plain, **plain_faces}.values()):
+        raise AssertionError(f'differentiable face soup: launches {ran}, plain calls '
+                             f'{plain} {plain_faces}; expected one B6a and no plain call')
+    if dimage.shape != (BATCH, 3, RES, RES) or not torch.isfinite(dimage).all():
+        raise AssertionError('differentiable face soup image: wrong shape or non-finite')
+    print('differentiable face soup frame: one B6a launch, no plain call')
+
+    # times and bounds on the last frame
+    coef, pk = ops
+    b = pk.shape[0]
+    pixels = b * RES * RES
+    image_bytes = pixels * 3 * 4
+    pairs = tile_pairs(corners, pk != hard.PACKED_SENTINEL, RES)
+    keep = hard.hard_tile_keep_reference(coef, pk, hard.PACKED_SENTINEL, RES)
+    tiles = hard.hard_tiles(RES)
+    print(f'face soup view: {pairs / (b * tiles):.2f} of {pk.shape[1]} faces per '
+          f'{BOUND_TILE} x {BOUND_TILE} tile overlap it by bounding box; the plain cull '
+          f'lists {int(keep.sum()) / (b * tiles):.2f}')
+    entries = []
+    for name, key, fn, plain_fn, n_bytes, n_ops, source, replaces in (
+            ('warp_nearest_face_soup', 'warp_nearest',
+             lambda: warp.warp_view_nearest(mip.data, fcoef, icoef, RES),
+             lambda: warp.warp_view_nearest_reference(mip.data, fcoef, icoef, RES),
+             nbytes(fcoef, icoef) + texel_bytes(mip, b, FOV) + image_bytes,
+             pixels * NEAREST_PIXEL_OPS, 'torchdrivesim_tpu_torch/csrc/warp_nearest.cu',
+             'torchdrivesim_tpu/ops/pallas_warp.py:373'),
+            ('hard_raster_packed_face_soup', 'hard_raster_packed',
+             lambda: hard.raster_packed(coef, pk, bg, RES),
+             lambda: hard.raster_packed_reference(coef, pk, bg, RES),
+             nbytes(coef, pk) + 2 * image_bytes, pairs * BOUND_TILE ** 2 * HARD_FACE_OPS,
+             'torchdrivesim_tpu_torch/csrc/hard_raster.cu',
+             'torchdrivesim_tpu/ops/pallas_rasterize.py:134')):
+        ms = graph_ms(fn, 100)
+        plain_ms = cuda_ms(plain_fn, 5)
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        print(f'{name} kernel B={b} res={RES}: {ms:.4f} ms (device, graph replay); plain '
+              f'version {plain_ms:.3f} ms; bound {bound_ms * 1e3:.3f} us by {bound_by} '
+              f'({n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.1f} M float32 ALU operations) '
+              f'[{card}]')
+        entries.append({'name': name, 'route': 'cuda', 'source': source,
+                        'replaces': replaces, 'launches': launches[key],
+                        'max_abs_err': max(errs[key]), 'ms': ms, 'plain_ms': plain_ms,
+                        'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None})
+    frame = lambda: sim.renderer.render_faces_chw(*faces_frame(scenario, state, wps, mask)[0],
+                                                  Resolution(RES, RES), cams)
+    print(f'face soup frame (generate_faces + render_faces_chw) B={BATCH}: '
+          f'{cuda_ms(frame, 20):.4f} ms eager, {device_ops(frame)} device ops [{card}]')
+    print(f'face soup phase: {time.perf_counter() - t_phase:.1f} s')
+    return entries
+
+
+def count_kernels():
+    """Every kernel's launch counter, by name."""
+    from torchdrivesim_tpu_torch.ops import fused, hard, prims, soft, warp
+    return {'fused_render': fused.LAUNCHES, 'warp_bilinear': warp.LAUNCHES,
+            'warp_bilinear_vjp': warp.VJP_LAUNCHES, 'warp_nearest': warp.NEAREST_LAUNCHES,
+            'soft_raster_fwd': soft.FWD_LAUNCHES, 'soft_raster_bwd': soft.BWD_LAUNCHES,
+            'soft_accum_fwd': soft.ACCUM_FWD_LAUNCHES,
+            'soft_accum_bwd': soft.ACCUM_BWD_LAUNCHES,
+            'hard_raster_packed': hard.PACKED_LAUNCHES,
+            'hard_raster_chunked': hard.CHUNKED_LAUNCHES,
+            'prim_raster_banded': prims.B7_LAUNCHES, 'prim_raster': prims.B8_LAUNCHES}
+
+
+def launched_since(before):
+    """The kernels launched since ``before`` (a :func:`count_kernels`), and
+    how often."""
+    return {k: v - before[k] for k, v in count_kernels().items() if v != before[k]}
+
+
+def reference_configs_path(device, card):
+    """The facade world (Town02, B = 64, 20 agents, texture, waypoints)
+    built from the reference's renderer configurations through
+    ``renderer_from_config``: ``CV2RendererConfig()`` and ``{'backend':
+    'jax'}`` render the default configuration's egocentric frame bit for
+    bit with the same launches (one B1); ``DummyRendererConfig()`` renders
+    black frames and launches nothing; ``Pytorch3DRendererConfig()`` gives
+    a differentiable renderer: one ``render_egocentric`` (the prim route's
+    plain fallback, no kernel) and one differentiable mesh frame of the
+    same cameras at res 64 (B3 and B4a, their backwards for the gradient)
+    whose gradient to the agent states is finite and not zero, and B3, its
+    VJP, B4a and B4b against their plain versions on that frame's
+    operands."""
+    from torchdrivesim_tpu_torch.ops import soft, warp
+    from torchdrivesim_tpu_torch.rendering import (
+        CV2RendererConfig, DummyRenderer, DummyRendererConfig, Pytorch3DRendererConfig,
+        Renderer)
+    from torchdrivesim_tpu_torch.rendering.base import Cameras
+    from torchdrivesim_tpu_torch.utils import Resolution
+    t_phase = time.perf_counter()
+    frames = {}
+    for label, cfg in (('default', None), ('CV2RendererConfig()', CV2RendererConfig()),
+                       ("{'backend': 'jax'}", {'backend': 'jax'}),
+                       ('DummyRendererConfig()', DummyRendererConfig())):
+        sim = facade_world(FACADE_BATCH, device, renderer_config=cfg)
+        before = count_kernels()
+        image = sim.render_egocentric(res=Resolution(RES, RES), fov=FOV)
+        torch.cuda.synchronize()
+        frames[label] = (type(sim.renderer).__name__, image, launched_since(before))
+        print(f'reference configs: {label} -> {type(sim.renderer).__name__}, frame '
+              f'{tuple(image.shape)}, launches {frames[label][2]}')
+    name, want, want_launches = frames['default']
+    if name != 'Renderer' or want_launches != {'fused_render': 1}:
+        raise AssertionError(f'default configuration: {name}, {want_launches}')
+    for label in ('CV2RendererConfig()', "{'backend': 'jax'}"):
+        name, image, got = frames[label]
+        if name != 'Renderer' or not torch.equal(image, want) or got != want_launches:
+            raise AssertionError(f'{label}: {name}, launches {got}, or the frame differs '
+                                 'from the default configuration\'s')
+    name, image, got = frames['DummyRendererConfig()']
+    if name != DummyRenderer.__name__ or image.any() or got:
+        raise AssertionError(f'DummyRendererConfig(): {name}, launches {got}, or a frame '
+                             'that is not black')
+    sim = facade_world(FACADE_BATCH, device, renderer_config=Pytorch3DRendererConfig())
+    if type(sim.renderer) is not Renderer or not sim.renderer.cfg.differentiable:
+        raise AssertionError('Pytorch3DRendererConfig(): not a differentiable Renderer')
+    before = count_kernels()
+    image = sim.render_egocentric(res=Resolution(64, 64), fov=FOV)
+    torch.cuda.synchronize()
+    print(f'reference configs: Pytorch3DRendererConfig() render_egocentric at res 64 '
+          f'(the prim route\'s plain fallback): launches {launched_since(before)}')
+    x = sim.get_state().detach().clone().requires_grad_()
+    sim.state = dataclasses.replace(sim.state, agent_state=x)
+    before = count_kernels()
+    mesh, cams = sim.egocentric_mesh_frame(fov=FOV)
+    frame = sim.renderer.render_rgb_mesh_chw(mesh, Resolution(64, 64), cams)
+    w = torch.rand(frame.shape, generator=torch.Generator(device).manual_seed(0),
+                   device=device)
+    (grad,) = torch.autograd.grad((frame * w).sum(), x)
+    torch.cuda.synchronize()
+    got = launched_since(before)
+    print(f'reference configs: Pytorch3DRendererConfig() differentiable mesh frame of '
+          f'{cams.xy.shape[0]} cameras at res 64: launches {got}; gradient to the agent '
+          f'states: max |g| {float(grad.abs().max()):.4g}')
+    want = {'warp_bilinear': 1, 'warp_bilinear_vjp': 1, 'soft_raster_fwd': 1,
+            'soft_raster_bwd': 1}
+    if got != want or not torch.isfinite(grad).all() or not float(grad.abs().max()) > 0:
+        raise AssertionError(f'differentiable frame: launches {got}, expected {want}, or '
+                             'a gradient that is not finite or zero')
+    # the frame's kernels against their plain versions on its own operands
+    renderer = sim.renderer
+    cams = Cameras(cams.xy.detach(), cams.sc.detach(), cams.scale)
+    wargs = (renderer._warp_mip(cams.scale, 64), cams.xy, cams.sc, cams.scale,
+             renderer._background_color, renderer.cfg.left_handed_coordinates)
+    _, warp_bits = compare_warp(warp, wargs, 64, 'Pytorch3D frame')
+    _, vjp_over = compare_warp_vjp(warp, wargs, 64, 11, 'Pytorch3D frame')
+    bg, (coef, zw, color) = renderer.soft_frame_operands(mesh, 64, cams)
+    ops = tuple(t.detach().contiguous() for t in (coef, zw, color, bg))
+    g = torch.empty_like(ops[3]).uniform_(-1, 1)
+    (_, fwd_over), bwd, bits = compare_soft(soft, ops, g, 'Pytorch3D frame')
+    if warp_bits or vjp_over or fwd_over or bits or sum(o for _, o in bwd):
+        raise AssertionError('Pytorch3D frame: B3, its VJP, B4a or B4b disagree with their '
+                             'plain versions')
+    print(f'reference configs phase: {time.perf_counter() - t_phase:.1f} s')
+
+
+def il_grad_compare_with_cpu(device, configure, label, loss=None):
+    """A small IL gradient (B = 2, horizon 3, float32 policy, cuDNN without
+    TF32) of config 4's world with ``configure(scenario)`` applied, on the
+    card and on the CPU: losses and gradients to rtol 1e-3 (atol 1e-6 x
+    max|grad|). ``loss(scenario, policy)`` gives the loss function of a
+    state (by default ``make_il_loss_fn``'s, horizon 3)."""
+    from torchdrivesim_tpu_torch.benchmark import build_il_scenario, make_il_loss_fn
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = []
+        for dev in (device, torch.device('cpu')):
+            scn = build_il_scenario(batch_size=2, agent_count=IL_AGENTS, res=IL_RES,
+                                    device=dev)
+            configure(scn)
+            policy = il_policy(IL_FEATURES, torch.float32, dev)
+            fn = loss(scn, policy) if loss is not None else make_il_loss_fn(scn, policy, 3)
+            value = fn(scn.sim.state)
+            grads = torch.autograd.grad(value, list(policy.parameters()))
+            runs.append((value.detach().cpu(), [g.cpu() for g in grads]))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (lg, gg), (lc, gc) = runs
+    print(f'{label} compare B=2 horizon 3: loss card {float(lg)!r}, CPU {float(lc)!r}')
+    torch.testing.assert_close(lg, lc, rtol=1e-3, atol=0)
+    worst = 0.0
+    for a, b in zip(gg, gc):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-6 * float(b.abs().max()))
+        worst = max(worst, float(((a - b).abs() / b.abs().max()).max()))
+    print(f'{label} compare: {len(gg)} gradients agree, max difference {worst:.3g} of '
+          'each gradient\'s largest value')
+
+
+def soft_entry(name, soft, ops, g, err, n, backward, card):
+    """The JSON entry of B4a (or, with ``backward``, B4b) on ``ops`` =
+    (coef, zw, color, background), timed by graph replay, its bound
+    counting the (pixel, face) pairs of the tiles each face can reach."""
+    coef, zw, color, bg = ops
+    res = bg.shape[-1]
+    face_pixels = soft_tile_pairs(coef, res) * BOUND_TILE * BOUND_TILE
+    if backward:
+        fn = lambda: soft.soft_raster_bwd(*ops, g)
+        plain = lambda: soft.soft_raster_bwd_reference(*ops, g)
+        n_bytes, n_ops, n_sfu = (nbytes(*ops, g) + nbytes(coef, zw, color, bg),
+                                 face_pixels * SOFT_BWD_OPS, face_pixels * SOFT_BWD_SFU)
+    else:
+        fn = lambda: soft.soft_raster_fwd(*ops)
+        plain = lambda: soft.soft_raster_fwd_reference(*ops)
+        n_bytes, n_ops, n_sfu = (nbytes(*ops) + nbytes(bg), face_pixels * SOFT_FWD_OPS,
+                                 face_pixels * SOFT_FWD_SFU)
+    ms, plain_ms = graph_ms(fn, 100), cuda_ms(plain, 3)
+    bound_ms, bound_by = bound(n_bytes, n_ops, n_sfu)
+    print(f'{name} kernel B={coef.shape[0]} res={res} F={coef.shape[1]}: {ms:.4f} ms '
+          f'(device, graph replay); plain version {plain_ms:.3f} ms; bound '
+          f'{bound_ms * 1e3:.3f} us by {bound_by} [{card}]')
+    return {'name': name, 'route': 'cuda', 'source': 'torchdrivesim_tpu_torch/csrc/soft_raster.cu',
+            'replaces': 'torchdrivesim_tpu/ops/pallas_soft.py:199' if backward
+            else 'torchdrivesim_tpu/ops/pallas_soft.py:177',
+            'launches': n, 'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None}
+
+
+def no_fast_background(scenario):
+    scenario.sim.renderer.cfg.diff_fast_background = False
+
+
+def full_background_path(device, card):
+    """The full-resolution bilinear backgrounds on config 4's world (Town02,
+    B = 16, 8 vehicles, res 64, fov 70 m, textured): one gradient rollout
+    (horizon 40) with ``diff_fast_background=False`` (sample_background_quad
+    under B4a / B4b: 40 / 39 launches, no B3), B4a and B4b against their
+    plain versions on its first frame, its gradients against the CPU at
+    rtol 1e-3; one textured differentiable frame at res 256 (the quad
+    background under B5a / B5b), B5a and B5b against their plain versions,
+    its forward against the CPU and its pose gradient finite; one frame with
+    an explicit ``background_texture=`` (sample_background under B4a), B4a
+    and B4b against their plain versions on its operands.
+    Returns the JSON entries of B4a and B4b under the quad background and of
+    B5a and B5b on the 256 px view."""
+    from torchdrivesim_tpu_torch.benchmark import (
+        build_il_scenario, il_view, load_or_bake_texture, make_il_grad_fn)
+    from torchdrivesim_tpu_torch.map import find_map_config
+    from torchdrivesim_tpu_torch.ops import soft, warp
+    from torchdrivesim_tpu_torch.utils import Resolution
+    t_phase = time.perf_counter()
+    scenario = build_il_scenario(batch_size=IL_BATCH, agent_count=IL_AGENTS, res=IL_RES,
+                                 device=device)
+    no_fast_background(scenario)
+    renderer = scenario.sim.renderer
+    state = scenario.sim.state
+    mesh, cams = il_view(scenario, state)
+    bg, (coef, zw, color) = renderer.soft_frame_operands(mesh, IL_RES, cams)
+    ops = (coef, zw.contiguous(), color, bg.contiguous())
+    g = torch.empty_like(bg).uniform_(-1, 1)
+    (fd, fo), bwd, bits = compare_soft(soft, ops, g, 'quad background first frame')
+    if fo or bits or sum(o for _, o in bwd):
+        raise AssertionError('quad background frame: B4a or B4b disagree with their plain '
+                             'versions')
+    il_grad_compare_with_cpu(device, no_fast_background, 'quad background IL')
+
+    policy = il_policy(IL_FEATURES, torch.bfloat16, device)
+    grad_fn = make_il_grad_fn(scenario, policy, horizon=IL_HORIZON)
+    before = count_kernels()
+    with count_calls(warp, PLAIN_WARP) as plain_calls:
+        t0 = time.perf_counter()
+        loss, grads = grad_fn(state)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    launches = launched_since(before)
+    print(f'quad background main path: one gradient rollout, B={IL_BATCH}, res {IL_RES}, '
+          f'horizon {IL_HORIZON}, in {step_s:.2f} s; loss {float(loss)!r}; launches '
+          f'{launches}; plain warp calls {plain_calls} [{card}]')
+    want = {'soft_raster_fwd': IL_HORIZON, 'soft_raster_bwd': IL_HORIZON - 1}
+    if launches != want or any(plain_calls.values()):
+        raise AssertionError(f'quad background: launches {launches}, expected {want}')
+    if not torch.isfinite(loss) or not all(torch.isfinite(x).all() for x in grads):
+        raise AssertionError('quad background: non-finite loss or gradient')
+    entries = [soft_entry('soft_raster_fwd_quad_background', soft, ops, g, fd,
+                          launches['soft_raster_fwd'], False, card),
+               soft_entry('soft_raster_bwd_quad_background', soft, ops, g,
+                          max(d for d, _ in bwd), launches['soft_raster_bwd'], True, card)]
+    fwd_ms = cuda_ms(lambda: renderer.render_rgb_mesh_chw(mesh, Resolution(IL_RES, IL_RES),
+                                                          cams), 20)
+    print(f'quad background frame (sample_background_quad + B4a) B={IL_BATCH} res '
+          f'{IL_RES}: {fwd_ms:.4f} ms eager [{card}]')
+
+    # the textured differentiable view at res 256: the quad background under
+    # the grouped kernels
+    renderer.cfg.diff_fast_background = True
+    x = state.agent_state.detach().clone().requires_grad_()
+    view = dataclasses.replace(state, agent_state=x)
+    mesh, cams = il_view(scenario, view)
+    bg, frame = renderer.soft_frame_operands(mesh, FULL_RES, cams)
+    frame = [t.detach().contiguous() for t in soft.pad_to_groups(*frame)]
+    (afd, afo), (abd, abo), abits, _, _, _ = compare_accum(
+        soft, frame, bg.detach(), FULL_RES, 7, f'res {FULL_RES} quad background')
+    if afo or abits or abo:
+        raise AssertionError(f'res {FULL_RES} view: B5a or B5b disagree with their plain '
+                             'versions')
+    before = count_kernels()
+    image = renderer.render_rgb_mesh_chw(mesh, Resolution(FULL_RES, FULL_RES), cams)
+    (gx,) = torch.autograd.grad(image.mean(), x)
+    torch.cuda.synchronize()
+    got = launched_since(before)
+    print(f'res {FULL_RES} textured differentiable frame B={IL_BATCH}: launches {got}; '
+          f'pose gradient max |g| {float(gx.abs().max()):.4g}')
+    if got != {'soft_accum_fwd': 1, 'soft_accum_bwd': 1} or \
+            not torch.isfinite(gx).all() or not float(gx.abs().max()) > 0:
+        raise AssertionError(f'res {FULL_RES} frame: launches {got}, or a gradient that is '
+                             'not finite or zero')
+    cpu = build_il_scenario(batch_size=2, agent_count=IL_AGENTS, res=IL_RES, device='cpu')
+    cpu_mesh, cpu_cams = il_view(cpu, cpu.sim.state)
+    want_img = cpu.sim.renderer.render_rgb_mesh_chw(cpu_mesh, Resolution(FULL_RES, FULL_RES),
+                                                    cpu_cams)
+    diff = float((image[:2].detach().cpu() - want_img).abs().max()) / 255
+    print(f'res {FULL_RES} frame, environments 0-1 card against the CPU: max difference '
+          f'{diff:.3g} of the range')
+    if not diff < 1e-4:
+        raise AssertionError(f'res {FULL_RES} frame: card and CPU differ by {diff}')
+    for name, backward, err in ((f'soft_accum_fwd_res{FULL_RES}', False, afd),
+                                (f'soft_accum_bwd_res{FULL_RES}', True, abd)):
+        (bound_ms, bound_by), _ = accum_bound(frame, FULL_RES, backward)
+        if backward:
+            cot = composite_cotangents(soft, soft.soft_accum_fwd(*frame, FULL_RES), bg.detach(), 7)
+            fn = lambda: soft.soft_accum_bwd(*frame, *cot)
+            plain_ms = cuda_ms_once(lambda: soft.soft_accum_bwd_reference(*frame, *cot))[1]
+        else:
+            fn = lambda: soft.soft_accum_fwd(*frame, FULL_RES)
+            plain_ms = cuda_ms_once(lambda: soft.soft_accum_fwd_reference(*frame, FULL_RES))[1]
+        ms = graph_ms(fn, 20)
+        print(f'{name} kernel B={IL_BATCH} res={FULL_RES} F={frame[0].shape[1]}: {ms:.4f} ms '
+              f'(device, graph replay); plain version {plain_ms:.3f} ms; bound '
+              f'{bound_ms * 1e3:.3f} us by {bound_by} [{card}]')
+        entries.append({'name': name, 'route': 'cuda',
+                        'source': 'torchdrivesim_tpu_torch/csrc/soft_accum.cu',
+                        'replaces': 'torchdrivesim_tpu/ops/pallas_soft.py:535' if backward
+                        else 'torchdrivesim_tpu/ops/pallas_soft.py:482',
+                        'launches': got['soft_accum_bwd' if backward else 'soft_accum_fwd'],
+                        'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+                        'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None})
+
+    # an explicit background texture: its bilinear sample under B4a
+    texture = load_or_bake_texture(find_map_config('carla_Town02'))
+    mesh, cams = il_view(scenario, state)
+    before = count_kernels()
+    image = renderer.render_rgb_mesh_chw(mesh, Resolution(IL_RES, IL_RES), cams,
+                                         background_texture=texture)
+    torch.cuda.synchronize()
+    got = launched_since(before)
+    own = renderer.render_rgb_mesh_chw(mesh, Resolution(IL_RES, IL_RES), cams)
+    diff = float((image - own).abs().max())
+    print(f'explicit background_texture frame B={IL_BATCH} res {IL_RES}: launches {got}; '
+          f'difference from the mip warp\'s frame max {diff:.3f}, mean '
+          f'{float((image - own).abs().mean()):.3f} of 255')
+    if got != {'soft_raster_fwd': 1} or not torch.isfinite(image).all():
+        raise AssertionError(f'explicit texture frame: launches {got}')
+    bg, (coef, zw, color) = renderer.soft_frame_operands(mesh, IL_RES, cams,
+                                                         background_texture=texture)
+    tops = (coef, zw.contiguous(), color, bg.contiguous())
+    (_, fo), bwd, bits = compare_soft(soft, tops, torch.empty_like(bg).uniform_(-1, 1),
+                                      'explicit texture frame')
+    if fo or bits or sum(o for _, o in bwd):
+        raise AssertionError('explicit texture frame: B4a or B4b disagree with their plain '
+                             'versions')
+    print(f'full-resolution background phase: {time.perf_counter() - t_phase:.1f} s')
+    return entries
+
+
+def painter_frame(scenario, x):
+    """Config 4's frame of agent states ``x`` under the renderer's blend."""
+    from torchdrivesim_tpu_torch.benchmark import il_view
+    mesh, cams = il_view(scenario, dataclasses.replace(scenario.sim.state, agent_state=x))
+    return scenario.sim.renderer.render_rgb_mesh_chw(mesh, scenario.sim.renderer.res, cams)
+
+
+def painter_path(device, card):
+    """The painter's blend (``soft_blend='painter'``) on config 4's frame
+    (B = 16, res 64, the bilinear mip warp B3 under it): forward and the
+    gradient to the agent states on the card against the CPU (values
+    1e-5 of the range, gradients rtol 1e-3 of the largest), ms per frame
+    forward and forward with backward."""
+    from torchdrivesim_tpu_torch.benchmark import build_il_scenario
+    t_phase = time.perf_counter()
+    out = []
+    for dev in (device, torch.device('cpu')):
+        scenario = build_il_scenario(batch_size=IL_BATCH, agent_count=IL_AGENTS, res=IL_RES,
+                                     device=dev)
+        scenario.sim.renderer.cfg.soft_blend = 'painter'
+        x = scenario.sim.get_state().detach().clone().requires_grad_()
+        image = painter_frame(scenario, x)
+        w = torch.linspace(0, 1, image.numel(), device=dev).reshape(image.shape)
+        (g,) = torch.autograd.grad((image * w).sum(), x)
+        out.append((image.detach().cpu(), g.cpu(), scenario, x))
+    (ig, gg, scenario, x), (ic, gc, _, _) = out
+    diff = float((ig - ic).abs().max()) / 255
+    gdiff = float((gg - gc).abs().max()) / float(gc.abs().max())
+    print(f'painter frame B={IL_BATCH} res {IL_RES}: card against the CPU, values max '
+          f'difference {diff:.3g} of the range, gradient {gdiff:.3g} of its largest value')
+    if not diff <= 1e-5 or not gdiff <= 1e-3 or not float(gc.abs().max()) > 0:
+        raise AssertionError('painter frame: card and CPU differ')
+    forward = lambda: painter_frame(scenario, x.detach())
+
+    def both():
+        image = painter_frame(scenario, x)
+        torch.autograd.grad(image.sum(), x)
+    print(f'painter frame B={IL_BATCH} res {IL_RES}: {cuda_ms(forward, 10):.3f} ms forward, '
+          f'{cuda_ms(both, 10):.3f} ms forward and backward (eager) [{card}]')
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    both()
+    print(f'painter frame forward and backward peak memory above the scenario: '
+          f'{(torch.cuda.max_memory_allocated(device) - base) / 2**20:.1f} MiB [{card}]')
+    print(f'painter phase: {time.perf_counter() - t_phase:.1f} s')
+
+
+def expert_frames(scenario, horizon: int):
+    """(T, B, A, 4) expert states: the scenario rolled forward with seeded
+    small actions (numpy seed 8), no gradient."""
+    sim, state = scenario.sim, scenario.sim.state
+    rng = np.random.RandomState(8)
+    frames = []
+    with torch.no_grad():
+        for _ in range(horizon):
+            action = torch.as_tensor(rng.uniform(-0.3, 0.3, (sim.batch_size, sim.agent_count,
+                                                            sim.action_size)),
+                                     dtype=torch.float32, device=sim.device)
+            state = sim.functional_step(state, action)
+            frames.append(state.agent_state)
+    return torch.stack(frames)
+
+
+def teacher_forcing_path(device, card):
+    """Teacher-forced behaviour cloning on config 4's world (Town02, B = 16,
+    8 vehicles, res 64, textured; the first agent driven by the policy, the
+    others holding zero action; the expert of :func:`expert_frames`): one
+    ``make_bc_train_step(..., teacher_forcing=True)`` of horizon 40 pinned
+    at 40 B3 and 40 B4a launches and no backward kernel (each frame is
+    drawn from the expert's states, which the policy does not reach, so no
+    gradient flows through a render), the loss and policy gradients at B =
+    2, horizon 3 against the CPU at rtol 1e-3, grad-rollouts/s."""
+    from torchdrivesim_tpu_torch.benchmark import build_il_scenario
+    from torchdrivesim_tpu_torch.imitation import (
+        make_bc_loss_fn, make_bc_train_step, make_optimizer)
+    from torchdrivesim_tpu_torch.ops import warp
+    t_phase = time.perf_counter()
+
+    def teacher_loss(scn, policy):
+        expert = expert_frames(scn, 3)
+        fn = make_bc_loss_fn(scn.sim, policy, IL_RES, teacher_forcing=True)
+        return lambda state: fn(state, expert)
+    il_grad_compare_with_cpu(device, lambda scn: None, 'teacher-forced BC', teacher_loss)
+
+    scenario = build_il_scenario(batch_size=IL_BATCH, agent_count=IL_AGENTS, res=IL_RES,
+                                 device=device)
+    expert = expert_frames(scenario, IL_HORIZON)
+    policy = il_policy(IL_FEATURES, torch.bfloat16, device)
+    train_step = make_bc_train_step(scenario.sim, policy, make_optimizer(policy), IL_RES,
+                                    teacher_forcing=True)
+    before = count_kernels()
+    with count_calls(warp, PLAIN_WARP) as plain_calls:
+        t0 = time.perf_counter()
+        loss = train_step(scenario.sim.state, expert)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    launches = launched_since(before)
+    print(f'teacher-forced BC main path: one train step, B={IL_BATCH}, res {IL_RES}, '
+          f'horizon {IL_HORIZON}, in {step_s:.2f} s; loss {float(loss)!r}; launches '
+          f'{launches}; plain warp calls {plain_calls} [{card}]')
+    want = {'warp_bilinear': IL_HORIZON, 'soft_raster_fwd': IL_HORIZON}
+    if launches != want or any(plain_calls.values()) or not torch.isfinite(loss):
+        raise AssertionError(f'teacher forcing: launches {launches}, expected {want}, or '
+                             'a loss that is not finite')
+    if not all(p.grad is not None and torch.isfinite(p.grad).all()
+               and float(p.grad.abs().max()) > 0 for p in policy.parameters()):
+        raise AssertionError('teacher forcing: a parameter gradient is missing or zero')
+    train_step(scenario.sim.state, expert)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        train_step(scenario.sim.state, expert)
+    torch.cuda.synchronize()
+    rate = 3 / (time.perf_counter() - t0)
+    print(f'teacher-forced BC B={IL_BATCH} horizon {IL_HORIZON}: {rate:.3f} grad-rollouts/s, '
+          f'{rate * IL_BATCH * IL_HORIZON:.1f} env-steps/s [{card}]')
+    print(f'teacher forcing phase: {time.perf_counter() - t_phase:.1f} s')
+
+
+def examples_path(device, card):
+    """``examples/initialize_simulation.py`` (heuristic, one camera over
+    Town02's center, res 512, fov 250 m, no texture: the whole map mesh),
+    recording which kernels ran, with B6b against its plain version on the
+    frame's operands and the written frame equal to B6b's there; and
+    ``examples/lanelet2_to_birdview_mesh.py`` on Town02's .osm."""
+    from torchdrivesim_tpu_torch.examples import initialize_simulation, lanelet2_to_birdview_mesh
+    from torchdrivesim_tpu_torch.map import find_map_config
+    from torchdrivesim_tpu_torch.ops import hard
+    from torchdrivesim_tpu_torch.rendering import get_default_color_map
+    t_phase = time.perf_counter()
+    os.makedirs('build', exist_ok=True)
+    before = count_kernels()
+    with count_calls(hard, ['raster_packed_reference', 'raster_chunked_reference']) as plain:
+        frame = initialize_simulation.main(['--out', 'build/initialized.npz',
+                                            '--device', device.type])
+    got = launched_since(before)
+    road = np.asarray(get_default_color_map()['road'], np.uint8)
+    on_road = float((frame == road).all(axis=-1).mean())
+    print(f'initialize_simulation (heuristic, res {initialize_simulation.RES}, fov '
+          f'{initialize_simulation.FOV} m): kernels '
+          f'launched {got}, plain calls {plain}; {on_road * 100:.1f}% of pixels road')
+    if got != {'hard_raster_chunked': 1} or any(plain.values()) or not on_road > 0.05:
+        raise AssertionError(f'initialize_simulation: launches {got}, or no road drawn')
+    # the example's frame again, its operands held to the plain B6b
+    sim = initialize_simulation.build_simulator(
+        initialize_simulation.parse_args(['--device', device.type]))
+    center = sim.get_world_center().reshape(1, 2)
+    mesh, cams = sim.mesh_frame(center, torch.zeros((1, 1), device=device),
+                                fov=initialize_simulation.FOV)
+    bg, ops, _ = sim.renderer.hard_frame_operands(mesh, initialize_simulation.RES, cams)
+    if len(ops) != 3:
+        raise AssertionError('initialize_simulation frame: not the chunked kernel')
+    compare_hard(hard, ops, bg, initialize_simulation.RES, 'initialize_simulation frame')
+    again = (hard.raster(ops, bg, initialize_simulation.RES) * 255.0)[0]
+    if not np.array_equal(again.permute(1, 2, 0).to(torch.uint8).cpu().numpy(), frame):
+        raise AssertionError('initialize_simulation: the written frame is not B6b\'s on '
+                             'the frame\'s operands')
+    mesh = lanelet2_to_birdview_mesh.main([
+        '--osm', find_map_config('carla_Town02').lanelet_path,
+        '--out', 'build/carla_Town02_lanelet_mesh.json'])
+    print(f'lanelet2_to_birdview_mesh: {mesh.verts_count} verts, {mesh.faces_count} faces, '
+          f'categories {mesh.categories}')
+    if not mesh.faces_count > 1000:
+        raise AssertionError('lanelet2_to_birdview_mesh: too few faces')
+    print(f'examples phase: {time.perf_counter() - t_phase:.1f} s')
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -4019,6 +4734,12 @@ def main() -> int:
     kernels.append(replay_path(device, card, root))
     kernels += dataset_il_path(device, card, root)
     kernels.append(gym_env_path(device, card))
+    kernels += faces_path(device, card)
+    reference_configs_path(device, card)
+    kernels += full_background_path(device, card)
+    painter_path(device, card)
+    teacher_forcing_path(device, card)
+    examples_path(device, card)
 
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

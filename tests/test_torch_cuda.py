@@ -33,7 +33,9 @@ for bit, and on the simulator facade's egocentric frames, under the
 per-type cap and past it (the sort route), bit for bit. The chunked hard
 raster and the grouped soft raster also run on the frames of the NPC
 replay and of the dataset imitation learning (the INTERACTION-layout data
-that ``chip_smoke.write_interaction_data`` writes).
+that ``chip_smoke.write_interaction_data`` writes). The nearest warp and the
+packed hard raster also run on the face-soup frame, and the soft raster
+over the full-resolution bilinear background.
 """
 import numpy as np
 import pytest
@@ -574,3 +576,59 @@ def test_grouped_soft_kernels_on_dataset_il_frame(cuda, tmp_path):
     torch.cuda.synchronize()
     assert judge_rows(out, want, exact, 'dataset IL backward')[1] == 0
     assert compare_tile_lists(soft, ops, 64, grads, 'dataset IL')[:2] == (0, 0)
+
+
+@pytest.mark.depends_on_cuda
+def test_kernels_on_face_soup_frame(cuda):
+    """B2 and B6a on the face-soup frame (``chip_smoke.faces_world`` at B =
+    8: the headline world's agents, lights and two waypoint discs per
+    camera, culled to 64 faces) bit for bit their plain versions; one
+    launch of each per ``render_faces_chw``, and one B6a without the
+    texture."""
+    from chip_smoke import FOV, RES, faces_frame, faces_operands, faces_world
+    from torchdrivesim_tpu_torch.rendering import Renderer
+    from torchdrivesim_tpu_torch.utils import Resolution
+    scenario, wps, mask = faces_world(8, cuda)
+    renderer = scenario.sim.renderer
+    faces, cams = faces_frame(scenario, scenario.sim.state, wps, mask)
+    bg, ops, _, (mip, fcoef, icoef) = faces_operands(renderer, faces, cams)
+    assert len(ops) == 2 and ops[1].shape[1] == 64 and cams.scale == 2.0 / FOV
+    got = warp.warp_view_nearest(mip.data, fcoef, icoef, RES)
+    assert torch.equal(got, warp.warp_view_nearest_reference(mip.data, fcoef, icoef, RES))
+    assert torch.equal(hard.raster(ops, bg, RES), hard.raster_reference(ops, bg, RES))
+    before = (warp.NEAREST_LAUNCHES, hard.PACKED_LAUNCHES)
+    renderer.render_faces_chw(*faces, Resolution(RES, RES), cams)
+    assert (warp.NEAREST_LAUNCHES, hard.PACKED_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    plain = Renderer(renderer.cfg, cuda)
+    ubg, uops, _, uwarp = faces_operands(plain, faces, cams)
+    assert uwarp is None and len(uops) == 2
+    assert torch.equal(hard.raster(uops, ubg, RES), hard.raster_reference(uops, ubg, RES))
+
+
+@pytest.mark.depends_on_cuda
+def test_soft_kernels_under_quad_background(cuda):
+    """B4a and B4b on config 4's frame over the full-resolution bilinear
+    background (``diff_fast_background=False``: ``sample_background_quad``,
+    B = 4, res 64): within the tolerance of the soft raster above; a render
+    launches B4a and no warp."""
+    from torchdrivesim_tpu_torch.benchmark import build_il_scenario, il_view
+    from torchdrivesim_tpu_torch.utils import Resolution
+    scenario = build_il_scenario(batch_size=4, agent_count=8, res=64, device=cuda)
+    renderer = scenario.sim.renderer
+    renderer.cfg.diff_fast_background = False
+    mesh, cams = il_view(scenario, scenario.sim.state)
+    bg, (coef, zw, color) = renderer.soft_frame_operands(mesh, 64, cams)
+    ops = (coef, zw.contiguous(), color, bg.contiguous())
+    g = torch.empty_like(bg).uniform_(-1, 1)
+    exact_in = [x.double() for x in ops]
+    assert _judge(soft.soft_raster_fwd(*ops), soft.soft_raster_fwd_reference(*ops),
+                  soft.soft_raster_fwd_reference(*exact_in), 0.0, 1e-5) == 0
+    grads = soft.soft_raster_bwd(*ops, g)
+    plain = soft.soft_raster_bwd_reference(*ops, g)
+    exact = soft.soft_raster_bwd_reference(*exact_in, g.double())
+    torch.cuda.synchronize()
+    for a, p, e in zip(grads, plain, exact):
+        assert _judge(a, p, e, 1e-4) == 0
+    before = (soft.FWD_LAUNCHES, warp.LAUNCHES)
+    renderer.render_rgb_mesh_chw(mesh, Resolution(64, 64), cams)
+    assert (soft.FWD_LAUNCHES, warp.LAUNCHES) == (before[0] + 1, before[1])

@@ -409,12 +409,16 @@ def test_dataset_bc_gradient_matches_jax(dataset_root, jax_grouped, monkeypatch)
 
 
 def test_imitation_example_on_the_dataset(dataset_root):
-    """``examples/imitation_learning.py --dataset-path`` on the CPU; the
-    unported ``--teacher-forcing`` raises, naming A12."""
+    """``examples/imitation_learning.py --dataset-path`` on the CPU, free
+    running and with ``--teacher-forcing`` (each step from the recorded
+    ego state)."""
     from torchdrivesim_tpu_torch.examples import imitation_learning
     losses = imitation_learning.main([
         '--dataset-path', dataset_root, '--location', 'locB', '--batch', '2',
         '--horizon', '2', '--res', '32', '--steps', '2', '--device', 'cpu'])
     assert len(losses) == 2 and all(np.isfinite(losses))
-    with pytest.raises(NotImplementedError, match='A12'):
-        imitation_learning.main(['--teacher-forcing', '--device', 'cpu'])
+    forced = imitation_learning.main([
+        '--dataset-path', dataset_root, '--location', 'locB', '--batch', '2',
+        '--horizon', '2', '--res', '32', '--steps', '2', '--device', 'cpu',
+        '--teacher-forcing'])
+    assert len(forced) == 2 and all(np.isfinite(forced))

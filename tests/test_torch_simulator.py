@@ -75,7 +75,7 @@ def world_arrays():
         light_replay=replay)
 
 
-def port_simulator(a, collision_metric='discs'):
+def port_simulator(a, collision_metric='discs', renderer_config=None):
     import torchdrivesim_tpu_torch.kinematic as K
     from torchdrivesim_tpu_torch.benchmark import load_or_bake_texture
     from torchdrivesim_tpu_torch.goals import WaypointGoal
@@ -89,6 +89,8 @@ def port_simulator(a, collision_metric='discs'):
     kin.set_params(lr=a['lr'])
     kin.set_state(a['agent_state'])
     cfg = TorchDriveConfig(collision_metric=CollisionMetric(collision_metric))
+    if renderer_config is not None:
+        cfg.renderer = renderer_config
     sim = Simulator(
         road_mesh=cfg_map.road_mesh, kinematic_model=kin, agent_size=a['agent_size'],
         initial_present_mask=np.ones((B, A), bool), cfg=cfg,

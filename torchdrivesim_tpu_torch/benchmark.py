@@ -20,6 +20,7 @@ times PPO's rollout collection and its update.
 The map caches (texture, grids) are read from next to the map; baking them
 is not ported.
 """
+import dataclasses
 import os
 import random
 import statistics
@@ -32,7 +33,7 @@ import torch
 
 import torchdrivesim_tpu_torch.kinematic as K
 from torchdrivesim_tpu_torch.behavior.heuristic import heuristic_initialize
-from torchdrivesim_tpu_torch.imitation import ego_view
+from torchdrivesim_tpu_torch.imitation import ego_view, policy_step
 from torchdrivesim_tpu_torch.infractions import compute_collision_matrix
 from torchdrivesim_tpu_torch.map import (
     MapConfig, find_map_config, traffic_controls_from_map_config,
@@ -41,7 +42,8 @@ from torchdrivesim_tpu_torch.map_grids import (
     offroad_loss_from_grid, wrong_way_loss_from_grid,
 )
 from torchdrivesim_tpu_torch.ops.grids import Grid2D
-from torchdrivesim_tpu_torch.rendering.base import Cameras
+from torchdrivesim_tpu_torch.rendering import lift_renderer_config
+from torchdrivesim_tpu_torch.rendering.base import Cameras, RendererConfig
 from torchdrivesim_tpu_torch.rendering.renderer import pack_rgb8_chw
 from torchdrivesim_tpu_torch.simulator import Simulator, TorchDriveConfig
 from torchdrivesim_tpu_torch.traffic_controls import red_light_violations
@@ -148,7 +150,7 @@ def build_benchmark_scenario(map_name: str = 'carla_Town02',
                              dt: float = 0.1, seed: int = 0,
                              use_texture: bool = True,
                              background_downsample: int = 2,
-                             n_layouts: int = 4,
+                             n_layouts: int = 4, renderer_config=None,
                              device='cuda') -> BenchmarkScenario:
     """
     Assemble the benchmark world on ``device``: ``batch_size`` envs on one
@@ -157,7 +159,9 @@ def build_benchmark_scenario(map_name: str = 'carla_Town02',
     traffic-light stack on its baked FSM schedule, the baked grids, and the
     renderer: over the baked map texture with ``use_texture`` (views no mip
     level covers sample it at ``res / background_downsample`` and upsample),
-    else over the map mesh. All randomness comes from one
+    else over the map mesh; ``renderer_config`` (a configuration or a dict,
+    as ``TorchDriveConfig.renderer`` takes it) replaces the default
+    renderer's. All randomness comes from one
     ``random.Random(seed)``, drawn in the reference's order, so the scenario
     equals the reference's.
     """
@@ -179,8 +183,12 @@ def build_benchmark_scenario(map_name: str = 'carla_Town02',
     kin = K.KinematicBicycle(dt=dt, left_handed=left_handed, device=device)
     kin.set_params(lr=attrs[..., 2])
     kin.set_state(states)
-    cfg = TorchDriveConfig(left_handed_coordinates=left_handed)
-    cfg.renderer.background_downsample = background_downsample
+    renderer_cfg = lift_renderer_config(
+        RendererConfig() if renderer_config is None else renderer_config)
+    if isinstance(renderer_cfg, RendererConfig):
+        renderer_cfg = dataclasses.replace(renderer_cfg,
+                                           background_downsample=background_downsample)
+    cfg = TorchDriveConfig(left_handed_coordinates=left_handed, renderer=renderer_cfg)
     controls = {k: v.extend(batch_size) for k, v in
                 traffic_controls_from_map_config(cfg_map, device=device).items()}
     sim = Simulator(
@@ -301,11 +309,9 @@ def build_il_scenario(batch_size: int = 16, agent_count: int = 8, res: int = 64,
 
 def il_view(scenario: BenchmarkScenario, state):
     """The frame the imitation-learning rollout renders from ``state``:
-    (mesh, cameras) of :func:`imitation.ego_view`, the map mesh drawn when
-    the renderer has no texture, as ``Simulator.render`` decides."""
-    sim = scenario.sim
-    return ego_view(sim, state, 2.0 / scenario.fov,
-                    include_background=sim.renderer.background_texture is None)
+    (mesh, cameras) of :func:`imitation.ego_view` at the renderer's
+    scale."""
+    return ego_view(scenario.sim, state, scenario.sim.renderer.scale)
 
 
 def make_il_rollout_fn(scenario: BenchmarkScenario, policy: torch.nn.Module,
@@ -313,20 +319,14 @@ def make_il_rollout_fn(scenario: BenchmarkScenario, policy: torch.nn.Module,
     """
     ``rollout(state) -> state``: ``horizon`` steps of the scenario with the
     first agent of each environment driven by ``policy`` on its
-    differentiable egocentric view (:func:`il_view`: the actors over the
-    bilinear mip warp of the map texture, or over the road mesh without a
-    texture) and the others holding zero action.
+    differentiable egocentric view (:func:`imitation.policy_step` over
+    :func:`il_view`'s frame: the actors over the bilinear mip warp of the
+    map texture, or over the road mesh without a texture) and the others
+    holding zero action.
     """
-    sim = scenario.sim
-    res = Resolution(scenario.res, scenario.res)
-
     def rollout(state):
-        b, n = state.agent_state.shape[:2]
-        rest = torch.zeros((b, n - 1, 2), device=state.agent_state.device)
         for _ in range(horizon):
-            mesh, cameras = il_view(scenario, state)
-            act = policy(sim.renderer.render_rgb_mesh_chw(mesh, res, cameras))
-            state = sim.functional_step(state, torch.cat([act[:, None], rest], dim=1))
+            state = policy_step(scenario.sim, policy, state, scenario.res)
         return state
 
     return rollout

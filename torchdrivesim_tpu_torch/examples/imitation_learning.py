@@ -42,7 +42,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument('--res', type=int, default=64)
     parser.add_argument('--steps', type=int, default=30)
     parser.add_argument('--lr', type=float, default=3e-4)
-    parser.add_argument('--teacher-forcing', action='store_true')
+    parser.add_argument('--teacher-forcing', action='store_true',
+                        help='start each step from the expert\'s frame')
     parser.add_argument('--device', default='cuda')
     return parser.parse_args(argv)
 
@@ -50,8 +51,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[List[str]] = None) -> List[float]:
     """Train for ``--steps`` steps; returns the losses."""
     args = parse_args(argv)
-    if args.teacher_forcing:
-        raise NotImplementedError('--teacher-forcing is not ported (ROADMAP A12)')
     device = torch.device(args.device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('no CUDA device: pass --device cpu to run on the CPU')
@@ -66,7 +65,7 @@ def main(argv: Optional[List[str]] = None) -> List[float]:
     torch.manual_seed(0)
     policy = BirdviewCNNPolicy(action_size=4, features=(16, 32)).to(device)
     train_step = make_bc_train_step(sim, policy, make_optimizer(policy, args.lr),
-                                    args.res)
+                                    args.res, teacher_forcing=args.teacher_forcing)
     print(f'{states0.shape[0]} environments, {sim.npc_count} NPCs each, horizon '
           f'{expert.shape[0]}, road mesh of {road.faces.shape[-2]} faces')
     losses = []

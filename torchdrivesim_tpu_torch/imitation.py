@@ -3,7 +3,8 @@ Behaviour cloning through the differentiable simulator (counterpart of
 ``examples/imitation_learning.py``): the loss is the mean squared error
 between expert trajectories and the states produced by rolling the policy
 through the simulator, and its gradient flows through every kinematic step
-and every soft bird's-eye-view render of the rollout.
+and every soft bird's-eye-view render of the rollout (with teacher forcing,
+each step starts from the expert's states, and through the steps only).
 
 The synthetic scenario is a straight two-lane road (a lanelet map
 triangulated into a road mesh, rendered under every frame) with a
@@ -18,6 +19,7 @@ pass (a few MB per step at the IL configuration), so every render kernel
 runs once per step forward and the soft raster's backward kernel once per
 step backward, and nothing is recomputed.
 """
+import dataclasses
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -126,16 +128,16 @@ def build_synthetic_simulator(road: BirdviewMesh, states0: torch.Tensor,
     return sim
 
 
-def ego_view(sim: Simulator, state: SimulatorState, scale: float,
-             include_background: bool):
+def ego_view(sim: Simulator, state: SimulatorState, scale: float):
     """Each environment's egocentric frame from its first agent: (the
-    frame's mesh, actors and, with ``include_background``, the map, as the
-    renderer takes it; the cameras at ``scale``)."""
+    frame's mesh, as the renderer takes it: the actors, and the map mesh
+    when the renderer has no texture, as ``Simulator.render`` decides; the
+    cameras at ``scale``)."""
     all_state = torch.cat([state.agent_state, state.npc_state], dim=-2)
     present = torch.cat([state.present_mask, state.npc_present_mask], dim=-1)
     mesh = sim.birdview_mesh_generator.generate(
         1, agent_state=all_state[:, None], present_mask=present[:, None],
-        include_background=include_background)
+        include_background=sim.renderer.background_texture is None)
     ego = state.agent_state[:, 0]
     cameras = Cameras(ego[:, :2], torch.stack([torch.sin(ego[:, 2]),
                                                torch.cos(ego[:, 2])], dim=-1),
@@ -143,32 +145,49 @@ def ego_view(sim: Simulator, state: SimulatorState, scale: float,
     return mesh, cameras
 
 
-def render_ego(sim: Simulator, state: SimulatorState, res: int, scale: float,
-               include_background: bool) -> torch.Tensor:
+def render_ego(sim: Simulator, state: SimulatorState, res: int) -> torch.Tensor:
     """Each environment's differentiable egocentric view from its first
-    agent (:func:`ego_view`), (B, 3, res, res) in [0, 255]."""
-    mesh, cameras = ego_view(sim, state, scale, include_background)
+    agent (:func:`ego_view` at the renderer's scale), (B, 3, res, res) in
+    [0, 255]."""
+    mesh, cameras = ego_view(sim, state, sim.renderer.scale)
     return sim.renderer.render_rgb_mesh_chw(mesh, Resolution(res, res), cameras)
 
 
-def make_bc_loss_fn(sim: Simulator, policy: torch.nn.Module, res: int
+def policy_step(sim: Simulator, policy: torch.nn.Module, state: SimulatorState,
+                res: int) -> SimulatorState:
+    """One step of the rollout: the first agent's view (:func:`render_ego`),
+    the policy's action for that agent, zero action for the others, and the
+    kinematic step."""
+    action = policy(render_ego(sim, state, res))[:, None, :]          # B x 1 x Ac
+    rest = state.agent_state.shape[1] - 1
+    if rest:
+        action = torch.cat([action, action.new_zeros(
+            (action.shape[0], rest, action.shape[2]))], dim=1)
+    return sim.functional_step(state, action)
+
+
+def make_bc_loss_fn(sim: Simulator, policy: torch.nn.Module, res: int,
+                    teacher_forcing: bool = False
                     ) -> Callable[[SimulatorState, torch.Tensor], torch.Tensor]:
     """
-    The behaviour-cloning loss: one rollout of T steps, each a render of the
-    road and the actors, a policy call and a kinematic step, and the mean
-    squared error of the positions against the expert's.
+    The behaviour-cloning loss: one rollout of T steps of
+    :func:`policy_step`, and the mean squared error of the positions
+    against the expert's. With ``teacher_forcing`` each step starts from
+    the expert's frame: after the step the agents' states are replaced by
+    the expert's, the predicted states kept for the loss. Nothing the
+    policy computes then reaches a later frame, so the renders take no part
+    in the backward pass.
 
     Returns:
         ``loss_fn(state0, expert) -> loss`` where ``expert`` is (T, B, A, 4).
     """
     def loss_fn(state0: SimulatorState, expert: torch.Tensor) -> torch.Tensor:
         state, preds = state0, []
-        for _ in range(expert.shape[0]):
-            image = render_ego(sim, state, res, sim.renderer.scale,
-                               include_background=True)
-            action = policy(image)[:, None, :]                 # B x 1 x Ac
-            state = sim.functional_step(state, action)
+        for target in expert:
+            state = policy_step(sim, policy, state, res)
             preds.append(state.agent_state)
+            if teacher_forcing:
+                state = dataclasses.replace(state, agent_state=target)
         preds = torch.stack(preds)
         return torch.mean((preds[..., :2] - expert[..., :2]) ** 2)
 
@@ -176,17 +195,19 @@ def make_bc_loss_fn(sim: Simulator, policy: torch.nn.Module, res: int
 
 
 def make_bc_train_step(sim: Simulator, policy: torch.nn.Module,
-                       optimizer: torch.optim.Optimizer, res: int
+                       optimizer: torch.optim.Optimizer, res: int,
+                       teacher_forcing: bool = False
                        ) -> Callable[[SimulatorState, torch.Tensor], torch.Tensor]:
     """
     The behaviour-cloning training step: the loss of :func:`make_bc_loss_fn`
-    and one optimizer step on its gradient.
+    (with ``teacher_forcing`` as there) and one optimizer step on its
+    gradient.
 
     Returns:
         ``train_step(state0, expert) -> loss`` where ``expert`` is
         (T, B, A, 4); the loss is returned detached, before the update.
     """
-    loss_fn = make_bc_loss_fn(sim, policy, res)
+    loss_fn = make_bc_loss_fn(sim, policy, res, teacher_forcing)
 
     def train_step(state0: SimulatorState, expert: torch.Tensor) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)

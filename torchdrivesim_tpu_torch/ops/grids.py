@@ -25,6 +25,44 @@ class Grid2D:
     cell_size: float = 1.0
 
 
+def bilinear_sample(grid: Grid2D, points: torch.Tensor,
+                    fill_value: float = 0.0) -> torch.Tensor:
+    """
+    Bilinear interpolation of the grid's channels at world points,
+    differentiable in the points (the floor indices carry no gradient).
+    Each of the four taps outside the grid reads ``fill_value``.
+
+    Args:
+        points: (..., 2) world coordinates.
+    Returns:
+        (..., C) interpolated channel values.
+    """
+    data = torch.as_tensor(grid.data, device=points.device)
+    origin = torch.as_tensor(grid.origin, dtype=points.dtype, device=points.device)
+    uv = (points - origin) / grid.cell_size
+    x, y = uv[..., 0], uv[..., 1]
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    tx = (x - x0)[..., None]
+    ty = (y - y0)[..., None]
+    x0i = x0.to(torch.int32)
+    y0i = y0.to(torch.int32)
+    h, w = data.shape[0], data.shape[1]
+
+    def gather(yi, xi):
+        valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        vals = data[yi.clamp(0, h - 1).long(), xi.clamp(0, w - 1).long()]
+        return torch.where(valid[..., None], vals, torch.full_like(vals, fill_value))
+
+    v00 = gather(y0i, x0i)
+    v01 = gather(y0i, x0i + 1)
+    v10 = gather(y0i + 1, x0i)
+    v11 = gather(y0i + 1, x0i + 1)
+    top = v00 * (1 - tx) + v01 * tx
+    bot = v10 * (1 - tx) + v11 * tx
+    return top * (1 - ty) + bot * ty
+
+
 def _bf16_bits(x: np.ndarray) -> np.ndarray:
     """Round float32 to bfloat16 (nearest even) and return its 16 bits."""
     b = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))

@@ -2,12 +2,14 @@
 Screen-space primitive preparation for the fused render, the row-major
 sort and band masks of the banded primitive raster, the view culls of the
 hard mesh render and of the differentiable primitive render, the plain hard
-raster that render falls back to, the full-resolution nearest background of
-views no mip level covers, and the plain softmax-blend soft raster
-(counterpart of the
-parts of ``torchdrivesim_tpu/ops/rasterize.py`` and
-``ops/pallas_rasterize.py`` that the primitive paths, the hard mesh path
-and the differentiable path run).
+raster that render falls back to, the full-resolution backgrounds (the
+nearest sample of views no mip level covers; the bilinear samples of the
+differentiable render, ``sample_background`` and ``sample_background_quad``),
+the plain softmax-blend soft raster and the painter's blend
+``rasterize_soft`` (counterpart of the parts of
+``torchdrivesim_tpu/ops/rasterize.py`` and ``ops/pallas_rasterize.py``
+that the primitive paths, the hard mesh path and the differentiable path
+run).
 
 Screen convention: the camera's forward axis points up in the image, its
 left axis points left; ``left_handed`` mirrors columns. Pixel (r, c) has its
@@ -17,6 +19,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from torchdrivesim_tpu_torch.ops.grids import bilinear_sample
 
 DEGENERATE_AREA_EPS = 1e-9
 #: pixels per band tile; a band is the unit the occupancy masks cull by
@@ -652,3 +656,132 @@ def sample_background_packed(texture: torch.Tensor, origin, cell_size: float,
     if downsample > 1:
         img = _resize_dim(_resize_dim(img, 2, res), 3, res)
     return img
+
+
+def sample_background(texture, cam_xy: torch.Tensor, cam_sc: torch.Tensor, scale: float,
+                      res: int, background_color: torch.Tensor,
+                      left_handed: bool = False) -> torch.Tensor:
+    """
+    Bilinear view of a float RGB texture (the reference's
+    ``sample_background``), differentiable in the camera pose: each pixel
+    center's world position is sampled with ``ops.grids.bilinear_sample``,
+    the taps outside the texture reading -1, and every channel that comes
+    out negative takes the background color's.
+
+    Args:
+        texture: ``ops.grids.Grid2D`` of (H, W, 3) float data in [0, 1]
+            (host numpy or a tensor).
+        background_color: (3,) float in [0, 1].
+    Returns:
+        (B, 3, res, res) float32.
+    """
+    world = _pixel_world_coords(cam_xy, cam_sc, scale, res, left_handed)
+    img = bilinear_sample(texture, world, fill_value=-1.0).permute(0, 3, 1, 2)
+    bg = background_color.to(img.dtype)[None, :, None, None].expand_as(img)
+    return torch.where(img < 0, bg, img)
+
+
+def pack_texture_rgb8_quad(data: np.ndarray) -> np.ndarray:
+    """
+    (H, W, 3) float RGB texture in [0, 1] -> (H, W, 4) int32 (host numpy):
+    cell (y, x) holds the 2 x 2 bilinear quad {(y, x), (y, x+1), (y+1, x),
+    (y+1, x+1)}, each texel as 0x00BBGGRR (:func:`pack_texture_rgb8`), the
+    texels past the last row and column 0; one 16-byte load per sampled
+    pixel.
+    """
+    packed = pack_texture_rgb8(data)
+    h, w = packed.shape
+    ppad = np.pad(packed, ((0, 1), (0, 1)))
+    return np.stack([ppad[:h, :w], ppad[:h, 1:w + 1], ppad[1:h + 1, :w],
+                     ppad[1:h + 1, 1:w + 1]], axis=-1).astype(np.int32)
+
+
+def sample_background_quad(quad_texture: torch.Tensor, origin, cell_size: float,
+                           cam_xy: torch.Tensor, cam_sc: torch.Tensor, scale: float,
+                           res: int, background_color: torch.Tensor,
+                           left_handed: bool = False) -> torch.Tensor:
+    """
+    Bilinear view of a :func:`pack_texture_rgb8_quad` texture (the
+    reference's ``sample_background_quad``): one int32 x 4 gather per pixel.
+    A pixel whose quad lies inside the texture (``0 <= x0 < w - 1`` and
+    ``0 <= y0 < h - 1``) interpolates its four texels, any other takes the
+    background color. The floor indices carry no gradient: pose gradients
+    flow through the bilinear weights ``tx``, ``ty`` only.
+
+    Args:
+        quad_texture: (H, W, 4) int32 on the device; origin: (2,) world
+            coordinates of texel (0, 0); cell_size in meters.
+        background_color: (3,) float in [0, 1].
+    Returns:
+        (B, 3, res, res) float32.
+    """
+    world = _pixel_world_coords(cam_xy, cam_sc, scale, res, left_handed)
+    origin = torch.as_tensor(origin, dtype=torch.float32, device=world.device)
+    uv = (world - origin) / cell_size
+    x, y = uv[..., 0], uv[..., 1]
+    x0 = torch.floor(x).detach()
+    y0 = torch.floor(y).detach()
+    tx = (x - x0)[:, None]
+    ty = (y - y0)[:, None]
+    x0i = x0.to(torch.int32)
+    y0i = y0.to(torch.int32)
+    h, w = quad_texture.shape[0], quad_texture.shape[1]
+    valid = (x0i >= 0) & (x0i < w - 1) & (y0i >= 0) & (y0i < h - 1)
+    g = quad_texture[y0i.clamp(0, h - 1).long(), x0i.clamp(0, w - 1).long()]
+
+    def unpack(p):
+        return torch.stack([(p >> s) & 0xFF for s in (0, 8, 16)], dim=1
+                           ).to(torch.float32) * _INV255
+
+    v00, v01, v10, v11 = (unpack(g[..., k]) for k in range(4))
+    top = v00 * (1 - tx) + v01 * tx
+    bot = v10 * (1 - tx) + v11 * tx
+    img = top * (1 - ty) + bot * ty
+    bg = background_color.to(img.dtype)[None, :, None, None].expand_as(img)
+    return torch.where(valid[:, None], img, bg)
+
+
+def rasterize_soft(verts: torch.Tensor, faces: torch.Tensor, attrs: torch.Tensor,
+                   res: int, background: torch.Tensor, sigma: float = 0.5,
+                   face_chunk: int = 16) -> torch.Tensor:
+    """
+    The painter's blend (the reference's ``rasterize_soft``), plain
+    PyTorch with autograd: faces are ordered back to front by a stable
+    argsort of ``-z`` (no gradient through the order) and blended one after
+    another, ``canvas = canvas * (1 - w) + color * w``, where ``w`` is the
+    product of the sigmoids of the three edge distances over ``sigma``,
+    each edge value divided by ``sqrt(max(|e|^2, 1e-12)) + 1e-8``; faces of
+    area at most ``DEGENERATE_AREA_EPS`` weigh 0. The weights of
+    ``face_chunk`` faces are evaluated together; the blend is a loop over
+    the faces, so autograd keeps one canvas per face (B x res x res x 3
+    floats) and the chunks' weights.
+
+    Args:
+        verts: (B, V, 3) screen (row, col, z); faces: (B, F, 3);
+        attrs: (B, V, 3); background: (B, res, res, 3).
+    Returns:
+        (B, res, res, 3) image in [0, 1].
+    """
+    if faces.shape[1] == 0:
+        return background
+    corners, z, color = face_arrays(verts, faces, attrs)
+    order = torch.argsort(-z.detach(), dim=1, stable=True)
+    corners = torch.gather(corners, 1, order[..., None, None].expand(-1, -1, 3, 2))
+    color = torch.gather(color, 1, order[..., None].expand(-1, -1, color.shape[-1]))
+    coords = torch.arange(res, dtype=verts.dtype, device=verts.device) + 0.5
+    px = coords[:, None].expand(res, res)
+    py = coords[None, :].expand(res, res)
+    canvas = background
+    for s in range(0, corners.shape[1], face_chunk):
+        cc, ccol = corners[:, s:s + face_chunk], color[:, s:s + face_chunk]
+        e, area = edge_functions(cc, px, py)               # B,Fc,3,H,W
+        sign = torch.sign(area)[..., None, None, None]
+        ed = cc[..., [1, 2, 0], :] - cc
+        elen = torch.sqrt(torch.clamp((ed * ed).sum(-1), min=1e-12))
+        d = e * sign / (elen[..., None, None] + 1e-8)
+        w = torch.prod(torch.sigmoid(d / sigma), dim=2)     # B,Fc,H,W
+        ok = (torch.abs(area) > DEGENERATE_AREA_EPS)[..., None, None]
+        w = torch.where(ok, w, torch.zeros_like(w))[..., None]
+        for f in range(cc.shape[1]):
+            canvas = canvas * (1 - w[:, f]) + ccol[:, f, None, None, :] * w[:, f]
+    return canvas

@@ -18,15 +18,22 @@ The port's bird's-eye-view renderer (counterpart of
   covers the view (faces culled to the view), or over the constant
   background color (every face);
 * the differentiable mesh render: the soft raster, any face count at any
-  multiple of 16, over the bilinear mip warp of the texture or over the
-  constant background color.
+  multiple of 16, over the bilinear mip warp of the texture where a mip
+  level covers the view, else over its full-resolution bilinear sample
+  (``sample_background_quad``, also with ``diff_fast_background=False``),
+  or over the constant background color; with ``soft_blend`` other than
+  'softmax' the painter's blend (``rasterize_soft``) over the same
+  backgrounds;
+* an explicit ``background_texture=`` of the mesh renders: its bilinear
+  sample (``sample_background``) under the hard raster (faces culled) or
+  the soft raster;
+* the face-soup render (``render_faces_chw``, the faces of
+  ``BirdviewRGBMeshGenerator.generate_faces``): culled to
+  ``cfg.cull_max_faces``, the hard raster over the nearest mip warp, the
+  full-resolution nearest sample or the color.
 
 A square resolution that is not a multiple of 16 renders at the next
 multiple of 16, at the same pixels per meter, and returns the top-left crop.
-
-Not ported yet: the face-soup render ``render_faces_chw``, the painter's
-soft blend and the differentiable render's full-resolution bilinear
-background (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -43,8 +50,9 @@ from torchdrivesim_tpu_torch.ops.hard import hard_operands, raster
 from torchdrivesim_tpu_torch.ops.prims import prep_prims, rasterize_hard_prims_banded
 from torchdrivesim_tpu_torch.ops.rasterize import (
     camera_rows_cols, cull_faces_to_view, cull_prims_to_view, face_arrays,
-    n_bands_for, pack_texture_rgb8, prep_sorted_prim_coefs, rasterize_hard_faces,
-    sample_background_packed, sort_prims_rowmajor_with_masks, supports_res,
+    n_bands_for, pack_texture_rgb8, pack_texture_rgb8_quad, prep_sorted_prim_coefs,
+    rasterize_hard_faces, rasterize_soft, sample_background, sample_background_packed,
+    sample_background_quad, sort_prims_rowmajor_with_masks, supports_res,
 )
 from torchdrivesim_tpu_torch.ops.soft import rasterize_softmax_coefs, soft_coefficients
 from torchdrivesim_tpu_torch.ops.warp import (
@@ -52,7 +60,7 @@ from torchdrivesim_tpu_torch.ops.warp import (
     warp_coefficients, warp_view_nearest,
 )
 from torchdrivesim_tpu_torch.rendering.base import (
-    Cameras, RendererConfig, get_default_color_map, get_default_rendering_levels,
+    BirdviewRenderer, Cameras, RendererConfig,
 )
 from torchdrivesim_tpu_torch.utils import Resolution
 
@@ -162,26 +170,21 @@ def fused_prim_operands(sq, qz, qcolors, st, tz, tcolors, size: int, cap: int,
     return (qcoef, qpk, qmask, tcoef, tpk, tmask), True
 
 
-class Renderer:
+class Renderer(BirdviewRenderer):
     """
-    Renders typed primitives over :attr:`background_texture` on ``device``.
+    Renders typed primitives, per-camera meshes and face soups over
+    :attr:`background_texture` on ``device``.
 
     Args:
         cfg: renderer switches.
+        device: where the frames are made.
         res / fov: default view size and field of view (meters).
     """
     def __init__(self, cfg: RendererConfig, device,
                  color_map: Optional[Dict[str, Tuple[int, int, int]]] = None,
                  rendering_levels: Optional[Dict[str, float]] = None,
                  res: Resolution = Resolution(64, 64), fov: float = 35):
-        self.cfg = cfg
-        self.device = torch.device(device)
-        self.res = res
-        self.scale = 2.0 / fov
-        self.color_map = color_map if color_map is not None \
-            else get_default_color_map()
-        self.rendering_levels = rendering_levels if rendering_levels is not None \
-            else get_default_rendering_levels()
+        super().__init__(cfg, device, color_map, rendering_levels, res, fov)
         #: background color in [0, 1] for off-texture pixels, on the device
         self._background_color = torch.tensor(
             self.get_color('background'), dtype=torch.float32,
@@ -189,13 +192,13 @@ class Renderer:
         self._background_texture: Optional[Grid2D] = None
         self._mip_pyramid: Optional[List[MipLevel]] = None
         self._packed_texture: Optional[Grid2D] = None
+        #: the quad-packed texture of the full-resolution bilinear
+        #: background, built at first use (:meth:`_quad_texture`)
+        self._quad: Optional[Grid2D] = None
         #: device copies of :func:`_subcamera_offsets`, by its arguments
         self._tile_offsets: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
         #: (quads, triangles) per camera whose sort route has been logged
         self._warned_sort = set()
-
-    def get_color(self, element_type: str) -> Tuple[int, int, int]:
-        return self.color_map[element_type]
 
     @property
     def background_texture(self) -> Optional[Grid2D]:
@@ -210,6 +213,7 @@ class Renderer:
         self._background_texture = texture
         self._mip_pyramid = None
         self._packed_texture = None
+        self._quad = None
         if texture is not None:
             self._mip_pyramid = [
                 level.to(self.device) for level in build_mip_pyramid(
@@ -221,6 +225,17 @@ class Renderer:
                 origin=torch.as_tensor(np.asarray(texture.origin, np.float32),
                                        device=self.device),
                 cell_size=float(texture.cell_size))
+
+    def _quad_texture(self) -> Grid2D:
+        """The texture packed for the full-resolution bilinear background
+        (``pack_texture_rgb8_quad``, (H, W, 4) int32 on the device), built
+        on the host the first time a view needs it."""
+        if self._quad is None:
+            tex = self._background_texture
+            self._quad = Grid2D(
+                data=torch.from_numpy(pack_texture_rgb8_quad(tex.data)).to(self.device),
+                origin=self._packed_texture.origin, cell_size=float(tex.cell_size))
+        return self._quad
 
     def _warp_mip(self, scale: float, size: int) -> Optional[MipLevel]:
         """The mip level for the fused render and the nearest warp, or None
@@ -462,8 +477,8 @@ class Renderer:
         return ((sq, qz, qcolors, st, tz, tcolors),
                 self._full_background(cameras, size), qmask, tmask)
 
-    def render_rgb_mesh_chw(self, mesh: RGBMesh, res: Resolution,
-                            cameras: Cameras) -> torch.Tensor:
+    def render_rgb_mesh_chw(self, mesh: RGBMesh, res: Resolution, cameras: Cameras,
+                            background_texture: Optional[Grid2D] = None) -> torch.Tensor:
         """
         Render a per-camera RGB mesh (world-space (x, y, priority z)
         vertices, as from ``BirdviewRGBMeshGenerator.generate``).
@@ -472,15 +487,23 @@ class Renderer:
         the nearest mip warp of the background texture (its full-resolution
         nearest sample where no mip level covers the view), the faces culled
         to the ``cfg.cull_max_faces`` nearest the view's center, or, with no
-        texture, over the background color with every face. A size that is
-        not a multiple of 16 renders padded and cropped.
+        texture, over the background color with every face.
 
-        Differentiable mode (``cfg.differentiable``): the soft raster over
-        the bilinear mip warp of the background texture when one is set
-        (pose gradients by ``warp_background_diff``), else over the
-        background color, any number of faces (the grouped path above 128
-        faces or above 128 pixels), padded and cropped where ``size`` is not
-        a multiple of 16.
+        Differentiable mode (``cfg.differentiable``): the soft raster, any
+        number of faces (the grouped path above 128 faces or above 128
+        pixels), over the bilinear mip warp of the texture (pose gradients
+        by ``warp_background_diff``) where a mip level covers the view and
+        ``cfg.diff_fast_background``, else over its full-resolution
+        bilinear sample (``sample_background_quad``, exact bilinear pose
+        gradients), or over the background color without a texture. With
+        ``cfg.soft_blend`` other than 'softmax', the painter's blend
+        (``ops.rasterize.rasterize_soft``) over the same backgrounds.
+
+        An explicit ``background_texture`` (an ``ops.grids.Grid2D`` of (H,
+        W, 3) float RGB in [0, 1]) replaces the renderer's in both modes by
+        its bilinear sample (``sample_background``); the hard raster culls
+        the faces over it. A size that is not a multiple of 16 renders
+        padded and cropped.
 
         Returns:
             (B, 3, H, W) float image in [0, 255]; in differentiable mode
@@ -489,81 +512,87 @@ class Renderer:
         """
         assert res.width == res.height, "only square resolutions are supported"
         size = res.width
-        if not self.cfg.differentiable:
-            return self._render_hard(mesh, size, cameras)
-        return self._render_soft(mesh, size, cameras)
-
-    def _render_soft(self, mesh: RGBMesh, size: int, cameras: Cameras
-                     ) -> torch.Tensor:
-        """The differentiable branch of :meth:`render_rgb_mesh_chw`."""
         pad_to = self._pad_res_target(size)
         if pad_to is not None:
-            return self._render_soft(mesh, pad_to, self._pad_cameras(
-                cameras, size, pad_to))[..., :size, :size]
-        background, (coef, zw, color) = self.soft_frame_operands(mesh, size, cameras)
+            return self.render_rgb_mesh_chw(
+                mesh, Resolution(pad_to, pad_to), self._pad_cameras(cameras, size, pad_to),
+                background_texture)[..., :size, :size]
+        if not self.cfg.differentiable:
+            background, ops, _ = self.hard_frame_operands(mesh, size, cameras,
+                                                          background_texture)
+            return raster(ops, background, size) * 255.0
+        if self.cfg.soft_blend != 'softmax':
+            background = self.soft_background(cameras, size, background_texture)
+            image = rasterize_soft(self._screen_verts(mesh, size, cameras), mesh.faces,
+                                   mesh.attrs, size, background.permute(0, 2, 3, 1),
+                                   sigma=self.cfg.soft_sigma)
+            return image.permute(0, 3, 1, 2) * 255.0
+        background, (coef, zw, color) = self.soft_frame_operands(
+            mesh, size, cameras, background_texture)
         if coef.shape[1] == 0:
             return background * 255.0
         return rasterize_softmax_coefs(coef, zw, color, background) * 255.0
 
-    def soft_frame_operands(self, mesh: RGBMesh, size: int, cameras: Cameras):
+    def _screen_verts(self, mesh: RGBMesh, size: int, cameras: Cameras) -> torch.Tensor:
+        """The mesh's vertices as screen (row, col, priority z)."""
+        rc = camera_rows_cols(mesh.verts[..., :2], cameras.xy, cameras.sc, cameras.scale,
+                              size, left_handed=self.cfg.left_handed_coordinates)
+        return torch.cat([rc, mesh.verts[..., 2:3]], dim=-1)
+
+    def soft_background(self, cameras: Cameras, size: int,
+                        background_texture: Optional[Grid2D] = None) -> torch.Tensor:
         """
-        The differentiable render's operands for one frame, as
+        The differentiable render's (B, 3, size, size) background in [0, 1]:
+        the bilinear sample of an explicit ``background_texture``; else,
+        over the renderer's texture, the bilinear mip warp
+        (``warp_background_diff``: B3, its VJP for the pose gradient) where
+        a mip level covers the view and ``cfg.diff_fast_background``, or
+        the full-resolution bilinear sample (``sample_background_quad``);
+        else the background color expanded.
+        """
+        lh = self.cfg.left_handed_coordinates
+        if background_texture is not None:
+            return sample_background(background_texture, cameras.xy, cameras.sc,
+                                     cameras.scale, size, self._background_color,
+                                     left_handed=lh)
+        if self._mip_pyramid is None:
+            return self._background_color[None, :, None, None].expand(
+                cameras.xy.shape[0], 3, size, size)
+        mip = self._warp_mip(cameras.scale, size) if self.cfg.diff_fast_background \
+            else None
+        if mip is not None:
+            return warp_background_diff(mip, cameras.xy, cameras.sc, cameras.scale,
+                                        self._background_color, left_handed=lh, res=size)
+        quad = self._quad_texture()
+        return sample_background_quad(quad.data, quad.origin, quad.cell_size,
+                                      cameras.xy, cameras.sc, cameras.scale, size,
+                                      self._background_color, left_handed=lh)
+
+    def soft_frame_operands(self, mesh: RGBMesh, size: int, cameras: Cameras,
+                            background_texture: Optional[Grid2D] = None):
+        """
+        The softmax-blend render's operands for one frame, as
         :meth:`render_rgb_mesh_chw` passes them to the soft raster
         (``ops.soft.rasterize_softmax_coefs``).
 
         Returns:
-            ``(background, (coef, zw, color))``: the (B, 3, size, size)
-            background in [0, 1] (the bilinear mip warp of the texture, or
-            the background color expanded without one) and the per-face
-            edge coefficients (B, F, 3, 3), z weights (B, 1, F) and colors
-            (B, F, 3) of ``ops.soft.soft_coefficients``.
+            ``(background, (coef, zw, color))``: the background of
+            :meth:`soft_background` and the per-face edge coefficients (B,
+            F, 3, 3), z weights (B, 1, F) and colors (B, F, 3) of
+            ``ops.soft.soft_coefficients``.
         """
-        if self.cfg.soft_blend != 'softmax':
-            raise NotImplementedError(
-                f"soft_blend={self.cfg.soft_blend!r}: only the softmax blend is "
-                "ported (the painter's blend rasterize_soft is not, ROADMAP A12)")
         if not supports_res(size):
             raise NotImplementedError(
                 f"res {size}: the soft render's operands are for multiples of 16 "
                 "(render_rgb_mesh_chw pads other sizes)")
-        lh = self.cfg.left_handed_coordinates
-        b = cameras.xy.shape[0]
-        if self._mip_pyramid is not None:
-            if not self.cfg.diff_fast_background:
-                raise NotImplementedError(
-                    "diff_fast_background=False (the full-resolution bilinear "
-                    "background, sample_background_quad) is not ported (ROADMAP A12)")
-            mip = self._warp_mip(cameras.scale, size)
-            if mip is None:
-                raise NotImplementedError(
-                    f"no mip level covers a view of fov {2.0 / cameras.scale} at "
-                    f"res {size}; the differentiable full-resolution bilinear "
-                    "background (sample_background_quad) is not ported (ROADMAP A12)")
-            background = warp_background_diff(
-                mip, cameras.xy, cameras.sc, cameras.scale,
-                self._background_color, left_handed=lh, res=size)
-        else:
-            background = self._background_color[None, :, None, None].expand(
-                b, 3, size, size)
-        rc = camera_rows_cols(mesh.verts[..., :2], cameras.xy, cameras.sc,
-                              cameras.scale, size, left_handed=lh)
-        sv = torch.cat([rc, mesh.verts[..., 2:3]], dim=-1)
-        coef, zw, color = soft_coefficients(sv, mesh.faces, mesh.attrs,
-                                            self.cfg.soft_sigma, 0.5)
+        background = self.soft_background(cameras, size, background_texture)
+        coef, zw, color = soft_coefficients(self._screen_verts(mesh, size, cameras),
+                                            mesh.faces, mesh.attrs, self.cfg.soft_sigma,
+                                            0.5)
         return background, (coef, zw[:, None, :], color)
 
-    def _render_hard(self, mesh: RGBMesh, size: int, cameras: Cameras
-                     ) -> torch.Tensor:
-        """The hard branch of :meth:`render_rgb_mesh_chw`, padded and
-        cropped where ``size`` is not a multiple of 16."""
-        pad_to = self._pad_res_target(size)
-        if pad_to is not None:
-            return self._render_hard(mesh, pad_to, self._pad_cameras(
-                cameras, size, pad_to))[..., :size, :size]
-        background, ops, _ = self.hard_frame_operands(mesh, size, cameras)
-        return raster(ops, background, size) * 255.0
-
-    def hard_frame_operands(self, mesh: RGBMesh, size: int, cameras: Cameras):
+    def hard_frame_operands(self, mesh: RGBMesh, size: int, cameras: Cameras,
+                            background_texture: Optional[Grid2D] = None):
         """
         The hard render's operands for one frame: the background and the
         z-priority raster's operands, as :meth:`render_rgb_mesh_chw` passes
@@ -571,13 +600,14 @@ class Renderer:
 
         Returns:
             ``(background, ops, warp)``: the (B, 3, size, size) background
-            in [0, 1] (the nearest mip warp of the texture, or its
-            full-resolution nearest sample where no mip level covers the
-            view, or the background color without a texture); the operands
-            of ``ops.hard.hard_operands`` for the faces culled to the
-            ``cfg.cull_max_faces`` nearest the view's center (every face
-            without a texture); ``(mip, fcoef, icoef)``, the nearest warp's
-            operands, or None without one.
+            in [0, 1] (the bilinear sample of an explicit
+            ``background_texture``; else the nearest mip warp of the
+            renderer's texture, or its full-resolution nearest sample where
+            no mip level covers the view, or the background color without a
+            texture); the operands of ``ops.hard.hard_operands`` for the
+            faces culled to the ``cfg.cull_max_faces`` nearest the view's
+            center (every face without a texture); ``(mip, fcoef, icoef)``,
+            the nearest warp's operands, or None without one.
         """
         if not supports_res(size):
             raise NotImplementedError(
@@ -585,8 +615,12 @@ class Renderer:
                 "16 (render_rgb_mesh_chw pads other sizes)")
         lh = self.cfg.left_handed_coordinates
         warp = None
-        mip = self._warp_mip(cameras.scale, size)
-        if mip is not None:
+        mip = self._warp_mip(cameras.scale, size) if background_texture is None else None
+        if background_texture is not None:
+            background = sample_background(background_texture, cameras.xy, cameras.sc,
+                                           cameras.scale, size, self._background_color,
+                                           left_handed=lh)
+        elif mip is not None:
             fcoef, icoef = warp_coefficients(mip, cameras.xy, cameras.sc,
                                              cameras.scale, self._background_color,
                                              left_handed=lh, res=size)
@@ -594,27 +628,85 @@ class Renderer:
             background = warp_view_nearest(mip.data, fcoef, icoef, size)
         else:
             background = self._full_background(cameras, size)
-        cull = self.cfg.cull_max_faces if self._background_texture is not None else 0
-        rc = camera_rows_cols(mesh.verts[..., :2], cameras.xy, cameras.sc,
-                              cameras.scale, size, left_handed=lh)
-        sv = torch.cat([rc, mesh.verts[..., 2:3]], dim=-1)
-        corners, z, color = face_arrays(sv, mesh.faces, mesh.attrs)
+        textured = self._background_texture is not None or background_texture is not None
+        cull = self.cfg.cull_max_faces if textured else 0
+        corners, z, color = face_arrays(self._screen_verts(mesh, size, cameras),
+                                        mesh.faces, mesh.attrs)
         if cull:
             corners, z, color = cull_faces_to_view(corners, z, color, size, cull)
         return background, hard_operands(corners, z, color), warp
 
-    def render_rgb_mesh(self, mesh: RGBMesh, res: Resolution,
-                        cameras: Cameras) -> torch.Tensor:
-        """(B, H, W, 3) float image in [0, 255] (the channels-last layout)."""
-        return self.render_rgb_mesh_chw(mesh, res, cameras).permute(0, 2, 3, 1)
+    def render_faces_chw(self, corners: torch.Tensor, z: torch.Tensor,
+                         colors: torch.Tensor, res: Resolution,
+                         cameras: Cameras) -> torch.Tensor:
+        """
+        Render a face soup (world-space corners (B, F, 3, 2), priorities z
+        (B, F), flat colors (B, F, 3) in [0, 1], as from
+        ``BirdviewRGBMeshGenerator.generate_faces``) over the background:
+        the faces culled to the ``cfg.cull_max_faces`` nearest the view's
+        center whenever that is non-zero, textured or not, then the hard
+        raster (``ops.hard.raster``: B6a up to 127 faces) over
+        :meth:`face_frame_operands`' background, in both modes: a
+        differentiable renderer, as the reference's, takes the
+        full-resolution nearest sample of the texture for the background
+        and gives no gradient (the reference's plain raster there differs
+        only by one to the generator's constant colors). A size that is not
+        a multiple of 16 renders padded and cropped.
 
-    def render_frame(self, rgb_mesh: RGBMesh, camera_xy: torch.Tensor,
-                     camera_sc: torch.Tensor, res: Optional[Resolution] = None,
-                     fov: Optional[float] = None) -> torch.Tensor:
-        """(B*Nc, 3, H, W) image of cameras given as (..., 2) centers and
-        (..., 2) (sin, cos) headings, at ``res`` and ``fov`` or the
-        renderer's defaults."""
-        scale = (2.0 / fov) if fov is not None else self.scale
-        return self.render_rgb_mesh_chw(
-            rgb_mesh, res if res is not None else self.res,
-            Cameras(camera_xy.reshape(-1, 2), camera_sc.reshape(-1, 2), scale))
+        Returns:
+            (B, 3, H, W) float image in [0, 255].
+        """
+        assert res.width == res.height, "only square resolutions are supported"
+        size = res.width
+        pad_to = self._pad_res_target(size)
+        if pad_to is not None:
+            return self.render_faces_chw(
+                corners, z, colors, Resolution(pad_to, pad_to),
+                self._pad_cameras(cameras, size, pad_to))[..., :size, :size]
+        background, faces, _ = self.face_frame_operands(corners, z, colors, size, cameras)
+        return raster(hard_operands(*faces), background, size) * 255.0
+
+    def face_frame_operands(self, corners: torch.Tensor, z: torch.Tensor,
+                            colors: torch.Tensor, size: int, cameras: Cameras):
+        """
+        The face-soup render's operands for one frame, as
+        :meth:`render_faces_chw` takes them.
+
+        Returns:
+            ``(background, (corners, z, colors), warp)``: the (B, 3, size,
+            size) background in [0, 1] (the nearest mip warp of the texture
+            where a mip level covers the view and the render is hard, else
+            its full-resolution nearest sample, sampled at ``res /
+            cfg.background_downsample``, or the color without a texture);
+            the screen-space faces culled to ``cfg.cull_max_faces`` (all of
+            them when it is 0); ``(mip, fcoef, icoef)``, the nearest warp's
+            operands, or None without one.
+        """
+        if not supports_res(size):
+            raise NotImplementedError(
+                f"res {size}: the face-soup render's operands are for multiples of "
+                "16 (render_faces_chw pads other sizes)")
+        lh = self.cfg.left_handed_coordinates
+        warp = None
+        mip = None if self.cfg.differentiable else self._warp_mip(cameras.scale, size)
+        if mip is not None:
+            fcoef, icoef = warp_coefficients(mip, cameras.xy, cameras.sc, cameras.scale,
+                                             self._background_color, left_handed=lh,
+                                             res=size)
+            warp = (mip, fcoef, icoef)
+            background = warp_view_nearest(mip.data, fcoef, icoef, size)
+        else:
+            background = self._full_background(cameras, size)
+        b, f = z.shape
+        sc = camera_rows_cols(corners.reshape(b, f * 3, 2), cameras.xy, cameras.sc,
+                              cameras.scale, size, left_handed=lh).reshape(b, f, 3, 2)
+        if self.cfg.cull_max_faces:
+            sc, z, colors = cull_faces_to_view(sc, z, colors, size,
+                                               self.cfg.cull_max_faces)
+        return background, (sc, z, colors), warp
+
+    def render_rgb_mesh(self, mesh: RGBMesh, res: Resolution, cameras: Cameras,
+                        background_texture: Optional[Grid2D] = None) -> torch.Tensor:
+        """(B, H, W, 3) float image in [0, 255] (the channels-last layout)."""
+        return self.render_rgb_mesh_chw(mesh, res, cameras,
+                                        background_texture).permute(0, 2, 3, 1)

@@ -4,7 +4,8 @@ Per-frame scene primitives and meshes from precomputed templates
 generator of the env step and the simulator's render (actor boxes and
 stoplines as quads, direction markers and waypoint discs as triangles;
 absent agents' primitives are degenerate, all-zero corners; no stop or
-yield sign, as in the reference) and the per-camera RGB mesh of the mesh
+yield sign, as in the reference), the face soup of the face-soup render
+(the same content as triangles), and the per-camera RGB mesh of the mesh
 renders (background mesh and the static meshes added to it, actors, stop
 and yield signs, traffic lights, waypoints; absent agents' faces collapse
 onto vertex 0).
@@ -105,10 +106,7 @@ class BirdviewRGBMeshGenerator:
         self.render_agent_direction = render_agent_direction
         self.background_mesh = background_mesh
         self._constants = {}         # (name, device) -> tensors, see _on
-        self.waypoint_template_verts, self.waypoint_template_faces = \
-            generate_disc_mesh()
-        self.waypoint_color = tensor_color(color_map['goal_waypoint'])
-        self.waypoint_z = float(rendering_levels['goal_waypoint'])
+        self.initialize_waypoint_mesh()
         self.actor_verts = None      # (B, A, S, 2) local template
         self.actor_faces = None      # (A*fpa, 3) host per-batch layout
         self.actor_attrs = None      # (B, A, S, 3) colors
@@ -151,6 +149,20 @@ class BirdviewRGBMeshGenerator:
             col = np.full(m.verts.shape[:-1] + (1,), z, m.verts.dtype)
             return RGBMesh(np.concatenate([m.verts, col], axis=-1), m.faces, m.attrs)
         self.static_rgb = self.static_rgb + [lift(m) for m in meshes]
+
+    def initialize_waypoint_mesh(self, waypoint_radius: float = 2.0,
+                                 waypoint_num_triangles: int = 10) -> None:
+        """The waypoint disc: a fan of ``waypoint_num_triangles`` triangles
+        of radius ``waypoint_radius`` meters, in the waypoint color and
+        rendering level."""
+        self.waypoint_radius = waypoint_radius
+        self.waypoint_num_triangles = waypoint_num_triangles
+        self.waypoint_template_verts, self.waypoint_template_faces = \
+            generate_disc_mesh(radius=waypoint_radius, num_triangles=waypoint_num_triangles)
+        self.waypoint_color = tensor_color(self.color_map['goal_waypoint'])
+        self.waypoint_z = float(self.rendering_levels['goal_waypoint'])
+        self._forget('disc')
+        self._forget('waypoint')
 
     def _forget(self, prefix: str) -> None:
         """Drop the cached constants whose name starts with ``prefix``
@@ -244,6 +256,16 @@ class BirdviewRGBMeshGenerator:
             other._constants = {}
         return other
 
+    def expand(self, n: int) -> "BirdviewRGBMeshGenerator":
+        """The reference's name of :meth:`extend`: every batch element's
+        templates repeated ``n`` times contiguously."""
+        return self.extend(n)
+
+    def to(self, device=None) -> "BirdviewRGBMeshGenerator":
+        """This generator: its templates stay on the device they were
+        built on, and its host constants move to a device at first use."""
+        return self
+
     def _light_colors(self, traffic_light_state: torch.Tensor) -> torch.Tensor:
         """(B, Nl) light states -> (B, Nl, 3) colors."""
         return self.light_color_table[traffic_light_state.long()]
@@ -276,6 +298,81 @@ class BirdviewRGBMeshGenerator:
             other.background_mesh = mesh.select_batch_elements(idx)
             other._constants = {}
         return other
+
+    def generate_faces(self, agent_state: torch.Tensor,
+                       present_mask: Optional[torch.Tensor] = None,
+                       traffic_light_state: Optional[torch.Tensor] = None,
+                       waypoints: Optional[torch.Tensor] = None,
+                       waypoints_rendering_mask: Optional[torch.Tensor] = None):
+        """
+        The frame's dynamic scene as a face soup, for the renderer's
+        ``render_faces_chw``: each agent's box as the triangles (0, 1, 3)
+        and (1, 3, 2) of its template and its direction marker (4, 5, 6),
+        then each stopline's two triangles colored by its light state, then
+        each waypoint disc's triangles, in that order.
+
+        Args:
+            agent_state: (B, All, 4); present_mask: (B, All), absent agents'
+                faces degenerate (all-zero corners).
+            traffic_light_state: (B, Nl) indices into the light states.
+            waypoints: (B, M, 2) disc centers; waypoints_rendering_mask:
+                (B, M), the discs drawn (the others all-zero).
+        Returns:
+            (corners (B, F, 3, 2) world space, z (B, F), colors (B, F, 3)).
+            With B a multiple of the templates' batch, each template batch
+            element serves its B / Bt cameras contiguously (index
+            b * Nc + cam).
+        """
+        b, n_all = agent_state.shape[0], agent_state.shape[1]
+        local, actor_z, actor_attrs = self.actor_verts, self.actor_z, self.actor_attrs
+        light_quads = self.light_quads
+        if local.shape[0] != b:
+            reps = b // local.shape[0]
+            local = torch.repeat_interleave(local, reps, dim=0)
+            actor_z = torch.repeat_interleave(actor_z, reps, dim=0)
+            actor_attrs = torch.repeat_interleave(actor_attrs, reps, dim=0)
+            if light_quads is not None:
+                light_quads = torch.repeat_interleave(light_quads, reps, dim=0)
+        psi = agent_state[..., 2:3][..., None]
+        xy = agent_state[..., :2][..., None, :]
+        world = rotate(local, psi) + xy                     # (B, All, S, 2)
+        face_idx = [[0, 1, 3], [1, 3, 2]] + ([[4, 5, 6]] if self.render_agent_direction
+                                             else [])
+        fpa = len(face_idx)
+        corners = world[:, :, face_idx]                     # (B, All, fpa, 3, 2)
+        first = [f[0] for f in face_idx]
+        if present_mask is not None:
+            corners = torch.where(present_mask[..., None, None, None], corners,
+                                  world.new_zeros(()))
+        parts = [(corners.reshape(b, n_all * fpa, 3, 2),
+                  actor_z[:, :, first].expand(b, n_all, fpa).reshape(b, n_all * fpa),
+                  actor_attrs[:, :, first].expand(b, n_all, fpa, 3).reshape(
+                      b, n_all * fpa, 3))]
+
+        if light_quads is not None and traffic_light_state is not None:
+            nl = light_quads.shape[1]
+            # cycle order (0, 1, 3, 2) back to corners: faces (0, 1, 3), (1, 3, 2)
+            lcorners = light_quads[:, :, [[0, 1, 2], [1, 2, 3]]]   # (B, Nl, 2, 3, 2)
+            lcol = self._light_colors(traffic_light_state)[:, :, None].expand(b, nl, 2, 3)
+            parts.append((lcorners.reshape(b, nl * 2, 3, 2),
+                          torch.full((b, nl * 2), self.light_z, device=world.device),
+                          lcol.reshape(b, nl * 2, 3)))
+
+        if waypoints is not None:
+            m = waypoints.shape[1]
+            fd = self.waypoint_template_faces.shape[0]
+            disc = self._on('disc_tris', world.device, lambda d: torch.as_tensor(
+                self.waypoint_template_verts[self.waypoint_template_faces], device=d))
+            wcorners = disc[None, None] + waypoints[:, :, None, None, :]  # B,M,Fd,3,2
+            if waypoints_rendering_mask is not None:
+                wcorners = torch.where(waypoints_rendering_mask[..., None, None, None],
+                                       wcorners, world.new_zeros(()))
+            parts.append((wcorners.reshape(b, m * fd, 3, 2),
+                          torch.full((b, m * fd), self.waypoint_z, device=world.device),
+                          self._on('waypoint_color', world.device, lambda d: torch.as_tensor(
+                              self.waypoint_color, device=d)).expand(b, m * fd, 3)))
+
+        return tuple(torch.cat([p[k] for p in parts], dim=1) for k in range(3))
 
     def worst_case_prim_counts(self, waypoint_count: int = 0) -> Tuple[int, int]:
         """

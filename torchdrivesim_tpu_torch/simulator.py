@@ -42,8 +42,10 @@ from torchdrivesim_tpu_torch.mesh import BaseMesh, BirdviewMesh
 from torchdrivesim_tpu_torch.observation_noise import (
     ObservationNoise, ObservationNoiseConfig,
 )
-from torchdrivesim_tpu_torch.rendering.base import Cameras, RendererConfig
-from torchdrivesim_tpu_torch.rendering.renderer import Renderer
+from torchdrivesim_tpu_torch.rendering import renderer_from_config
+from torchdrivesim_tpu_torch.rendering.base import (
+    BirdviewRenderer, BirdviewRendererConfig, Cameras, RendererConfig,
+)
 from torchdrivesim_tpu_torch.scene_mesh import BirdviewRGBMeshGenerator
 from torchdrivesim_tpu_torch.traffic_controls import (
     BaseTrafficControl, red_light_violations,
@@ -67,7 +69,10 @@ class CollisionMetric(Enum):
 @dataclass
 class TorchDriveConfig:
     """Top-level simulator configuration."""
-    renderer: RendererConfig = field(default_factory=RendererConfig)
+    #: a renderer configuration (the port's, the reference's shims or a
+    #: ``DummyRendererConfig``) or a dict with a ``backend`` key, as
+    #: ``rendering.renderer_from_config`` takes it
+    renderer: BirdviewRendererConfig = field(default_factory=RendererConfig)
     #: render_egocentric: each agent's camera shows itself and the NPCs only
     single_agent_rendering: bool = False
     collision_metric: CollisionMetric = field(
@@ -359,8 +364,9 @@ class Simulator:
         agent_size: BxAx2 (length, width).
         initial_present_mask: BxA bool.
         cfg: configuration.
-        renderer: a :class:`Renderer` to use instead of one built from
-            ``cfg.renderer``.
+        renderer: a renderer to use instead of the one
+            ``rendering.renderer_from_config`` builds from ``cfg.renderer``
+            on the simulator's device.
         lanelet_map: B lanelet maps (or None) for the host wrong-way path.
         recenter_offset: Bx2 offset added to states for map lookups.
         waypoint_goals: a :class:`WaypointGoal` (BxAxNxMx2 waypoints).
@@ -375,7 +381,7 @@ class Simulator:
     """
     def __init__(self, road_mesh, kinematic_model: K.KinematicModel,
                  agent_size, initial_present_mask, cfg: TorchDriveConfig,
-                 renderer: Optional[Renderer] = None,
+                 renderer: Optional[BirdviewRenderer] = None,
                  lanelet_map: Optional[List] = None,
                  recenter_offset=None,
                  birdview_mesh_generator: Optional[BirdviewRGBMeshGenerator] = None,
@@ -416,8 +422,13 @@ class Simulator:
         self.npc_controller = npc_controller or NPCController.empty(
             self._batch_size, self._agent_types, device=dev)
         if renderer is None:
-            cfg.renderer.left_handed_coordinates = cfg.left_handed_coordinates
-            renderer = Renderer(cfg.renderer, dev)
+            renderer_cfg = cfg.renderer
+            if isinstance(renderer_cfg, dict):
+                renderer_cfg = {**renderer_cfg,
+                                'left_handed_coordinates': cfg.left_handed_coordinates}
+            else:
+                renderer_cfg.left_handed_coordinates = cfg.left_handed_coordinates
+            renderer = renderer_from_config(renderer_cfg, device=dev)
         self.renderer = renderer
         if birdview_mesh_generator is None:
             birdview_mesh_generator = BirdviewRGBMeshGenerator(
@@ -917,11 +928,13 @@ class Simulator:
                noisy_perception: bool = False) -> torch.Tensor:
         """
         Bird's-eye views of the current state from arbitrary cameras: with a
-        background texture and neither custom colors nor noisy perception,
-        the typed primitives by the primitive render; else the frame's mesh
-        (the map mesh and its static meshes without a texture, the actors,
-        the signs, the lights and the waypoints) by the renderer's mesh
-        render (hard by default) over the texture or the background color.
+        renderer that has the primitive render, a background texture and
+        neither custom colors nor noisy perception, the typed primitives by
+        the primitive render; else the frame's mesh (the map mesh and its
+        static meshes without a texture, the actors, the signs, the lights
+        and the waypoints) by the renderer's ``render_frame`` (for the
+        port's renderer the mesh render, hard by default, over the texture
+        or the background color; black frames for a ``DummyRenderer``).
 
         Args:
             camera_xy: (B, Nc, 2) or (B, 2) centers; camera_psi: (B, Nc, 1)
@@ -936,7 +949,8 @@ class Simulator:
             (B, Nc, 3, H, W) float images in [0, 255].
         """
         res_used = res or self.renderer.res
-        if self.renderer.background_texture is not None and \
+        if hasattr(self.renderer, 'render_prims_chw') and \
+                self.renderer.background_texture is not None and \
                 custom_agent_colors is None and not noisy_perception:
             prims, cameras = self.prim_frame(camera_xy, camera_psi, rendering_mask,
                                              fov, waypoints, waypoints_rendering_mask)
@@ -946,7 +960,8 @@ class Simulator:
                 camera_xy, camera_psi, rendering_mask, fov, waypoints,
                 waypoints_rendering_mask, custom_agent_colors=custom_agent_colors,
                 noisy_perception=noisy_perception)
-            image = self.renderer.render_rgb_mesh_chw(mesh, res_used, cameras)
+            image = self.renderer.render_frame(mesh, cameras.xy, cameras.sc, res=res_used,
+                                               fov=fov)
         return image.reshape(self.batch_size, -1, 3, res_used.height, res_used.width)
 
     def _camera_masks(self, camera_xy: torch.Tensor, camera_psi: torch.Tensor,

@@ -80,6 +80,19 @@ class TrafficLightStateMachine:
         self._duration: Optional[float] = None
         self.reset()
 
+    @classmethod
+    def from_json(cls, json_file_path: str,
+                  rng: random.Random) -> "TrafficLightStateMachine":
+        """Load the group states from the JSON file (a list of items with
+        ``actor_states``, ``state``, ``duration`` and ``next_state``); the
+        initial state is drawn from ``rng``."""
+        with open(json_file_path, "rb") as f:
+            items = json.load(f)
+        try:
+            return cls(_group_states_from_json_items(items), rng)
+        except KeyError as e:
+            raise ValueError(f"KeyError: {e} in {json_file_path}")
+
     def to_json(self) -> str:
         """The group states in the JSON format they are loaded from."""
         return json.dumps([_group_state_to_json_item(s) for s in self._states])
@@ -115,6 +128,11 @@ class TrafficLightStateMachine:
         return self._states
 
     @property
+    def duration(self) -> float:
+        """The full duration of the current state."""
+        return self._duration
+
+    @property
     def current_state(self) -> TrafficLightGroupState:
         return self._current_state
 
@@ -127,9 +145,14 @@ class TrafficLightStateMachine:
 
 
 class TrafficLightController:
-    """Ticks a set of FSMs together."""
+    """Ticks a set of FSMs together. The current light states, each
+    machine's state number and time remaining are collected after every
+    :meth:`tick`, :meth:`set_to` and :meth:`reset`."""
     def __init__(self, traffic_fsms: List[TrafficLightStateMachine]):
         self.traffic_fsms = traffic_fsms
+        self._time_remaining = None
+        self._current_state = None
+        self._state_per_machine = None
         self.reset()
 
     @classmethod
@@ -154,20 +177,52 @@ class TrafficLightController:
     def tick(self, dt: float):
         for fsm in self.traffic_fsms:
             fsm.tick(dt)
+        self.update_current_state_and_time()
+
+    def set_to(self, light_states: List[List[float]]):
+        """Put machine i in state ``light_states[i][0]`` with
+        ``light_states[i][1]`` seconds remaining (at most its duration)."""
+        for i, (state, time_remaining) in enumerate(light_states):
+            self.traffic_fsms[i].set_to(int(state), time_remaining)
+        self.update_current_state_and_time()
 
     def reset(self):
         for fsm in self.traffic_fsms:
             fsm.reset()
+        self.update_current_state_and_time()
+
+    def update_current_state_and_time(self):
+        """Collect the machines' current light states, state numbers and
+        times remaining."""
+        self._current_state = self.collect_all_current_light_states()
+        self._state_per_machine = [fsm.current_state.sequence_number
+                                   for fsm in self.traffic_fsms]
+        self._time_remaining = [fsm.time_remaining for fsm in self.traffic_fsms]
 
     @property
     def current_state(self) -> ActorStates:
-        return reduce(lambda x, y: {**x, **y},
-                      [fsm.get_current_actor_states() for fsm in self.traffic_fsms], {})
+        return self._current_state
 
     @property
     def current_state_with_name(self) -> Dict[str, str]:
         """Each light's current state by name ('red', 'yellow', ...)."""
-        return {k: v.name for k, v in self.current_state.items()}
+        return {k: v.name for k, v in self._current_state.items()}
+
+    @property
+    def state_per_machine(self) -> List[int]:
+        return self._state_per_machine
+
+    @property
+    def time_remaining(self) -> List[float]:
+        return self._time_remaining
+
+    def get_number_of_light_groups(self) -> int:
+        return len(self.traffic_fsms)
+
+    def collect_all_current_light_states(self) -> ActorStates:
+        """Every machine's current actor states in one dict."""
+        return reduce(lambda x, y: {**x, **y},
+                      [fsm.get_current_actor_states() for fsm in self.traffic_fsms], {})
 
 
 def current_light_state_tensor_from_controller(
