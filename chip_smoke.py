@@ -1,6 +1,6 @@
 """
 Smoke run of the PyTorch port on one CUDA card. Builds every kernel from the
-checkout (one ``nvcc`` per source, all at once), then drives eighteen paths:
+checkout (one ``nvcc`` per source, all at once), then drives twenty-one paths:
 
 * the headline env step (carla_Town02, 256 environments, 20 vehicles,
   128 x 128 render plus all metrics): the fused render kernel against its
@@ -114,16 +114,18 @@ checkout (one ``nvcc`` per source, all at once), then drives eighteen paths:
   discs per camera: ``generate_faces`` -> ``render_faces_chw`` at 128 x
   128): the nearest warp and the packed hard raster against their plain
   versions on the first and the last frame, the first frames against the
-  CPU, 100 steps counting launches, one untextured frame and one of a
-  differentiable renderer (each one packed hard raster launch, held to
-  its plain version), times, bounds and frames/s;
+  CPU, 100 steps counting launches, one untextured frame (one packed
+  hard raster launch) and one of a differentiable renderer (one
+  float-color hard raster launch, HF), each held to its plain version,
+  times, bounds and frames/s;
 * the reference's renderer configurations (the facade world at 64
   environments built from ``CV2RendererConfig()``, ``{'backend': 'jax'}``,
   ``DummyRendererConfig()`` and ``Pytorch3DRendererConfig()`` through
   ``renderer_from_config``): the same frames and launches as the default
-  configuration, black frames without a launch, a differentiable frame
-  with its gradient to the agent states, its bilinear warp, the warp's
-  VJP and the soft raster's two kernels held to their plain versions;
+  configuration, black frames without a launch, a differentiable
+  egocentric frame (one HF launch), a differentiable mesh frame with its
+  gradient to the agent states, its bilinear warp, the warp's VJP and the
+  soft raster's two kernels held to their plain versions;
 * the full-resolution bilinear backgrounds (config 4's world): a gradient
   rollout with ``diff_fast_background=False`` (the quad background under
   the soft raster's two kernels) counting launches, its kernels against
@@ -137,7 +139,19 @@ checkout (one ``nvcc`` per source, all at once), then drives eighteen paths:
   counting launches, against the CPU, grad-rollouts/s;
 * the examples ``initialize_simulation`` (512 x 512, the whole Town02 mesh:
   the chunked hard raster, held to its plain version on the frame's
-  operands) and ``lanelet2_to_birdview_mesh`` (Town02's .osm).
+  operands) and ``lanelet2_to_birdview_mesh`` (Town02's .osm);
+* the float-color hard raster HF (the reference's plain
+  ``rasterize_hard_faces``, which its differentiable primitive render,
+  differentiable face soup and texture baker run) against its plain
+  version bit for bit on random, pixel-centred, sliver and tile-grazing
+  faces and its gradients, and on the differentiable primitive frames of
+  ``Pytorch3DRendererConfig()`` (the facade world, 1,280 cameras at 64
+  and 128 px, one HF launch each);
+* the map bakers, into copies of the maps' files: Town02's and
+  Town10HD's textures at 4 px/m (one HF launch per 512-row strip) and
+  Town02's distance and direction grids at 0.4 m (the native direction
+  baker), each against the cache bundled with the map;
+* the examples ``show_map`` and ``check_map_alignment`` on Town02.
 
     python3 chip_smoke.py
     python3 chip_smoke.py grouped-check-timing   # the grouped plain check's
@@ -4079,13 +4093,13 @@ def faces_path(device, card):
     steps pinned at one B2 and one B6a launch per frame, no B1, no B6b, no
     plain call; B2 and B6a against their plain versions on the first and
     the last frame; one untextured frame (B6a over the color, culled to 64
-    faces) and one of a differentiable renderer (B6a over the
-    full-resolution nearest sample, no plain call); the first frames
-    against the CPU; times, bounds and frames/s.
-    Returns the JSON entries of B2 and B6a on this path."""
+    faces) and one of a differentiable renderer (HF over the
+    full-resolution nearest sample, no B6a, no plain call, HF held to its
+    plain version there); the first frames against the CPU; times, bounds
+    and frames/s.
+    Returns the JSON entries of B2, B6a and HF on this path."""
     from torchdrivesim_tpu_torch.ops import fused, hard, warp
     from torchdrivesim_tpu_torch.rendering import Renderer
-    from torchdrivesim_tpu_torch.rendering import renderer as renderer_module
     from torchdrivesim_tpu_torch.utils import Resolution
     t_phase = time.perf_counter()
     scenario, wps, mask = faces_world(BATCH, device)
@@ -4154,26 +4168,31 @@ def faces_path(device, card):
     print(f'untextured face soup frame: one B6a launch; background pixels '
           f'{float((uimage == 0).all(dim=1).float().mean()) * 100:.1f}%')
 
-    # one differentiable frame: B6a over the full-resolution nearest sample
+    # one differentiable frame: HF over the full-resolution nearest sample
+    from torchdrivesim_tpu_torch.ops import hard_faces
     diff_renderer = Renderer(dataclasses.replace(sim.renderer.cfg, differentiable=True),
                              device)
     diff_renderer.background_texture = sim.renderer.background_texture
-    dbg, dops, _, dwarp = faces_operands(diff_renderer, faces, cams)
-    if dwarp is not None or len(dops) != 2 or dops[1].shape[1] != 64:
-        raise AssertionError('differentiable face soup: not B6a over 64 faces')
-    compare_hard(hard, dops, dbg, RES, 'differentiable face soup frame')
+    dbg, dfaces, dwarp = diff_renderer.face_frame_operands(*faces, RES, cams)
+    if dwarp is not None or dfaces[1].shape[1] != 64:
+        raise AssertionError('differentiable face soup: not 64 faces over the full-'
+                             'resolution sample')
+    hf_ops = tuple(t.contiguous() for t in (*dfaces, dbg))
+    hf_err = compare_hf(hf_ops, 'differentiable face soup frame')
     before = count_kernels()
     with count_calls(hard, ['raster_packed_reference', 'raster_chunked_reference']) as plain, \
-            count_calls(renderer_module, ['rasterize_hard_faces']) as plain_faces:
+            count_calls(hard_faces, ['hard_faces_reference']) as plain_faces:
         dimage = diff_renderer.render_faces_chw(*faces, Resolution(RES, RES), cams)
         torch.cuda.synchronize()
     ran = launched_since(before)
-    if ran != {'hard_raster_packed': 1} or any({**plain, **plain_faces}.values()):
+    if ran != {'hard_faces': 1} or any({**plain, **plain_faces}.values()):
         raise AssertionError(f'differentiable face soup: launches {ran}, plain calls '
-                             f'{plain} {plain_faces}; expected one B6a and no plain call')
-    if dimage.shape != (BATCH, 3, RES, RES) or not torch.isfinite(dimage).all():
-        raise AssertionError('differentiable face soup image: wrong shape or non-finite')
-    print('differentiable face soup frame: one B6a launch, no plain call')
+                             f'{plain} {plain_faces}; expected one HF and no plain call')
+    if not torch.equal(dimage, hard_faces.hard_faces(*hf_ops)[0] * 255.0):
+        raise AssertionError('differentiable face soup image: not HF\'s on its operands')
+    print('differentiable face soup frame: one HF launch, no B6a, no plain call')
+    hf_entry = hf_json_entry('hard_faces_face_soup', hf_ops, hf_err, ran['hard_faces'],
+                             card, 'differentiable face soup')
 
     # times and bounds on the last frame
     coef, pk = ops
@@ -4216,12 +4235,12 @@ def faces_path(device, card):
     print(f'face soup frame (generate_faces + render_faces_chw) B={BATCH}: '
           f'{cuda_ms(frame, 20):.4f} ms eager, {device_ops(frame)} device ops [{card}]')
     print(f'face soup phase: {time.perf_counter() - t_phase:.1f} s')
-    return entries
+    return entries + [hf_entry]
 
 
 def count_kernels():
     """Every kernel's launch counter, by name."""
-    from torchdrivesim_tpu_torch.ops import fused, hard, prims, soft, warp
+    from torchdrivesim_tpu_torch.ops import fused, hard, hard_faces, prims, soft, warp
     return {'fused_render': fused.LAUNCHES, 'warp_bilinear': warp.LAUNCHES,
             'warp_bilinear_vjp': warp.VJP_LAUNCHES, 'warp_nearest': warp.NEAREST_LAUNCHES,
             'soft_raster_fwd': soft.FWD_LAUNCHES, 'soft_raster_bwd': soft.BWD_LAUNCHES,
@@ -4229,7 +4248,8 @@ def count_kernels():
             'soft_accum_bwd': soft.ACCUM_BWD_LAUNCHES,
             'hard_raster_packed': hard.PACKED_LAUNCHES,
             'hard_raster_chunked': hard.CHUNKED_LAUNCHES,
-            'prim_raster_banded': prims.B7_LAUNCHES, 'prim_raster': prims.B8_LAUNCHES}
+            'prim_raster_banded': prims.B7_LAUNCHES, 'prim_raster': prims.B8_LAUNCHES,
+            'hard_faces': hard_faces.LAUNCHES}
 
 
 def launched_since(before):
@@ -4246,7 +4266,8 @@ def reference_configs_path(device, card):
     bit with the same launches (one B1); ``DummyRendererConfig()`` renders
     black frames and launches nothing; ``Pytorch3DRendererConfig()`` gives
     a differentiable renderer: one ``render_egocentric`` (the prim route's
-    plain fallback, no kernel) and one differentiable mesh frame of the
+    plain fallback, one float-color hard raster HF) and one differentiable
+    mesh frame of the
     same cameras at res 64 (B3 and B4a, their backwards for the gradient)
     whose gradient to the agent states is finite and not zero, and B3, its
     VJP, B4a and B4b against their plain versions on that frame's
@@ -4287,8 +4308,11 @@ def reference_configs_path(device, card):
     before = count_kernels()
     image = sim.render_egocentric(res=Resolution(64, 64), fov=FOV)
     torch.cuda.synchronize()
+    ran = launched_since(before)
     print(f'reference configs: Pytorch3DRendererConfig() render_egocentric at res 64 '
-          f'(the prim route\'s plain fallback): launches {launched_since(before)}')
+          f'(the prim route\'s plain fallback): launches {ran}')
+    if ran != {'hard_faces': 1}:
+        raise AssertionError(f'Pytorch3D render_egocentric: launches {ran}, expected one HF')
     x = sim.get_state().detach().clone().requires_grad_()
     sim.state = dataclasses.replace(sim.state, agent_state=x)
     before = count_kernels()
@@ -4699,11 +4723,414 @@ def examples_path(device, card):
     print(f'examples phase: {time.perf_counter() - t_phase:.1f} s')
 
 
+# --- the float-color hard raster (HF) and the map bakers ----------------------
+
+#: float32 operations per (pixel, face) of HF's fold (csrc/hard_faces.cu):
+#: three edge values (3 subtractions and products each), six compares,
+#: the two coverage combinations and the z test
+HF_FACE_OPS = 3 * 5 + 6 + 4 + 2
+#: float64 operations per (tile, face) of its cull: per edge and corner two
+#: differences, two products, the value, two magnitudes, the error term (3)
+#: and two compares
+HF_CULL_OPS = 3 * 4 * 12
+#: the card's published float64 rate outside the tensor cores (H100 SXM)
+FP64_OPS_PER_S = 34e12
+HF_RES = (64, 128)
+HF_SOUP_CAMERAS = 256
+TEXTURE_PPM = 4.0
+GRID_CELL = 0.4
+
+
+def hf_random_operands(kind: str, seed: int, b: int, n_faces: int, h: int, w: int,
+                       device):
+    """
+    Operands for HF against its plain version on an h x w frame: 'random'
+    faces over the frame and beyond (both windings, every fifth degenerate,
+    z on four levels so ties decide pixels, some z at BIG_Z, +inf, NaN and
+    -inf); 'centres' corners on pixel centres (edges through centres, e = 0
+    exactly) and on tile boundaries, one z level in three; 'slivers' long
+    thin faces (areas just above and below 1e-9, angles near zero) across
+    tiles, two corners on pixel centres (the long edge through centres).
+    Returns (corners, z, color, background) float32 on ``device``.
+    """
+    rng = np.random.RandomState(seed)
+    span = max(h, w)
+    if kind == 'random':
+        corners = rng.uniform(-8, span + 8, (b, n_faces, 3, 2))
+        corners[:, 4::5, 2] = corners[:, 4::5, 0]
+        z = rng.randint(0, 4, (b, n_faces)) * 2.0 + 3.0
+        z[:, 6::11], z[:, 9::13] = 1e9, np.nan
+        z[:, 10::17], z[:, 12::19] = np.inf, -np.inf
+    elif kind == 'centres':
+        corners = rng.randint(-2, span + 2, (b, n_faces, 3, 2)) + 0.5
+        corners[:, 1::4] = rng.randint(-1, span // 16 + 2, (b, (n_faces + 2) // 4, 3, 2)) \
+            * 16.0 + rng.choice([-0.5, 0.0, 0.5], (b, (n_faces + 2) // 4, 3, 2))
+        z = rng.randint(0, 3, (b, n_faces)) * 1.0
+    else:
+        a = rng.randint(0, span, (b, n_faces, 2)) + 0.5
+        d = rng.randint(-span, span + 1, (b, n_faces, 2)) * 1.0
+        d[..., 0] += (d[..., 0] == 0) & (d[..., 1] == 0)
+        n = np.stack([-d[..., 1], d[..., 0]], -1) / np.linalg.norm(d, axis=-1, keepdims=True)
+        t = 10.0 ** rng.uniform(-9, 0.5, (b, n_faces, 1))
+        corners = np.stack([a, a + d, a + 0.5 * d + n * t], axis=2)
+        z = rng.randint(0, 4, (b, n_faces)) * 1.0
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    return (f32(corners), f32(z), f32(rng.rand(b, n_faces, 3)),
+            f32(rng.rand(b, 3, h, w)))
+
+
+def hf_grazing_operands(seed: int, b: int, n_faces: int, res: int, device):
+    """
+    Faces that graze a tile's corner pixel centre from outside: edge 0's
+    line passes within rounding of the centre p, with p (and the tile) on
+    its negative side in exact arithmetic, while the float32 edge value at p
+    is >= 0, so the face covers p. The rest of the face lies beyond the
+    tile's corner. A per-tile cull that tests the edges exactly, without the
+    rounding's margin, drops such a face from the tile it covers a pixel of.
+    Returns (corners, z, color, background) float32 on ``device``.
+    """
+    rng = np.random.RandomState(seed)
+    f32, tiles, found = np.float32, max(res // 16, 1), []
+    while sum(len(x) for x in found) < b * n_faces:
+        m = 200000
+        p = (rng.randint(0, tiles, (m, 2)) * 16 + 15.5).astype(np.float64)
+        ang = rng.uniform(-0.6, 0.6, m) - np.pi / 4
+        d = np.stack([np.cos(ang), np.sin(ang)], -1)
+        s1, s2 = rng.uniform(0.3, 30, (2, m, 1))
+        a = (p - s1 * d + rng.uniform(-1e-6, 1e-6, (m, 2))).astype(f32)
+        bb = (p + s2 * d + rng.uniform(-1e-6, 1e-6, (m, 2))).astype(f32)
+        c = (p + rng.uniform(3, 20, (m, 1)) * np.sqrt(0.5)).astype(f32)
+        ex, ey = bb[:, 0] - a[:, 0], bb[:, 1] - a[:, 1]          # float32
+        pf = p.astype(f32)
+        rounded = ex * (pf[:, 1] - a[:, 1]) - ey * (pf[:, 0] - a[:, 0])
+        exd, eyd = ex.astype(np.float64), ey.astype(np.float64)
+        exact = exd * (p[:, 1] - a[:, 1]) - eyd * (p[:, 0] - a[:, 0])
+        at_c = exd * (c[:, 1] - a[:, 1].astype(np.float64)) \
+            - eyd * (c[:, 0] - a[:, 0].astype(np.float64))
+        ok = (at_c > 0) & (exact < 0) & (rounded >= 0)
+        found.append(np.stack([a, bb, c], 1)[ok])
+    corners = np.concatenate(found)[:b * n_faces]
+    corners = np.asarray(corners, np.float32).reshape(b, n_faces, 3, 2)
+    z = rng.randint(0, 3, (b, n_faces)).astype(np.float32)
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=device)
+    return (t(corners), t(z), t(rng.rand(b, n_faces, 3)), t(rng.rand(b, 3, res, res)))
+
+
+def compare_hf(ops, label):
+    """HF against its plain version on ``ops`` (corners, z, color,
+    background): the mismatched pixels of the image (bits) and of the
+    winner index must both be 0. Returns the largest difference."""
+    from torchdrivesim_tpu_torch.ops import hard_faces
+    image, winner = hard_faces.hard_faces(*ops)
+    want, want_winner = hard_faces.hard_faces_reference(*ops)
+    torch.cuda.synchronize()
+    bad = int((image.view(torch.int32) != want.view(torch.int32)).any(dim=1).sum())
+    bad_winner = int((winner != want_winner).sum())
+    err = float((image - want).abs().max()) if image.numel() else 0.0
+    won = float((want_winner >= 0).float().mean()) if want_winner.numel() else 0.0
+    b, f = ops[1].shape
+    print(f'{label}: HF B={b} F={f} {tuple(image.shape[-2:])}: {bad} image and '
+          f'{bad_winner} winner mismatches against the plain version ({won * 100:.1f}% '
+          f'of pixels won by a face)')
+    if bad or bad_winner:
+        raise AssertionError(f'{label}: HF disagrees with its plain version')
+    return err
+
+
+def compare_hf_grad(ops, label):
+    """The autograd.Function's gradients (colors, background) against
+    autograd through the plain ``torch.where`` chain, on the same operands
+    and a seeded cotangent: the largest difference over the largest value
+    must stay below 1e-5 (each color's sum over the pixels it wins runs in
+    another order, float32)."""
+    from torchdrivesim_tpu_torch.ops import hard_faces
+    corners, z, color, bg = ops
+    g = torch.rand(bg.shape, generator=torch.Generator(bg.device).manual_seed(3),
+                   device=bg.device)
+    grads = []
+    for fn in (lambda c, b: hard_faces.rasterize_hard_faces(corners, z, c, b),
+               lambda c, b: hard_faces.hard_faces_reference(corners, z, c, b)[0]):
+        c, b = color.clone().requires_grad_(), bg.clone().requires_grad_()
+        grads.append(torch.autograd.grad((fn(c, b) * g).sum(), (c, b)))
+    rel = max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+              for x, y in zip(*grads))
+    print(f'{label}: HF gradients (colors, background) against autograd through the '
+          f'plain version: largest difference {rel:.3g} of the largest value')
+    if not rel < 1e-5:
+        raise AssertionError(f'{label}: HF gradients disagree')
+    return rel
+
+
+def hf_random_cases(device):
+    """HF on the random, centres and sliver operands, square and
+    rectangular, and its gradients on one of them."""
+    errs = []
+    for i, (kind, b, f, h, w) in enumerate((
+            ('random', 4, 300, 64, 64), ('random', 2, 1000, 72, 40),
+            ('centres', 4, 200, 48, 80), ('slivers', 4, 300, 64, 64),
+            ('random', 3, 0, 32, 32))):
+        ops = hf_random_operands(kind, i, b, f, h, w, device)
+        errs.append(compare_hf(ops, f'HF {kind} case {i}'))
+    errs.append(compare_hf(hf_grazing_operands(5, 4, 40, 64, device), 'HF grazing case'))
+    compare_hf_grad(hf_random_operands('random', 7, 2, 100, 40, 56, device),
+                    'HF random case 7')
+    return max(errs)
+
+
+def hf_tile_pairs(corners, z, height: int, width: int) -> int:
+    """The (16 x 16 tile, face) pairs HF's plain cull keeps, counted in
+    chunks of faces."""
+    from torchdrivesim_tpu_torch.ops import hard_faces
+    return sum(int(hard_faces.hard_faces_tile_keep_reference(
+        corners[:, s:s + 2048], z[:, s:s + 2048], height, width).sum())
+        for s in range(0, z.shape[1], 2048))
+
+
+def hf_json_entry(name, ops, err, launches, card, label):
+    """HF's times on ``ops`` (graph replay; its plain version by CUDA
+    events), its bound (the operands read once, the image and winner
+    written once; the fold's float32 operations over the (tile, face)
+    pairs its plain cull keeps) and its JSON entry."""
+    from torchdrivesim_tpu_torch.ops import hard_faces
+    corners, z, color, bg = ops
+    b, f = z.shape
+    h, w = bg.shape[-2:]
+    ms = graph_ms(lambda: hard_faces.hard_faces(*ops), 20)
+    plain_ms = cuda_ms(lambda: hard_faces.hard_faces_reference(*ops), 1)
+    pairs = hf_tile_pairs(corners, z, h, w)
+    n_bytes = nbytes(corners, z, color, bg) + b * h * w * (3 * 4 + 4)
+    n_ops = pairs * BOUND_TILE ** 2 * HF_FACE_OPS
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    tiles = -(-h // BOUND_TILE) * -(-w // BOUND_TILE)
+    print(f'{name} kernel ({label}) B={b} F={f} {h}x{w}: {ms:.4f} ms (device, graph '
+          f'replay); plain version {plain_ms:.3f} ms; bound {bound_ms * 1e3:.3f} us by '
+          f'{bound_by} ({n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.1f} M float32 operations, '
+          f'{pairs / (b * tiles):.2f} of {f} faces kept per tile) [{card}]')
+    return {'name': name, 'route': 'cuda',
+            'source': 'torchdrivesim_tpu_torch/csrc/hard_faces.cu',
+            'replaces': 'torchdrivesim_tpu/ops/rasterize.py:566', 'launches': launches,
+            'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+            'bound_by': bound_by, 'library_ms': None}
+
+
+@contextlib.contextmanager
+def capture_calls(module, name):
+    """Record the arguments of every call of ``module.name`` while the
+    block runs; yields the list."""
+    calls, saved = [], getattr(module, name)
+
+    def wrapped(*args, **kw):
+        calls.append(args)
+        return saved(*args, **kw)
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, saved)
+
+
+def hard_faces_path(device, card):
+    """
+    HF (``csrc/hard_faces.cu``), the float-color hard raster: against its
+    plain version bit for bit (image and winner index) on random faces of
+    both windings, degenerate faces, z ties, z at BIG_Z, +-inf and NaN,
+    corners on pixel centres, slivers, faces grazing a tile's corner, square
+    and rectangular, and its gradients against autograd through the plain
+    version; then the differentiable primitive render the reference's
+    ``Pytorch3DRendererConfig()`` gives the facade world (B = 64, 20
+    agents, 1,280 cameras): ``render_egocentric`` at res 64 and 128, each
+    pinned at one HF launch, no other kernel and no plain call, HF against
+    its plain version on the frame's operands and the frame equal to HF's
+    there; times and bounds. Returns the JSON entries.
+    """
+    from torchdrivesim_tpu_torch.ops import hard, hard_faces
+    from torchdrivesim_tpu_torch.rendering import Pytorch3DRendererConfig
+    from torchdrivesim_tpu_torch.utils import Resolution
+    t_phase = time.perf_counter()
+    hf_random_cases(device)
+    sim = facade_world(FACADE_BATCH, device, renderer_config=Pytorch3DRendererConfig())
+    entries = []
+    for res in HF_RES:
+        before = count_kernels()
+        with count_calls(hard_faces, ['hard_faces_reference']) as plain, \
+                count_calls(hard, ['raster_packed_reference', 'raster_chunked_reference']) \
+                as plain_hard:
+            image = sim.render_egocentric(res=Resolution(res, res), fov=FOV)
+            torch.cuda.synchronize()
+        ran = launched_since(before)
+        print(f'Pytorch3DRendererConfig() render_egocentric at res {res}: launches {ran}, '
+              f'plain calls {plain} {plain_hard}')
+        if ran != {'hard_faces': 1} or any({**plain, **plain_hard}.values()):
+            raise AssertionError(f'differentiable primitive frame: launches {ran}; '
+                                 'expected one HF and no plain call')
+        prims, cams = sim.egocentric_prim_frame(fov=FOV)
+        ops = tuple(t.detach().contiguous() for t in sim.renderer.prims_plain_operands(
+            *prims, res, cams))
+        err = compare_hf(ops, f'Pytorch3D facade frame res {res}')
+        want = hard_faces.hard_faces(*ops)[0] * 255.0
+        if not torch.equal(image.reshape(want.shape), want):
+            raise AssertionError('differentiable primitive frame: not HF\'s on its operands')
+        if res == HF_RES[0]:
+            compare_hf_grad(ops, f'Pytorch3D facade frame res {res}')
+        entries.append(hf_json_entry(f'hard_faces_prims_res{res}', ops, err,
+                                     ran['hard_faces'], card,
+                                     'differentiable primitive frame, Town02 facade'))
+    print(f'hard faces phase: {time.perf_counter() - t_phase:.1f} s')
+    return entries
+
+
+def map_copy(name: str, root: str):
+    """A copy of map ``name``'s source files (metadata, .osm, mesh,
+    stoplines, lights; not its baked caches) under ``root``: (its
+    MapConfig, the original's)."""
+    import shutil
+    from torchdrivesim_tpu_torch.map import find_map_config, load_map_config
+    src = find_map_config(name)
+    folder = os.path.dirname(src.mesh_path)
+    dst = os.path.join(root, name)
+    if os.path.exists(dst):
+        shutil.rmtree(dst)
+    os.makedirs(dst)
+    for f in os.listdir(folder):
+        if '_tpu_' not in f:
+            shutil.copy(os.path.join(folder, f), dst)
+    return load_map_config(os.path.join(dst, 'metadata.json')), src
+
+
+def map_bake_path(device, card, names=('carla_Town02', 'carla_Town10HD')):
+    """
+    Fresh bakes into copies of the maps' files under ``build/bake_maps``
+    (never next to the bundled maps): the textures of ``names`` (Town02's
+    and Town10HD's) at 4 px/m (``load_or_bake_texture``: one HF launch per
+    512-row strip, no plain call) and the first map's grids at 0.4 m
+    (``MapConfig.grids``: the
+    distance field on the card, the direction field by the native baker),
+    each held to the cache bundled with the map: the share of texels and of
+    cells equal after float16 rounding (>= 99.9%), the largest distance
+    difference; HF against its plain version on the first map's first
+    strip; times. Returns HF's JSON entry on that strip.
+    """
+    from torchdrivesim_tpu_torch import map_grids
+    from torchdrivesim_tpu_torch.benchmark import load_or_bake_texture, texture_cache_path
+    from torchdrivesim_tpu_torch.ops import hard_faces
+    t_phase = time.perf_counter()
+    entry = None
+    for name in names:
+        cfg, src = map_copy(name, 'build/bake_maps')
+        before = count_kernels()
+        with count_calls(hard_faces, ['hard_faces_reference']) as plain, \
+                capture_calls(hard_faces, 'hard_faces') as calls:
+            t0 = time.perf_counter()
+            texture = load_or_bake_texture(cfg, device=device)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        ran = launched_since(before)
+        h, w = texture.data.shape[:2]
+        strips = -(-h // 512)
+        with np.load(texture_cache_path(cfg, 4.0)) as fresh, \
+                np.load(texture_cache_path(src, 4.0)) as cached:
+            new, old = fresh['data'], cached['data']
+            same_origin = np.array_equal(fresh['origin'], cached['origin'])
+        if new.shape != old.shape:
+            raise AssertionError(f'{name} texture: {new.shape}, the cache {old.shape}')
+        equal = float((new == old).all(axis=-1).mean())
+        faces = calls[0][0].shape[1]
+        print(f'{name} texture bake at 4 px/m: {w} x {h} texels, {faces} faces, {strips} '
+              f'strips in {secs:.2f} s (host clock, mesh coloring included); launches '
+              f'{ran}, plain calls {plain}; {equal * 100:.4f}% of texels equal to the '
+              f'bundled cache after float16 rounding, origin equal: {same_origin} [{card}]')
+        if ran != {'hard_faces': strips} or any(plain.values()):
+            raise AssertionError(f'{name} texture bake: launches {ran}, expected {strips} HF')
+        if not equal >= 0.999 or not same_origin:
+            raise AssertionError(f'{name} texture: only {equal * 100:.4f}% equal to the cache')
+        if name != names[0]:
+            continue
+        ops = tuple(t.contiguous() for t in calls[0])
+        err = compare_hf(ops, f'{name} texture strip 0')
+        entry = hf_json_entry('hard_faces_texture', ops, err, ran['hard_faces'], card,
+                              f'{name} texture bake, first strip')
+        before_bakes = dict(map_grids.DIRECTION_BAKES)
+        t0 = time.perf_counter()
+        grids = cfg.grids(device=device)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        bakes = {k: v - before_bakes[k] for k, v in map_grids.DIRECTION_BAKES.items()}
+        with np.load(cfg.grids_cache_path()) as fresh, \
+                np.load(src.grids_cache_path()) as cached:
+            new = {k: fresh[k] for k in fresh.files}
+            old = {k: cached[k] for k in cached.files}
+        if new['distance'].shape != old['distance'].shape:
+            raise AssertionError(f'{name} grids: {new["distance"].shape}, the cache '
+                                 f'{old["distance"].shape}')
+        d_equal = float((new['distance'] == old['distance']).mean())
+        dir_equal = float((new['direction'] == old['direction']).mean())
+        cells = float(((new['distance'] == old['distance'])
+                       & (new['direction'] == old['direction'])).mean())
+        diff = float(np.abs(new['distance'].astype(np.float32)
+                            - old['distance'].astype(np.float32)).max())
+        if grids.distance.data.shape != new['distance'].shape:
+            raise AssertionError(f'{name} grids: the returned field is not the written one')
+        print(f'{name} grid bake at 0.4 m: {new["distance"].shape[1]} x '
+              f'{new["distance"].shape[0]} cells in {secs:.2f} s (host clock); direction '
+              f'baked by {bakes}; distance equal after float16 rounding {d_equal * 100:.4f}%, '
+              f'direction equal {dir_equal * 100:.4f}%, cells equal in both '
+              f'{cells * 100:.4f}%; largest distance difference (float16) {diff:.3g} m '
+              f'[{card}]')
+        if bakes != {'native': 1, 'python': 0}:
+            raise AssertionError(f'{name} grids: direction baked by {bakes}, not natively')
+        if not min(d_equal, dir_equal) >= 0.999:
+            raise AssertionError(f'{name} grids: under 99.9% equal to the cache')
+        for key in ('distance_origin', 'direction_origin', 'distance_cell'):
+            if not np.array_equal(new[key], old[key]):
+                raise AssertionError(f'{name} grids: {key} differs from the cache')
+    print(f'map bake phase: {time.perf_counter() - t_phase:.1f} s')
+    return entry
+
+
+def map_examples_path(device, card):
+    """The examples ``show_map`` (Town02's texture from its cache) and
+    ``check_map_alignment`` (Town02 baked at 2 px/m with its stoplines: one
+    HF launch per strip, no plain call), each writing its ``.npz``; prints
+    the count of wrong-way stoplines."""
+    from torchdrivesim_tpu_torch.examples import check_map_alignment, show_map
+    from torchdrivesim_tpu_torch.ops import hard_faces
+    from torchdrivesim_tpu_torch.rendering import get_default_color_map
+    t_phase = time.perf_counter()
+    os.makedirs('build', exist_ok=True)
+    before = count_kernels()
+    img = show_map.main(['--map', 'carla_Town02', '--out', 'build/show_map.npz',
+                         '--device', device.type])
+    if launched_since(before) or img.dtype != np.uint8 or img.ndim != 3:
+        raise AssertionError('show_map: a kernel ran on a cached texture, or a bad image')
+    road = np.asarray(get_default_color_map()['road'], np.uint8)
+    before = count_kernels()
+    with count_calls(hard_faces, ['hard_faces_reference']) as plain:
+        frame, wrong = check_map_alignment.main(['--map', 'carla_Town02', '--out',
+                                                 'build/map_alignment.npz',
+                                                 '--device', device.type])
+        torch.cuda.synchronize()
+    ran = launched_since(before)
+    strips = -(-frame.shape[0] // 512)
+    red = np.asarray(get_default_color_map()['traffic_light_red'], np.uint8)
+    print(f'show_map: {img.shape[1]} x {img.shape[0]}, '
+          f'{float((img == road).all(axis=-1).mean()) * 100:.1f}% road; '
+          f'check_map_alignment: {frame.shape[1]} x {frame.shape[0]} at 2 px/m, launches '
+          f'{ran}, plain calls {plain}, {int((frame == red).all(axis=-1).sum())} stopline '
+          f'texels; {len(wrong)} wrong-way stoplines: {wrong}')
+    if ran != {'hard_faces': strips} or any(plain.values()):
+        raise AssertionError(f'check_map_alignment: launches {ran}, expected {strips} HF')
+    for out in ('build/show_map.npz', 'build/map_alignment.npz'):
+        with np.load(out) as data:
+            if data['frame'].dtype != np.uint8:
+                raise AssertionError(f'{out}: not a uint8 frame')
+    print(f'map examples phase: {time.perf_counter() - t_phase:.1f} s')
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 1
-    from torchdrivesim_tpu_torch.ops import fused, hard, prims, soft, warp
+    from torchdrivesim_tpu_torch.ops import fused, hard, hard_faces, prims, soft, warp
     from torchdrivesim_tpu_torch.ops.build import build_all
 
     device = torch.device('cuda', 0)
@@ -4712,7 +5139,7 @@ def main() -> int:
     print(f'device: {name}')
     print(card)                  # name, power.limit as nvidia-smi gives them
     libraries = [fused.LIBRARY, warp.LIBRARY, soft.LIBRARY, soft.ACCUM_LIBRARY,
-                 warp.NEAREST_LIBRARY, hard.LIBRARY, prims.LIBRARY]
+                 warp.NEAREST_LIBRARY, hard.LIBRARY, prims.LIBRARY, hard_faces.LIBRARY]
     secs = build_all(libraries)
     print(f'kernel build ({", ".join(lib.name for lib in libraries)} in parallel): '
           f'{secs:.2f} s (nvcc sm_90a)')
@@ -4740,6 +5167,9 @@ def main() -> int:
     painter_path(device, card)
     teacher_forcing_path(device, card)
     examples_path(device, card)
+    kernels += hard_faces_path(device, card)
+    kernels.append(map_bake_path(device, card))
+    map_examples_path(device, card)
 
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -35,8 +35,13 @@ raster and the grouped soft raster also run on the frames of the NPC
 replay and of the dataset imitation learning (the INTERACTION-layout data
 that ``chip_smoke.write_interaction_data`` writes). The nearest warp and the
 packed hard raster also run on the face-soup frame, and the soft raster
-over the full-resolution bilinear background.
+over the full-resolution bilinear background. The float-color hard raster
+(HF) must match its plain version bit for bit, image and winner index, on
+random, pixel-centred, sliver and tile-grazing faces and on the
+differentiable primitive and face-soup frames.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -632,3 +637,56 @@ def test_soft_kernels_under_quad_background(cuda):
     before = (soft.FWD_LAUNCHES, warp.LAUNCHES)
     renderer.render_rgb_mesh_chw(mesh, Resolution(64, 64), cams)
     assert (soft.FWD_LAUNCHES, warp.LAUNCHES) == (before[0] + 1, before[1])
+
+
+@pytest.mark.depends_on_cuda
+@pytest.mark.parametrize('kind,b,f,h,w', [
+    ('random', 4, 300, 64, 64), ('random', 2, 1000, 72, 40), ('centres', 4, 200, 48, 80),
+    ('slivers', 4, 300, 64, 64), ('grazing', 4, 40, 64, 64), ('random', 2, 0, 32, 48)])
+def test_hard_faces_kernel_matches_plain_version(cuda, kind, b, f, h, w):
+    """HF (``csrc/hard_faces.cu``) bit for bit its plain version, image and
+    winner index: random faces of both windings (degenerate, z ties, z at
+    BIG_Z, +-inf, NaN), corners on pixel centres, slivers, faces grazing a
+    tile's corner pixel (``chip_smoke.hf_grazing_operands``), rectangular
+    frames and no faces; its gradients within 1e-5 of the largest value of
+    autograd's through the plain version."""
+    from chip_smoke import compare_hf, compare_hf_grad, hf_grazing_operands, hf_random_operands
+    from torchdrivesim_tpu_torch.ops import hard_faces
+    ops = hf_grazing_operands(b, b, f, h, cuda) if kind == 'grazing' \
+        else hf_random_operands(kind, f + h, b, f, h, w, cuda)
+    before = hard_faces.LAUNCHES
+    assert compare_hf(ops, kind) == 0.0
+    assert hard_faces.LAUNCHES == before + 1
+    if f:
+        compare_hf_grad(ops, kind)
+
+
+@pytest.mark.depends_on_cuda
+def test_hard_faces_on_the_differentiable_routes(cuda):
+    """HF on the differentiable primitive frame of the facade world (B = 4)
+    and on a differentiable face-soup frame (B = 8), bit for bit its plain
+    version; one HF launch per frame and no other kernel."""
+    from chip_smoke import (FOV, RES, compare_hf, count_kernels, facade_world, faces_frame,
+                            faces_world, launched_since)
+    from torchdrivesim_tpu_torch.ops import hard_faces
+    from torchdrivesim_tpu_torch.rendering import Pytorch3DRendererConfig, Renderer
+    from torchdrivesim_tpu_torch.utils import Resolution
+    sim = facade_world(4, cuda, renderer_config=Pytorch3DRendererConfig())
+    before = count_kernels()
+    image = sim.render_egocentric(res=Resolution(64, 64), fov=FOV)
+    assert launched_since(before) == {'hard_faces': 1}
+    prims, cams = sim.egocentric_prim_frame(fov=FOV)
+    ops = tuple(t.detach().contiguous()
+                for t in sim.renderer.prims_plain_operands(*prims, 64, cams))
+    compare_hf(ops, 'differentiable primitive frame')
+    assert torch.equal(image.reshape(-1, 3, 64, 64), hard_faces.hard_faces(*ops)[0] * 255.0)
+    scenario, wps, mask = faces_world(8, cuda)
+    renderer = Renderer(dataclasses.replace(scenario.sim.renderer.cfg, differentiable=True),
+                        cuda)
+    renderer.background_texture = scenario.sim.renderer.background_texture
+    faces, cams = faces_frame(scenario, scenario.sim.state, wps, mask)
+    bg, fops, _ = renderer.face_frame_operands(*faces, RES, cams)
+    compare_hf(tuple(t.contiguous() for t in (*fops, bg)), 'differentiable face soup')
+    before = count_kernels()
+    renderer.render_faces_chw(*faces, Resolution(RES, RES), cams)
+    assert launched_since(before) == {'hard_faces': 1}

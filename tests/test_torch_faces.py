@@ -15,11 +15,10 @@ The face-soup render on the CPU against the JAX package:
   nearest mip warp B2 under the packed hard raster B6a), untextured (B6a
   over the color, culled to 64 faces), padded (res 100) and a wide view
   that no mip level covers (the full-resolution nearest background), and
-  a differentiable renderer's (B6a over that background; the reference
-  runs its plain raster there, whose float colors B6a's RGB8 decode
-  meets within one float32 rounding, so that case compares the 8-bit
-  images): the port under the three roundings of ``warp.affine``
-  (``judge_roundings``), 0 pixels off beyond the rounding;
+  a differentiable renderer's (the float-color hard raster HF over that
+  background, as the reference's plain raster there): the port under the
+  three roundings of ``warp.affine`` (``judge_roundings``), 0 pixels off
+  beyond the rounding;
 * the face soup against the mesh render of the same frame (as the
   reference's own test).
 """
@@ -183,7 +182,7 @@ RENDER_CASES = {
     'untextured_res64': dict(res=64, fov=FOV, textured=False),
     'textured_padded_res100': dict(res=100, fov=FOV),
     'wide_view_res32': dict(res=32, fov=400.0),
-    # a differentiable renderer: B6a over the full-resolution nearest
+    # a differentiable renderer: HF over the full-resolution nearest
     # sample (the reference's plain raster over the same background)
     'differentiable_res64': dict(res=64, fov=FOV, differentiable=True),
 }
@@ -215,13 +214,6 @@ def test_render_faces_matches_jax(worlds, case):
         *(jnp.asarray(x.numpy()) for x in (corners, z, colors, xy, sc))))
     render = lambda: pren.render_faces_chw(corners, z, colors, res,
                                            Cameras(xy, sc, scale)).numpy()
-    if kw.get('differentiable'):
-        # the reference's differentiable route is its plain raster, which
-        # carries the generator's float colors; the port's B6a decodes them
-        # from RGB8 as c8 * (1/255): the same 8-bit image, each pixel within
-        # that one float32 rounding
-        np.testing.assert_allclose(render(), want, rtol=0, atol=255 * 2.0 ** -23)
-        want, render = np.round(want), (lambda exact=render: np.round(exact()))
     assert judge_roundings(render, want, case) == 0
     got = render()
     assert got.shape == (B * 2, 3, kw['res'], kw['res'])
@@ -234,28 +226,29 @@ def test_render_faces_matches_jax(worlds, case):
 
 
 def test_differentiable_face_soup_takes_the_hard_kernel(worlds, monkeypatch):
-    """A differentiable renderer's face soup goes through ``ops.hard.raster``
-    (B6a on the card) once, never through the plain
-    ``rasterize_hard_faces``."""
+    """A differentiable renderer's face soup goes through
+    ``ops.hard_faces.hard_faces`` (HF on the card) once, never through the
+    packed hard raster."""
+    import torchdrivesim_tpu_torch.ops.hard_faces as HF
     import torchdrivesim_tpu_torch.rendering.renderer as R
     a, _, psim = worlds
     pren = type(psim.renderer)(dataclasses.replace(psim.renderer.cfg, differentiable=True),
                                'cpu')
     pren.background_texture = psim.renderer.background_texture
     (corners, z, colors), xy, sc = _frame(psim, a)
-    calls, raster = [], R.raster
+    calls, hard_faces = [], HF.hard_faces
 
     def counted(*args):
-        calls.append(len(args[0]))
-        return raster(*args)
+        calls.append(args[1].shape[1])
+        return hard_faces(*args)
 
-    def plain(*args, **kw):
-        raise AssertionError('the plain hard raster ran')
-    monkeypatch.setattr(R, 'raster', counted)
-    monkeypatch.setattr(R, 'rasterize_hard_faces', plain)
+    def packed(*args, **kw):
+        raise AssertionError('the packed hard raster ran')
+    monkeypatch.setattr(HF, 'hard_faces', counted)
+    monkeypatch.setattr(R, 'raster', packed)
     image = pren.render_faces_chw(corners, z, colors, Resolution(64, 64),
                                   Cameras(xy, sc, 2.0 / FOV))
-    assert calls == [2] and torch.isfinite(image).all()
+    assert calls == [pren.cfg.cull_max_faces] and torch.isfinite(image).all()
 
 
 def test_render_faces_culls_untextured_views_to_the_budget(worlds):

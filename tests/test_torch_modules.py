@@ -303,7 +303,10 @@ def test_port_imports_no_jax():
             'torchdrivesim_tpu_torch.examples.imitation_learning, '
             'torchdrivesim_tpu_torch.observation_noise, '
             'torchdrivesim_tpu_torch.checkpoint, torchdrivesim_tpu_torch.validation, '
-            'torchdrivesim_tpu_torch.iou_utils; '
+            'torchdrivesim_tpu_torch.iou_utils, torchdrivesim_tpu_torch.ops.hard_faces, '
+            'torchdrivesim_tpu_torch.native, torchdrivesim_tpu_torch.map_grids, '
+            'torchdrivesim_tpu_torch.examples.show_map, '
+            'torchdrivesim_tpu_torch.examples.check_map_alignment; '
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "flax", "optax", "orbax", "torchdrivesim_tpu", '
             '"pandas", "imageio", "invertedai")]; '

@@ -18,6 +18,12 @@ __version__ = "0.1.0"
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+
+def assert_pytorch3d_available():
+    """Kept for the reference's API, where it raises without pytorch3d: the
+    port's rasterizers are its own, so it never raises."""
+
+
 if 'TDS_RESOURCE_PATH' in os.environ:
     _resource_path = [p for p in os.environ['TDS_RESOURCE_PATH'].split(':') if p]
 else:

@@ -17,8 +17,8 @@ And the RL path (the reference's ``examples/rl_example.py`` at 1024
 environments): :func:`build_rl_env` and :func:`run_rl_benchmark`, which
 times PPO's rollout collection and its update.
 
-The map caches (texture, grids) are read from next to the map; baking them
-is not ported.
+The map caches (texture, grids) are read from next to the map, or baked
+there when missing (:func:`load_or_bake_texture`, ``MapConfig.grids``).
 """
 import dataclasses
 import os
@@ -36,7 +36,7 @@ from torchdrivesim_tpu_torch.behavior.heuristic import heuristic_initialize
 from torchdrivesim_tpu_torch.imitation import ego_view, policy_step
 from torchdrivesim_tpu_torch.infractions import compute_collision_matrix
 from torchdrivesim_tpu_torch.map import (
-    MapConfig, find_map_config, traffic_controls_from_map_config,
+    MapConfig, cache_writable, find_map_config, traffic_controls_from_map_config,
 )
 from torchdrivesim_tpu_torch.map_grids import (
     offroad_loss_from_grid, wrong_way_loss_from_grid,
@@ -58,18 +58,47 @@ def texture_cache_path(cfg: MapConfig, ppm: float) -> Optional[str]:
     return os.path.join(os.path.dirname(base), f'{cfg.name}_tpu_texture_{ppm:g}.npz')
 
 
-def load_or_bake_texture(cfg: MapConfig, ppm: float = 4.0) -> Grid2D:
-    """The map's background texture, read from the float16 cache the JAX
-    package bakes next to the map (host numpy data; baking is not ported)."""
+def load_or_bake_texture(cfg: MapConfig, color_map=None, rendering_levels=None,
+                         ppm: float = 4.0, *, device='cuda') -> Grid2D:
+    """
+    The map's background texture (host numpy data), read from the float16
+    cache next to the map; when that is missing, baked from the road mesh
+    colored by ``color_map`` and ``rendering_levels`` (the defaults when
+    None) on ``device`` (``ops.rasterize.bake_background_texture``: HF on the
+    card) and written there as the reference writes it (but never beside
+    the maps bundled with the JAX package: ``map.cache_writable``).
+    """
     path = texture_cache_path(cfg, ppm)
-    if not path or not os.path.exists(path):
-        raise FileNotFoundError(
-            f"no baked texture for map {cfg.name!r} at {path}; bake it with the "
-            "JAX package (its benchmark.load_or_bake_texture)")
-    with np.load(path) as data:
-        return Grid2D(data=data['data'].astype(np.float32),
-                      origin=data['origin'].astype(np.float32),
-                      cell_size=float(data['cell']))
+    if path and os.path.exists(path):
+        with np.load(path) as data:
+            return Grid2D(data=data['data'].astype(np.float32),
+                          origin=data['origin'].astype(np.float32),
+                          cell_size=float(data['cell']))
+    from torchdrivesim_tpu_torch.mesh import set_colors_with_defaults
+    from torchdrivesim_tpu_torch.ops.rasterize import bake_background_texture
+    from torchdrivesim_tpu_torch.rendering.base import (
+        get_default_color_map, get_default_rendering_levels)
+    color_map = get_default_color_map() if color_map is None else color_map
+    rendering_levels = get_default_rendering_levels() if rendering_levels is None \
+        else rendering_levels
+    rgb = set_colors_with_defaults(cfg.road_mesh, color_map, rendering_levels)
+    dev = torch.device(device)
+    texture = bake_background_texture(
+        torch.as_tensor(np.asarray(rgb.verts[0]), device=dev),
+        torch.as_tensor(np.asarray(rgb.faces[0]), device=dev),
+        torch.as_tensor(np.asarray(rgb.attrs[0]), device=dev),
+        background_color=torch.tensor(color_map['background'], dtype=torch.float32,
+                                      device=dev) / 255.0,
+        pixels_per_meter=ppm)
+    data = texture.data.cpu().numpy()
+    origin = texture.origin.cpu().numpy().astype(np.float64)
+    if cache_writable(path):
+        try:
+            np.savez_compressed(path, data=data.astype(np.float16), origin=origin,
+                                cell=texture.cell_size)
+        except OSError:
+            pass
+    return Grid2D(data=data, origin=origin.astype(np.float32), cell_size=texture.cell_size)
 
 
 @dataclass

@@ -62,6 +62,16 @@ class KinematicParams:
     max_dv: float = 5.0
 
 
+def pack_state(x, y, psi, speed) -> torch.Tensor:
+    """Stack state components into (..., 4)."""
+    return torch.stack([x, y, psi, speed], dim=-1)
+
+
+def unpack_state(state: torch.Tensor):
+    """Split a (..., 4) state into (x, y, psi, speed)."""
+    return state[..., 0], state[..., 1], state[..., 2], state[..., 3]
+
+
 # ----------------------------------------------------------------------------
 # Normalization
 # ----------------------------------------------------------------------------
@@ -372,6 +382,42 @@ class KinematicModel:
     def action_size(self) -> int:
         return MODEL_ACTION_SIZE[self.model_id]
 
+    @property
+    def state_size(self) -> int:
+        return STATE_SIZE
+
+    @property
+    def batch_size(self) -> int:
+        """Agents in the state's batch dimensions (0 without a state)."""
+        return int(np.prod(self.state.shape[:-1])) if self.state is not None else 0
+
+    pack_state = staticmethod(pack_state)
+    unpack_state = staticmethod(unpack_state)
+
+    def flattening(self, batch_shape) -> None:
+        """Flatten the batch dimensions of a per-agent ``lr``."""
+        if self.params.lr.dim() > 1:
+            self.params = dataclasses.replace(self.params, lr=self.params.lr.reshape(-1))
+
+    def unflattening(self, batch_shape) -> None:
+        """Give a per-agent ``lr`` the batch shape ``batch_shape`` again."""
+        if self.params.lr.dim() >= 1:
+            self.params = dataclasses.replace(
+                self.params, lr=self.params.lr.reshape(tuple(batch_shape)))
+
+    def map_param(self, f) -> None:
+        """Apply ``f`` to the per-agent parameter ``lr``."""
+        self.params = dataclasses.replace(self.params, lr=f(self.params.lr))
+
+    def to(self, device) -> "KinematicModel":
+        """Move the state and parameters to ``device`` (in place); returns
+        the model."""
+        self.device = torch.device(device)
+        if self.state is not None:
+            self.state = self.state.to(self.device)
+        self.params = dataclasses.replace(self.params, lr=self.params.lr.to(self.device))
+        return self
+
     def set_state(self, state) -> None:
         self.state = torch.as_tensor(state, dtype=torch.float32,
                                      device=self.device)
@@ -471,6 +517,14 @@ class KinematicBicycle(KinematicModel):
                                          max_steering=max_steering), device)
         self.params = dataclasses.replace(self.params, left_handed=bool(left_handed))
 
+    @property
+    def left_handed(self) -> bool:
+        return self.params.left_handed
+
+    @left_handed.setter
+    def left_handed(self, value: bool) -> None:
+        self.params = dataclasses.replace(self.params, left_handed=bool(value))
+
     def get_params(self) -> dict:
         return {'lr': self.params.lr}
 
@@ -539,6 +593,20 @@ class CompoundKinematicModel(KinematicModel):
     @property
     def action_size(self) -> int:
         return ACTION_BUF
+
+    @property
+    def batch_assignments(self) -> torch.Tensor:
+        """The model ids flattened."""
+        return self.model_assignments.reshape(-1)
+
+    @property
+    def batch_shape(self) -> Tuple[int, ...]:
+        return tuple(self.model_assignments.shape)
+
+    def to(self, device) -> "CompoundKinematicModel":
+        super().to(device)
+        self.model_assignments = self.model_assignments.to(self.device)
+        return self
 
     def get_params(self) -> dict:
         return {'lr': self.params.lr}

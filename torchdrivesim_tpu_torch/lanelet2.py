@@ -116,6 +116,10 @@ class LaneletPoint:
     x: float
     y: float
 
+    @property
+    def point_2d(self) -> Tuple[float, float]:
+        return (self.x, self.y)
+
 
 @dataclass
 class Linestring:
@@ -145,6 +149,14 @@ class Lanelet:
     right_bound: Linestring
     attributes: Dict[str, str] = field(default_factory=dict)
     _centerline: Optional[Linestring] = None
+
+    @property
+    def leftBound(self) -> Linestring:       # the lanelet2 library's spelling
+        return self.left_bound
+
+    @property
+    def rightBound(self) -> Linestring:
+        return self.right_bound
 
     def polygon(self) -> np.ndarray:
         """Closed boundary polygon: left bound, then the right bound reversed."""

@@ -1,7 +1,10 @@
 """
-Map registry: metadata, lazy asset loading and the baked-grid cache
-(counterpart of ``torchdrivesim_tpu/map.py``). Maps are looked up by name
-through ``TDS_RESOURCE_PATH`` plus the maps bundled with the JAX package.
+Map registry: metadata, lazy asset loading, the baked-grid cache and map
+QA (counterpart of ``torchdrivesim_tpu/map.py``). Maps are looked up by name
+through ``TDS_RESOURCE_PATH`` plus the maps bundled with the JAX package,
+whose baked caches the port reads and never writes: a bake of a bundled map
+that lacks one is returned without being cached (:func:`cache_writable`).
+``download_iai_map`` needs a network and is not ported.
 """
 from __future__ import annotations
 
@@ -21,6 +24,18 @@ from torchdrivesim_tpu_torch.traffic_controls import (
     BaseTrafficControl, StopSignControl, TrafficLightControl, YieldControl,
 )
 from torchdrivesim_tpu_torch.traffic_lights import TrafficLightController
+from torchdrivesim_tpu_torch.utils import normalize_angle
+
+
+#: the maps bundled with the JAX package
+_BUNDLED_MAPS = os.path.join(torchdrivesim_tpu_torch._REPO_ROOT, 'torchdrivesim_tpu',
+                             'resources', 'maps')
+
+
+def cache_writable(path: Optional[str]) -> bool:
+    """Whether a baked cache may be written at ``path``: anywhere but beside
+    the maps bundled with the JAX package."""
+    return bool(path) and not os.path.abspath(path).startswith(_BUNDLED_MAPS + os.sep)
 
 
 @dataclass
@@ -94,16 +109,31 @@ class MapConfig:
             return None
         return os.path.join(os.path.dirname(base), f'{self.name}_tpu_grids_v2.npz')
 
-    def grids(self, *, device):
-        """This map's baked :class:`MapGrids`, read from the cache the JAX
-        package wrote next to the map (baking is not ported)."""
-        from torchdrivesim_tpu_torch.map_grids import load_map_grids
+    def grids(self, cell_size: float = 0.4, bake_if_missing: bool = True, *, device):
+        """
+        This map's :class:`MapGrids` on ``device``: read from the cache next
+        to the map, or, when it is missing and ``bake_if_missing``, baked
+        (``map_grids.bake_map_grids``, the distance field on ``device``) and
+        written there; None when it is missing otherwise, or when the map has
+        no road mesh to bake from. The cache of a bundled map is not written.
+        """
+        from torchdrivesim_tpu_torch.map_grids import bake_map_grids, load_map_grids
         cache = self.grids_cache_path()
-        if not cache or not os.path.exists(cache):
-            raise FileNotFoundError(
-                f"no baked grid cache for map {self.name!r} ({cache}); bake it "
-                "with the JAX package (its MapConfig.grids)")
-        return load_map_grids(cache, device=device)
+        if cache and os.path.exists(cache):
+            return load_map_grids(cache, device=device)
+        if not bake_if_missing:
+            return None
+        grids = bake_map_grids(self, cell_size=cell_size, device=device)
+        if grids is not None and cache_writable(cache):
+            try:
+                grids.save(cache)
+            except OSError:
+                pass
+        return grids
+
+
+_PATH_FIELDS = ('lanelet_path', 'mesh_path', 'stoplines_path',
+                'traffic_light_controller_path')
 
 
 def _filename_defaults(name: str) -> Dict[str, str]:
@@ -128,8 +158,30 @@ def resolve_paths_to_absolute(cfg: MapConfig, root: str) -> MapConfig:
     return dataclasses.replace(cfg, **resolved)
 
 
-def find_map_config(map_name: str) -> Optional[MapConfig]:
-    """Locate a map by name across the resource path."""
+def load_map_config(json_path: str, resolve_paths: bool = True) -> MapConfig:
+    """A ``metadata.json``, its relative paths resolved against its folder
+    unless ``resolve_paths`` is False."""
+    with open(json_path, 'r') as f:
+        cfg = MapConfig(**json.load(f))
+    if resolve_paths:
+        cfg = resolve_paths_to_absolute(cfg, os.path.dirname(json_path))
+    return cfg
+
+
+def store_map_config(cfg: MapConfig, json_path: str,
+                     store_absolute_paths: bool = False) -> None:
+    """Write ``cfg`` as a ``metadata.json``, its paths cut to file names
+    unless ``store_absolute_paths``."""
+    if not store_absolute_paths:
+        cfg = dataclasses.replace(cfg, **{
+            f: os.path.basename(getattr(cfg, f)) if getattr(cfg, f) else None
+            for f in _PATH_FIELDS})
+    with open(json_path, 'w') as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=4)
+
+
+def find_map_config(map_name: str, resolve_paths: bool = True) -> Optional[MapConfig]:
+    """Locate a map by name across the resource path (names are unique)."""
     for root in torchdrivesim_tpu_torch._resource_path:
         map_path = os.path.join(root, map_name)
         if os.path.exists(map_path):
@@ -138,11 +190,41 @@ def find_map_config(map_name: str) -> Optional[MapConfig]:
         return None
     metadata_path = os.path.join(map_path, 'metadata.json')
     if os.path.exists(metadata_path):
-        with open(metadata_path, 'r') as f:
-            cfg = MapConfig(**json.load(f))
+        cfg = load_map_config(metadata_path)
     else:
         cfg = MapConfig(name=map_name)
-    return resolve_paths_to_absolute(cfg, root=map_path)
+    if resolve_paths:
+        cfg = resolve_paths_to_absolute(cfg, root=map_path)
+    return cfg
+
+
+def list_available_maps() -> List[str]:
+    """Names of all maps visible through the resource path."""
+    names = []
+    for root in torchdrivesim_tpu_torch._resource_path:
+        if os.path.isdir(root):
+            names += [d for d in sorted(os.listdir(root))
+                      if os.path.isdir(os.path.join(root, d))]
+    return sorted(set(names))
+
+
+def find_wrong_way_stoplines(map_cfg: MapConfig,
+                             angle_threshold: float = np.pi / 6) -> List[int]:
+    """Map QA: the actor ids of stoplines oriented against every lanelet
+    direction at their position (none without a Lanelet2 map)."""
+    lanelet_map = map_cfg.lanelet_map
+    if lanelet_map is None:
+        return []
+    from torchdrivesim_tpu_torch.lanelet2 import find_lanelet_directions
+    wrong = []
+    for sl in map_cfg.stoplines:
+        directions = find_lanelet_directions(lanelet_map, sl.x, sl.y,
+                                             lanelet_dist_tolerance=0)
+        if directions and not any(
+                abs(normalize_angle(psi - sl.orientation)) < angle_threshold
+                for psi in directions):
+            wrong.append(sl.actor_id)
+    return wrong
 
 
 def traffic_controls_from_map_config(cfg: MapConfig, *, device

@@ -18,6 +18,7 @@ import dataclasses
 import json
 import math
 import os
+import pickle as _pickle
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -58,6 +59,16 @@ def _inside(verts: np.ndarray, polygon) -> np.ndarray:
     """Host (B, V) bool: which vertices lie inside the (B, N, 2) polygon."""
     return is_inside_polygon(torch.from_numpy(np.asarray(verts)),
                              torch.as_tensor(np.asarray(polygon))).numpy()
+
+
+def _host_np(value):
+    """Tensors (and the values of a dict) as host numpy, anything else as
+    it is: what a pickle of a mesh holds, so that either package reads it."""
+    if torch.is_tensor(value):
+        return value.detach().cpu().numpy()
+    if isinstance(value, dict):
+        return {k: _host_np(v) for k, v in value.items()}
+    return value
 
 
 def _pad_stack(arrays: List[np.ndarray], fill) -> np.ndarray:
@@ -201,6 +212,39 @@ class BaseMesh:
             return cls.deserialize(data)
         except (OSError, ValueError, KeyError, TypeError) as e:
             raise BadMeshFormat(str(e)) from e
+
+    @property
+    def device(self) -> Optional[torch.device]:
+        """The device of tensor vertices; None for a host numpy mesh."""
+        return self.verts.device if torch.is_tensor(self.verts) else None
+
+    def to(self, device=None) -> "BaseMesh":
+        """Returns the mesh itself: map meshes stay host numpy, and the
+        renders move what each frame needs (``RGBMesh.to``)."""
+        return self
+
+    def pickle(self, path: str) -> None:
+        """Pickle the mesh as ``{'cls': class name, 'fields': ...}`` with
+        every array as numpy, the reference's layout."""
+        folder = os.path.dirname(path)
+        if folder:
+            os.makedirs(folder, exist_ok=True)
+        state = {'cls': type(self).__name__,
+                 'fields': {k: _host_np(v) for k, v in self.__dict__.items()}}
+        with open(path, 'wb') as f:
+            _pickle.dump(state, f)
+
+    @classmethod
+    def unpickle(cls, path: str, pickle_module=_pickle) -> "BaseMesh":
+        """Read a mesh written by :meth:`pickle` (or by the reference's)."""
+        with open(path, 'rb') as f:
+            state = pickle_module.Unpickler(f).load()
+        if isinstance(state, (BaseMesh, RGBMesh)):
+            return state
+        if not isinstance(state, dict) or 'fields' not in state:
+            raise BadMeshFormat(f'{path} holds no pickled mesh')
+        klass = _MESH_CLASSES.get(state.get('cls'), cls)
+        return klass(**dict(state['fields']))
 
     @classmethod
     def empty(cls, dim: int = 2, batch_size: int = 1) -> "BaseMesh":
@@ -515,6 +559,10 @@ class RGBMesh:
         return cls(verts=torch.cat([m.verts for m in meshes], -2),
                    faces=torch.cat([m.faces + int(off) for m, off in zip(meshes, offsets)], -2),
                    attrs=torch.cat([m.attrs for m in meshes], -2))
+
+
+#: the mesh classes by name, as a pickle names them
+_MESH_CLASSES = {c.__name__: c for c in (BaseMesh, AttributeMesh, RGBMesh, BirdviewMesh)}
 
 
 def set_colors_with_defaults(mesh: BirdviewMesh,

@@ -38,6 +38,24 @@ def bbox2discs(box: torch.Tensor, num_discs: int = 5
     return torch.stack([cx, cy], dim=-1), r
 
 
+def collision_detection_with_discs(box1: torch.Tensor, box2: torch.Tensor,
+                                   num_discs: int = 5) -> torch.Tensor:
+    """
+    Collision loss between corresponding boxes (..., 5): ``relu(1 - d /
+    (r1 + r2))``, with d the minimum distance between their disc centers.
+
+    Returns:
+        (...) values in [0, 1].
+    """
+    c1, r1 = bbox2discs(box1, num_discs)
+    c2, r2 = bbox2discs(box2, num_discs)
+    diff = c1[..., :, None, :] - c2[..., None, :, :]             # (..., D, D, 2)
+    d2 = (diff * diff).sum(dim=-1)
+    d = torch.sqrt(d2.reshape(d2.shape[:-2] + (num_discs * num_discs,)).amin(dim=-1)
+                   + 1e-12)
+    return torch.clamp(1.0 - d / (r1[..., 0] + r2[..., 0]), min=0.0)
+
+
 def collision_matrix_with_discs(boxes: torch.Tensor,
                                 num_discs: int = 5) -> torch.Tensor:
     """

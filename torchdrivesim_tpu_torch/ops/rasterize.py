@@ -1,15 +1,15 @@
 """
 Screen-space primitive preparation for the fused render, the row-major
 sort and band masks of the banded primitive raster, the view culls of the
-hard mesh render and of the differentiable primitive render, the plain hard
-raster that render falls back to, the full-resolution backgrounds (the
+hard mesh render and of the differentiable primitive render, the
+full-resolution backgrounds (the
 nearest sample of views no mip level covers; the bilinear samples of the
 differentiable render, ``sample_background`` and ``sample_background_quad``),
-the plain softmax-blend soft raster and the painter's blend
-``rasterize_soft`` (counterpart of the parts of
-``torchdrivesim_tpu/ops/rasterize.py`` and ``ops/pallas_rasterize.py``
-that the primitive paths, the hard mesh path and the differentiable path
-run).
+the plain softmax-blend soft raster, the painter's blend
+``rasterize_soft`` and the map texture baker ``bake_background_texture``
+(counterpart of the parts of ``torchdrivesim_tpu/ops/rasterize.py`` and
+``ops/pallas_rasterize.py`` that the primitive paths, the hard mesh path,
+the differentiable path and the map bake run).
 
 Screen convention: the camera's forward axis points up in the image, its
 left axis points left; ``left_handed`` mirrors columns. Pixel (r, c) has its
@@ -20,7 +20,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from torchdrivesim_tpu_torch.ops.grids import bilinear_sample
+from torchdrivesim_tpu_torch.ops.grids import Grid2D, bilinear_sample
+from torchdrivesim_tpu_torch.ops import hard_faces as _hard_faces
 
 DEGENERATE_AREA_EPS = 1e-9
 #: pixels per band tile; a band is the unit the occupancy masks cull by
@@ -163,46 +164,6 @@ def cull_prims_to_view(corners: torch.Tensor, z: torch.Tensor, color: torch.Tens
     z = torch.gather(z, 1, idx)
     color = torch.gather(color, 1, idx[..., None].expand(-1, -1, color.shape[-1]))
     return corners, z, color
-
-
-BIG_Z = 1e9
-
-#: faces whose edge functions are evaluated together by rasterize_hard_faces
-_HARD_FACE_CHUNK = 16
-
-
-def rasterize_hard_faces(corners: torch.Tensor, z: torch.Tensor, color: torch.Tensor,
-                         res: int, background: torch.Tensor) -> torch.Tensor:
-    """
-    The reference's plain hard raster of per-face arrays
-    (``rasterize_hard_faces``), channels first: a pixel takes the color of
-    the covering face of least z, the first in face order among equal z
-    (a strict ``<`` against the running minimum, which starts at
-    ``BIG_Z``), else the background. A face covers a pixel center where its
-    three edge functions share a sign and its area exceeds
-    ``DEGENERATE_AREA_EPS``.
-
-    Args:
-        corners: (B, F, 3, 2) screen corners (row, col); z: (B, F);
-        color: (B, F, 3); background: (B, 3, res, res).
-    Returns:
-        (B, 3, res, res).
-    """
-    coords = torch.arange(res, dtype=corners.dtype, device=corners.device) + 0.5
-    px = coords[:, None].expand(res, res)
-    py = coords[None, :].expand(res, res)
-    best_z = corners.new_full((corners.shape[0], res, res), BIG_Z)
-    best = background
-    for lo in range(0, corners.shape[1], _HARD_FACE_CHUNK):
-        e, area = edge_functions(corners[:, lo:lo + _HARD_FACE_CHUNK], px, py)
-        cover = ((e >= 0).all(dim=2) | (e <= 0).all(dim=2)) \
-            & (torch.abs(area) > DEGENERATE_AREA_EPS)[..., None, None]
-        for f in range(cover.shape[1]):
-            zval = torch.where(cover[:, f], z[:, lo + f, None, None], BIG_Z)
-            better = zval < best_z
-            best_z = torch.where(better, zval, best_z)
-            best = torch.where(better[:, None], color[:, lo + f, :, None, None], best)
-    return best
 
 
 def edge_functions(corners: torch.Tensor, px: torch.Tensor, py: torch.Tensor):
@@ -785,3 +746,72 @@ def rasterize_soft(verts: torch.Tensor, faces: torch.Tensor, attrs: torch.Tensor
         for f in range(cc.shape[1]):
             canvas = canvas * (1 - w[:, f]) + ccol[:, f, None, None, :] * w[:, f]
     return canvas
+
+
+def bake_background_texture(verts: torch.Tensor, faces: torch.Tensor,
+                            attrs: torch.Tensor, background_color,
+                            pixels_per_meter: float = 4.0, margin: float = 20.0,
+                            face_chunk: int = 32, row_chunk: int = 512) -> Grid2D:
+    """
+    Rasterize a static mesh once into a world-anchored RGB texture, as the
+    reference bakes it: texture space is screen space (row ~ y, col ~ x, z
+    the priority), rasterized in strips of ``row_chunk`` rows, each shifted
+    to start at row 0 by the reference's float32 ``row - h0`` (so a texel's
+    bits depend on its strip) and drawn by one hard face raster (HF on the
+    card) of every face over the background color. Runs on the device of
+    ``verts``.
+
+    Args:
+        verts: (V, 3) world (x, y, priority z); faces: (F, 3); attrs: (V, 3)
+            colors in [0, 1]; background_color: (3,) color outside all faces.
+        face_chunk: unused (the reference's scan chunk).
+    Returns:
+        Grid2D whose data (H, W, 3) float32 [iy, ix] covers world point
+        origin + (ix, iy) / ppm, on the device of ``verts``.
+    """
+    verts = torch.as_tensor(verts, dtype=torch.float32)
+    device = verts.device
+    faces = torch.as_tensor(faces, device=device)
+    attrs = torch.as_tensor(attrs, dtype=torch.float32, device=device)
+    v = verts.detach().cpu().numpy()
+    lo = v[:, :2].min(axis=0) - margin                # float32, as the reference's
+    hi = v[:, :2].max(axis=0) + margin
+    w = int(np.ceil((hi[0] - lo[0]) * pixels_per_meter)) + 1
+    h = int(np.ceil((hi[1] - lo[1]) * pixels_per_meter)) + 1
+    origin = torch.as_tensor(lo, dtype=torch.float32, device=device)
+    sv = torch.stack([(verts[:, 1] - origin[1]) * pixels_per_meter,
+                      (verts[:, 0] - origin[0]) * pixels_per_meter,
+                      verts[:, 2]], dim=-1)[None]
+    bg = torch.as_tensor(background_color, dtype=torch.float32, device=device)
+    data = torch.empty((h, w, 3), dtype=torch.float32, device=device)
+    for r0 in range(0, h, row_chunk):
+        strip_h = min(row_chunk, h - r0)
+        data[r0:r0 + strip_h] = _bake_strip(
+            sv, faces[None], attrs[None], bg.expand(1, strip_h, w, 3),
+            h0=r0, strip_h=strip_h, w=w, face_chunk=face_chunk)[0]
+    return Grid2D(data=data, origin=origin, cell_size=1.0 / pixels_per_meter)
+
+
+def _bake_strip(sv, faces, attrs, background, *, h0, strip_h, w, face_chunk):
+    """One strip of :func:`bake_background_texture`: the rows shifted so the
+    strip starts at row 0 (a float32 subtraction, as the reference's)."""
+    sv = torch.cat([sv[..., :1] - h0, sv[..., 1:]], dim=-1)
+    return _rasterize_hard_rect(sv, faces, attrs, strip_h, w, background,
+                                face_chunk=face_chunk)
+
+
+def _rasterize_hard_rect(verts, faces, attrs, height, width, background, face_chunk=16):
+    """
+    The hard raster of a mesh on a ``height`` x ``width`` frame (one HF
+    launch on the card), channels last as the reference's.
+
+    Args:
+        verts: (B, V, 3) screen (row, col, z); faces: (B, F, 3); attrs: (B, V,
+            3); background: (B, height, width, 3). ``face_chunk`` is unused.
+    Returns:
+        (B, height, width, 3).
+    """
+    corners, z, color = face_arrays(verts, faces, attrs)
+    image, _ = _hard_faces.hard_faces(corners.contiguous(), z.contiguous(),
+                                      color.contiguous(), background.permute(0, 3, 1, 2))
+    return image.permute(0, 2, 3, 1)

@@ -119,10 +119,71 @@ class NvdiffrastRendererConfig(BirdviewRendererConfig):
 @dataclass
 class Cameras:
     """Orthographic cameras: centers (B, 2), heading (sin, cos) (B, 2), and
-    ``scale`` = 2 / fov in meters."""
+    ``scale`` = 2 / fov in meters; with the reference's world -> view ->
+    clip matrices and screen transforms, for code that projects points onto
+    images."""
     xy: torch.Tensor
     sc: torch.Tensor
     scale: float
+
+    def get_camera_center(self) -> torch.Tensor:
+        return self.xy
+
+    def get_world_to_view_transform(self) -> torch.Tensor:
+        """(B, 4, 4) row-vector world -> view matrices."""
+        sin, cos = self.sc[..., 0], self.sc[..., 1]
+        b = self.xy.shape[0]
+        rot = self.xy.new_zeros((b, 4, 4))
+        rot[:, 2, 2] = 1.0
+        rot[:, 3, 3] = 1.0
+        rot[:, 0, 0], rot[:, 0, 1] = cos, -sin
+        rot[:, 1, 0], rot[:, 1, 1] = sin, cos
+        trans = torch.eye(4, dtype=self.xy.dtype, device=self.xy.device).repeat(b, 1, 1)
+        trans[:, 3, :2] = -self.xy
+        return trans @ rot
+
+    def get_view_to_proj_transform(self) -> torch.Tensor:
+        """(1, 4, 4) row-vector orthographic projection (znear 1, zfar 100)."""
+        zfar, znear = 100.0, 1.0
+        m = self.xy.new_zeros((1, 4, 4))
+        m[:, 0, 0] = -self.scale
+        m[:, 1, 1] = -self.scale
+        m[:, 3, 3] = 1.0
+        m[:, 2, 2] = 1.0 / (zfar - znear)
+        m[:, 2, 3] = -znear / (zfar - znear)
+        return m.transpose(1, 2)
+
+    @property
+    def world_to_clip_transform(self) -> torch.Tensor:
+        return self.get_world_to_view_transform() @ self.get_view_to_proj_transform()
+
+    def project_world_to_clip_space(self, points: torch.Tensor) -> torch.Tensor:
+        """(B, N, 3) world points -> (B, N, 4) clip coordinates."""
+        ones = points.new_ones(points.shape[:-1] + (1,))
+        return torch.cat([points, ones], dim=-1) @ self.world_to_clip_transform
+
+    def transform_points_screen(self, points: torch.Tensor, res: Resolution) -> torch.Tensor:
+        """(B, N, 2) world xy -> screen pixel coordinates."""
+        sin, cos = self.sc[:, None, 0], self.sc[:, None, 1]
+        d = points - self.xy[:, None]
+        x = cos * d[..., 0] + sin * d[..., 1]
+        y = -sin * d[..., 0] + cos * d[..., 1]
+        pts = -torch.stack([x, y], dim=-1) * self.scale
+        pts = pts * min(res.height, res.width) / 2
+        return pts + torch.tensor([res.width, res.height], dtype=pts.dtype,
+                                  device=pts.device) / 2
+
+    def reverse_transform_points_screen(self, points: torch.Tensor,
+                                        res: Resolution) -> torch.Tensor:
+        """Inverse of :meth:`transform_points_screen`."""
+        sin, cos = self.sc[:, None, 0], self.sc[:, None, 1]
+        pts = points - torch.tensor([res.width, res.height], dtype=points.dtype,
+                                    device=points.device) / 2
+        pts = pts / (min(res.height, res.width) / 2)
+        pts = -pts / self.scale
+        x = cos * pts[..., 0] - sin * pts[..., 1]
+        y = sin * pts[..., 0] + cos * pts[..., 1]
+        return torch.stack([x, y], dim=-1) + self.xy[:, None]
 
 
 class BirdviewRenderer(abc.ABC):
@@ -155,6 +216,18 @@ class BirdviewRenderer(abc.ABC):
             else get_default_color_map()
         self.rendering_levels = rendering_levels if rendering_levels is not None \
             else get_default_rendering_levels()
+
+    def copy(self) -> "BirdviewRenderer":
+        """A renderer of the same class, configuration, device, colors,
+        levels and default view."""
+        other = self.__class__(self.cfg, self.device, color_map=dict(self.color_map),
+                               rendering_levels=dict(self.rendering_levels), res=self.res)
+        other.scale = self.scale
+        return other
+
+    def construct_cameras(self, xy: torch.Tensor, sc: torch.Tensor,
+                          scale: Optional[float] = None) -> Cameras:
+        return Cameras(xy=xy, sc=sc, scale=self.scale if scale is None else scale)
 
     def get_color(self, element_type: str) -> Tuple[int, int, int]:
         return self.color_map[element_type]

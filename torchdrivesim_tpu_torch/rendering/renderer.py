@@ -11,8 +11,9 @@ The port's bird's-eye-view renderer (counterpart of
   full-resolution nearest sample of the texture where no mip level covers
   the view, by the banded primitive raster (any multiple of 16); in
   differentiable mode by the reference's plain fallback (the prims culled
-  to the view, quads split into triangle pairs, the plain hard raster over
-  the full-resolution sample or the color);
+  to the view, quads split into triangle pairs, the float-color hard raster
+  ``ops.hard_faces``, kernel HF, over the full-resolution sample or the
+  color);
 * the hard mesh render: the z-priority raster over the nearest mip warp of
   the texture, or its full-resolution nearest sample where no mip level
   covers the view (faces culled to the view), or over the constant
@@ -30,7 +31,8 @@ The port's bird's-eye-view renderer (counterpart of
 * the face-soup render (``render_faces_chw``, the faces of
   ``BirdviewRGBMeshGenerator.generate_faces``): culled to
   ``cfg.cull_max_faces``, the hard raster over the nearest mip warp, the
-  full-resolution nearest sample or the color.
+  full-resolution nearest sample or the color; in differentiable mode the
+  float-color hard raster (HF) over the full-resolution nearest sample.
 
 A square resolution that is not a multiple of 16 renders at the next
 multiple of 16, at the same pixels per meter, and returns the top-left crop.
@@ -47,11 +49,12 @@ from torchdrivesim_tpu_torch.mesh import RGBMesh
 from torchdrivesim_tpu_torch.ops.fused import MAX_CAMERAS, render_coefs_fused
 from torchdrivesim_tpu_torch.ops.grids import Grid2D
 from torchdrivesim_tpu_torch.ops.hard import hard_operands, raster
+from torchdrivesim_tpu_torch.ops.hard_faces import rasterize_hard_faces
 from torchdrivesim_tpu_torch.ops.prims import prep_prims, rasterize_hard_prims_banded
 from torchdrivesim_tpu_torch.ops.rasterize import (
     camera_rows_cols, cull_faces_to_view, cull_prims_to_view, face_arrays,
     n_bands_for, pack_texture_rgb8, pack_texture_rgb8_quad, prep_sorted_prim_coefs,
-    rasterize_hard_faces, rasterize_soft, sample_background, sample_background_packed,
+    rasterize_soft, sample_background, sample_background_packed,
     sample_background_quad, sort_prims_rowmajor_with_masks, supports_res,
 )
 from torchdrivesim_tpu_torch.ops.soft import rasterize_softmax_coefs, soft_coefficients
@@ -199,6 +202,16 @@ class Renderer(BirdviewRenderer):
         self._tile_offsets: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
         #: (quads, triangles) per camera whose sort route has been logged
         self._warned_sort = set()
+
+    def copy(self) -> "Renderer":
+        """:meth:`BirdviewRenderer.copy` sharing this renderer's texture and
+        the device tables built from it."""
+        other = super().copy()
+        other._background_texture = self._background_texture
+        other._mip_pyramid = self._mip_pyramid
+        other._packed_texture = self._packed_texture
+        other._quad = self._quad
+        return other
 
     @property
     def background_texture(self) -> Optional[Grid2D]:
@@ -426,11 +439,24 @@ class Renderer(BirdviewRenderer):
         differentiable mode takes: each type culled to the
         ``min(max(8, (cull_max_faces or 64) // 2), 56)`` prims nearest the
         view's center, each quad split into the triangles (0, 1, 2) and
-        (0, 2, 3), the second at z + 1e-5, then the plain hard raster over
-        the full-resolution sample of the texture or the background color.
+        (0, 2, 3), the second at z + 1e-5, then the reference's float-color
+        hard raster (``ops.hard_faces.rasterize_hard_faces``: HF on the card)
+        over the full-resolution sample of the texture or the background
+        color.
 
         Returns:
             (B, 3, size, size) in [0, 1].
+        """
+        return rasterize_hard_faces(*self.prims_plain_operands(
+            quads, qz, qcolors, tris, tz, tcolors, size, cameras))
+
+    def prims_plain_operands(self, quads, qz, qcolors, tris, tz, tcolors, size: int,
+                             cameras: Cameras):
+        """
+        The operands :meth:`_render_prims_plain` hands the hard face raster:
+        (corners (B, F, 3, 2), z (B, F), colors (B, F, 3), background (B, 3,
+        size, size)), F the kept quads twice (their two triangles) and the
+        kept triangles.
         """
         sq, st = self.screen_prims(quads, tris, size, cameras)
         keep = min(max(8, (self.cfg.cull_max_faces or 64) // 2), 56)
@@ -439,8 +465,7 @@ class Renderer(BirdviewRenderer):
         corners = torch.cat([sq[:, :, [0, 1, 2]], sq[:, :, [0, 2, 3]], st], dim=1)
         z = torch.cat([qz, qz + 1e-5, tz], dim=1)
         colors = torch.cat([qcolors, qcolors, tcolors], dim=1)
-        return rasterize_hard_faces(corners, z, colors, size,
-                                    self._full_background(cameras, size))
+        return corners, z, colors, self._full_background(cameras, size)
 
     def screen_prims(self, quads: torch.Tensor, tris: torch.Tensor, size: int,
                      cameras: Cameras):
@@ -646,12 +671,12 @@ class Renderer(BirdviewRenderer):
         the faces culled to the ``cfg.cull_max_faces`` nearest the view's
         center whenever that is non-zero, textured or not, then the hard
         raster (``ops.hard.raster``: B6a up to 127 faces) over
-        :meth:`face_frame_operands`' background, in both modes: a
-        differentiable renderer, as the reference's, takes the
-        full-resolution nearest sample of the texture for the background
-        and gives no gradient (the reference's plain raster there differs
-        only by one to the generator's constant colors). A size that is not
-        a multiple of 16 renders padded and cropped.
+        :meth:`face_frame_operands`' background; a differentiable renderer,
+        as the reference's, takes the full-resolution nearest sample of the
+        texture for the background and its plain float-color raster
+        (``ops.hard_faces.rasterize_hard_faces``: HF on the card), which
+        gives gradients to the colors. A size that is not a multiple of 16
+        renders padded and cropped.
 
         Returns:
             (B, 3, H, W) float image in [0, 255].
@@ -664,6 +689,8 @@ class Renderer(BirdviewRenderer):
                 corners, z, colors, Resolution(pad_to, pad_to),
                 self._pad_cameras(cameras, size, pad_to))[..., :size, :size]
         background, faces, _ = self.face_frame_operands(corners, z, colors, size, cameras)
+        if self.cfg.differentiable:
+            return rasterize_hard_faces(*faces, background) * 255.0
         return raster(hard_operands(*faces), background, size) * 255.0
 
     def face_frame_operands(self, corners: torch.Tensor, z: torch.Tensor,

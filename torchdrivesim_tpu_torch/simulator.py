@@ -335,6 +335,11 @@ class CompoundNPCController(NPCController):
             out_mask = torch.where(sel, m, out_mask)
         return out_state, out_mask
 
+    def gather_npc_states(self):
+        """Kept for the reference's API: :meth:`advance` merges the
+        sub-controllers' outputs itself, so there is nothing to gather."""
+        return None
+
     def copy(self) -> "CompoundNPCController":
         other = super().copy()
         other.controllers = [c.copy() for c in self.controllers]
@@ -488,6 +493,10 @@ class Simulator:
     @property
     def present_mask(self) -> torch.Tensor:
         return self.state.present_mask
+
+    def validate_agent_types(self) -> None:
+        """Kept for the reference's API, which checks nothing here either."""
+        return
 
     def validate_tensor_shapes(self) -> None:
         b, a = self.batch_size, self.agent_count

@@ -116,6 +116,36 @@ def assert_equal(x, y):
     assert x == y, f"{x} != {y}"
 
 
+def rotation_matrix(theta: torch.Tensor) -> torch.Tensor:
+    """Counterclockwise 2D rotation matrices (..., 2, 2) of angles
+    (..., 1) in radians."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    return torch.stack([torch.cat([c, -s], dim=-1), torch.cat([s, c], dim=-1)], dim=-2)
+
+
+def line_circle_intersection(p1: torch.Tensor, p2: torch.Tensor,
+                             circle_center: torch.Tensor, radius: torch.Tensor
+                             ) -> torch.Tensor:
+    """
+    Batched segment-circle intersection test: :func:`line_circle_intersection_xy`
+    on (..., 2) endpoints and centers and (..., 1) radii.
+
+    Returns:
+        (..., 1) bool.
+    """
+    return line_circle_intersection_xy(
+        p1[..., 0], p1[..., 1], p2[..., 0], p2[..., 1], circle_center[..., 0],
+        circle_center[..., 1], radius[..., 0])[..., None]
+
+
+def merge_dicts(ds) -> dict:
+    """Merge a sequence of dicts; later entries overwrite earlier ones."""
+    out = {}
+    for d in ds:
+        out.update(d)
+    return out
+
+
 def line_circle_intersection_xy(p1x, p1y, p2x, p2y, cx, cy, radius) -> torch.Tensor:
     """
     Whether the segment p1 -> p2 meets the circle of ``radius`` about c,
