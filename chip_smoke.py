@@ -166,6 +166,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -4729,14 +4730,7 @@ def examples_path(device, card):
 #: three edge values (3 subtractions and products each), six compares,
 #: the two coverage combinations and the z test
 HF_FACE_OPS = 3 * 5 + 6 + 4 + 2
-#: float64 operations per (tile, face) of its cull: per edge and corner two
-#: differences, two products, the value, two magnitudes, the error term (3)
-#: and two compares
-HF_CULL_OPS = 3 * 4 * 12
-#: the card's published float64 rate outside the tensor cores (H100 SXM)
-FP64_OPS_PER_S = 34e12
 HF_RES = (64, 128)
-HF_SOUP_CAMERAS = 256
 TEXTURE_PPM = 4.0
 GRID_CELL = 0.4
 
@@ -4751,11 +4745,46 @@ def hf_random_operands(kind: str, seed: int, b: int, n_faces: int, h: int, w: in
     exactly) and on tile boundaries, one z level in three; 'slivers' long
     thin faces (areas just above and below 1e-9, angles near zero) across
     tiles, two corners on pixel centres (the long edge through centres).
+    The box-edge kinds test HF's conservative face boxes: 'ulps' corners a
+    few ulps off pixel centres (tile boundaries among them), so box
+    boundaries fall within rounding of a row or column of centres, and
+    slivers along a row or column of centres; 'far' corners up to +-1e6
+    (faces over the whole frame, wedges and spikes entering it); 'nonfinite'
+    the random faces with +-inf and NaN corners among them; 'crowd' more
+    faces in one tile than HF's per-tile list holds, so that tile overflows.
     Returns (corners, z, color, background) float32 on ``device``.
     """
     rng = np.random.RandomState(seed)
     span = max(h, w)
-    if kind == 'random':
+    if kind == 'ulps':
+        centre = rng.randint(-2, span // 16 + 2, (b, n_faces, 1, 2)) * 16 \
+            + rng.choice([-0.5, 0.5, 15.5], (b, n_faces, 1, 2))
+        corners = (centre + rng.randint(-12, 13, (b, n_faces, 3, 2))).astype(np.float32)
+        corners[:, 1::3, 1, 0] = corners[:, 1::3, 0, 0]      # slivers along a row
+        corners[:, 2::3, 1, 1] = corners[:, 2::3, 0, 1]      # and along a column
+        steps = rng.randint(-3, 4, corners.shape)
+        for k in range(3):
+            corners = np.where(steps > k, np.nextafter(corners, np.float32(np.inf)), corners)
+            corners = np.where(steps < -k, np.nextafter(corners, np.float32(-np.inf)), corners)
+        z = rng.randint(0, 3, (b, n_faces)) * 1.0
+    elif kind == 'far':
+        corners = rng.uniform(-1e6, 1e6, (b, n_faces, 3, 2))
+        inside = rng.uniform(-4, span + 4, (b, n_faces, 3, 2))
+        corners[:, 1::3, 0] = inside[:, 1::3, 0]                # wedges from the frame
+        corners[:, 2::3, :2] = inside[:, 2::3, :2]              # spikes into it
+        corners[:, 2::3, 2] = inside[:, 2::3, 2] + rng.choice([-1e6, 1e6], (b, n_faces, 2)) \
+            [:, 2::3] * rng.uniform(0.01, 1, (b, n_faces, 2))[:, 2::3]
+        z = rng.randint(0, 4, (b, n_faces)) * 1.0
+    elif kind == 'nonfinite':
+        corners = rng.uniform(-8, span + 8, (b, n_faces, 3, 2))
+        corners[:, 3::7, 0, 0], corners[:, 5::7, 1, 1] = np.inf, -np.inf
+        corners[:, 6::9, 2, 0], corners[:, 8::11, 0, :] = np.nan, np.inf
+        z = rng.randint(0, 4, (b, n_faces)) * 1.0
+    elif kind == 'crowd':
+        corners = rng.uniform(0, 16, (b, n_faces, 3, 2))
+        corners[:, ::5] = rng.uniform(-8, span + 8, (b, (n_faces + 4) // 5, 3, 2))
+        z = rng.randint(0, 4, (b, n_faces)) * 1.0
+    elif kind == 'random':
         corners = rng.uniform(-8, span + 8, (b, n_faces, 3, 2))
         corners[:, 4::5, 2] = corners[:, 4::5, 0]
         z = rng.randint(0, 4, (b, n_faces)) * 2.0 + 3.0
@@ -4816,10 +4845,63 @@ def hf_grazing_operands(seed: int, b: int, n_faces: int, res: int, device):
     return (t(corners), t(z), t(rng.rand(b, n_faces, 3)), t(rng.rand(b, 3, res, res)))
 
 
-def compare_hf(ops, label):
+def hf_kernel_lists(ops):
+    """HF's per-tile lists and counts on ``ops`` (corners, z, color,
+    background): the kernel's set-up and binning alone (the C entry point
+    ``tds_hard_faces_bin``, called as ``hard_faces`` calls it, with buffers
+    of this function's own). Returns (lists (B, tiles, capacity), counts
+    (B, tiles)); a list's entries past its count are unset."""
+    from torchdrivesim_tpu_torch.ops import hard_faces
+    from torchdrivesim_tpu_torch.ops.build import check_launch
+    corners, z = (t.contiguous() for t in ops[:2])
+    b, f = z.shape
+    h, w = ops[3].shape[-2:]
+    tiles = -(-h // hard_faces.TILE) * -(-w // hard_faces.TILE)
+    cap = hard_faces.list_capacity(f)
+    records = corners.new_empty((b, f, 16))
+    counts = torch.empty((b, tiles), dtype=torch.int32, device=corners.device)
+    lists = torch.empty((b, tiles, cap), dtype=torch.int32, device=corners.device)
+    check_launch(hard_faces.LIBRARY.load().tds_hard_faces_bin(
+        corners.data_ptr(), z.data_ptr(), b, f, h, w, cap, records.data_ptr(),
+        counts.data_ptr(), lists.data_ptr(), torch.cuda.current_stream().cuda_stream),
+        'HF binning')
+    torch.cuda.synchronize()
+    return lists, counts
+
+
+def compare_hf_lists(ops):
+    """HF's per-tile lists (:func:`hf_kernel_lists`) against
+    ``hard_faces_tile_lists_reference``: every count equal, every list that
+    fits its capacity equal as a set, and an overflowed tile's listed faces
+    all in its plain list. Returns (mismatched counts and entries,
+    overflowed tiles, listed pairs, longest list)."""
+    from torchdrivesim_tpu_torch.ops import hard_faces
+    lists, counts = hf_kernel_lists(ops)
+    h, w = ops[3].shape[-2:]
+    want, want_counts = hard_faces.hard_faces_tile_lists_reference(ops[0], ops[1], h, w)
+    cap = lists.shape[-1]
+    fill = torch.iinfo(torch.int32).max
+    slot = torch.arange(cap, device=lists.device)
+    got = torch.where(slot < counts.clamp(max=cap)[..., None], lists, fill).sort(-1).values
+    want = torch.where(want >= 0, want, fill)
+    want = torch.nn.functional.pad(want, (0, max(cap - want.shape[-1], 0)), value=fill)
+    over = counts > cap
+    bad = int((counts != want_counts).sum())
+    bad += int(((got != want[..., :cap]) & ~over[..., None]).sum())
+    if over.any():
+        inside = (got[over][..., None] == want[over][:, None, :]).any(-1)
+        bad += int((~inside).sum())
+    longest = int(want_counts.max()) if want_counts.numel() else 0
+    return bad, int(over.sum()), int(want_counts.sum()), longest
+
+
+def compare_hf(ops, label, overflow=False):
     """HF against its plain version on ``ops`` (corners, z, color,
     background): the mismatched pixels of the image (bits) and of the
-    winner index must both be 0. Returns the largest difference."""
+    winner index must both be 0, and its per-tile lists must equal the
+    plain ones (:func:`compare_hf_lists`), with overflowed tiles none
+    (``overflow`` False), some (True) or any (None). Returns the largest
+    difference."""
     from torchdrivesim_tpu_torch.ops import hard_faces
     image, winner = hard_faces.hard_faces(*ops)
     want, want_winner = hard_faces.hard_faces_reference(*ops)
@@ -4828,12 +4910,19 @@ def compare_hf(ops, label):
     bad_winner = int((winner != want_winner).sum())
     err = float((image - want).abs().max()) if image.numel() else 0.0
     won = float((want_winner >= 0).float().mean()) if want_winner.numel() else 0.0
+    bad_lists, n_over, listed, longest = compare_hf_lists(ops)
     b, f = ops[1].shape
-    print(f'{label}: HF B={b} F={f} {tuple(image.shape[-2:])}: {bad} image and '
-          f'{bad_winner} winner mismatches against the plain version ({won * 100:.1f}% '
-          f'of pixels won by a face)')
-    if bad or bad_winner:
+    h, w = image.shape[-2:]
+    print(f'{label}: HF B={b} F={f} {(h, w)}: {bad} image and {bad_winner} winner '
+          f'mismatches against the plain version ({won * 100:.1f}% of pixels won by a '
+          f'face); tile lists: {bad_lists} mismatches against the plain lists, {listed} '
+          f'listed pairs, longest {longest} of capacity {hard_faces.list_capacity(f)}, '
+          f'{n_over} tiles overflowed; scratch '
+          f'{hard_faces.scratch_bytes(b, f, h, w) / 1e6:.3f} MB')
+    if bad or bad_winner or bad_lists:
         raise AssertionError(f'{label}: HF disagrees with its plain version')
+    if overflow is not None and bool(n_over) != overflow:
+        raise AssertionError(f'{label}: {n_over} tiles overflowed their lists')
     return err
 
 
@@ -4862,15 +4951,19 @@ def compare_hf_grad(ops, label):
 
 
 def hf_random_cases(device):
-    """HF on the random, centres and sliver operands, square and
-    rectangular, and its gradients on one of them."""
+    """HF on the random, centres, sliver, box-edge (ulps, far, non-finite)
+    and grazing operands, square and rectangular, one of them overflowing a
+    tile's list, and its gradients on one of them."""
+    from torchdrivesim_tpu_torch.ops import hard_faces
     errs = []
     for i, (kind, b, f, h, w) in enumerate((
             ('random', 4, 300, 64, 64), ('random', 2, 1000, 72, 40),
             ('centres', 4, 200, 48, 80), ('slivers', 4, 300, 64, 64),
-            ('random', 3, 0, 32, 32))):
+            ('random', 3, 0, 32, 32), ('ulps', 4, 300, 64, 64), ('far', 2, 300, 72, 40),
+            ('nonfinite', 4, 300, 64, 64), ('crowd', 2, 700, 48, 48))):
         ops = hf_random_operands(kind, i, b, f, h, w, device)
-        errs.append(compare_hf(ops, f'HF {kind} case {i}'))
+        overflow = True if kind == 'crowd' else None if f > hard_faces.LIST_CAP else False
+        errs.append(compare_hf(ops, f'HF {kind} case {i}', overflow))
     errs.append(compare_hf(hf_grazing_operands(5, 4, 40, 64, device), 'HF grazing case'))
     compare_hf_grad(hf_random_operands('random', 7, 2, 100, 40, 56, device),
                     'HF random case 7')
@@ -4878,8 +4971,9 @@ def hf_random_cases(device):
 
 
 def hf_tile_pairs(corners, z, height: int, width: int) -> int:
-    """The (16 x 16 tile, face) pairs HF's plain cull keeps, counted in
-    chunks of faces."""
+    """The (16 x 16 tile, face) pairs that HF's float64 edge test alone
+    keeps (``hard_faces_tile_keep_reference``, the whole cull of HF's
+    first design), counted in chunks of faces."""
     from torchdrivesim_tpu_torch.ops import hard_faces
     return sum(int(hard_faces.hard_faces_tile_keep_reference(
         corners[:, s:s + 2048], z[:, s:s + 2048], height, width).sum())
@@ -4887,25 +4981,36 @@ def hf_tile_pairs(corners, z, height: int, width: int) -> int:
 
 
 def hf_json_entry(name, ops, err, launches, card, label):
-    """HF's times on ``ops`` (graph replay; its plain version by CUDA
-    events), its bound (the operands read once, the image and winner
-    written once; the fold's float32 operations over the (tile, face)
-    pairs its plain cull keeps) and its JSON entry."""
+    """HF's times on ``ops`` (graph replay, its output first held equal to
+    eager; its plain version by CUDA events), its bound (the operands read
+    once, the image and winner written once; the fold's float32 operations
+    over the (tile, face) pairs in which the face covers a pixel centre,
+    ``hard_faces_cover_reference``, the work these inputs need whatever
+    implements it) and its JSON entry. Prints beside the covering pairs the
+    pairs the kernel lists and those the float64 edge test alone keeps."""
     from torchdrivesim_tpu_torch.ops import hard_faces
     corners, z, color, bg = ops
     b, f = z.shape
     h, w = bg.shape[-2:]
+    if not torch.equal(graph_replay(lambda: hard_faces.hard_faces(*ops))[0],
+                       hard_faces.hard_faces(*ops)[0]):
+        raise AssertionError(f'{name}: HF replayed from a CUDA graph differs from eager')
     ms = graph_ms(lambda: hard_faces.hard_faces(*ops), 20)
     plain_ms = cuda_ms(lambda: hard_faces.hard_faces_reference(*ops), 1)
-    pairs = hf_tile_pairs(corners, z, h, w)
+    cover = len(hard_faces.hard_faces_cover_reference(corners, z, h, w)[0])
+    listed = int(hard_faces.hard_faces_tile_lists_reference(corners, z, h, w)[1].sum())
+    kept = hf_tile_pairs(corners, z, h, w)
     n_bytes = nbytes(corners, z, color, bg) + b * h * w * (3 * 4 + 4)
-    n_ops = pairs * BOUND_TILE ** 2 * HF_FACE_OPS
+    n_ops = cover * BOUND_TILE ** 2 * HF_FACE_OPS
     bound_ms, bound_by = bound(n_bytes, n_ops)
-    tiles = -(-h // BOUND_TILE) * -(-w // BOUND_TILE)
+    tiles = b * -(-h // BOUND_TILE) * -(-w // BOUND_TILE)
     print(f'{name} kernel ({label}) B={b} F={f} {h}x{w}: {ms:.4f} ms (device, graph '
           f'replay); plain version {plain_ms:.3f} ms; bound {bound_ms * 1e3:.3f} us by '
-          f'{bound_by} ({n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.1f} M float32 operations, '
-          f'{pairs / (b * tiles):.2f} of {f} faces kept per tile) [{card}]')
+          f'{bound_by} ({n_bytes / 1e6:.3f} MB, {n_ops / 1e6:.1f} M float32 operations over '
+          f'{cover} covering (tile, face) pairs, {cover / tiles:.2f} a tile; listed '
+          f'{listed}, {listed / tiles:.2f} a tile; the float64 edge test alone kept {kept}, '
+          f'{kept / tiles:.2f} a tile); scratch '
+          f'{hard_faces.scratch_bytes(b, f, h, w) / 1e6:.3f} MB [{card}]')
     return {'name': name, 'route': 'cuda',
             'source': 'torchdrivesim_tpu_torch/csrc/hard_faces.cu',
             'replaces': 'torchdrivesim_tpu/ops/rasterize.py:566', 'launches': launches,
@@ -5008,7 +5113,8 @@ def map_bake_path(device, card, names=('carla_Town02', 'carla_Town10HD')):
     each held to the cache bundled with the map: the share of texels and of
     cells equal after float16 rounding (>= 99.9%), the largest distance
     difference; HF against its plain version on the first map's first
-    strip; times. Returns HF's JSON entry on that strip.
+    strip, its tile lists against the plain lists on every strip (none
+    overflowed); times. Returns HF's JSON entry on that strip.
     """
     from torchdrivesim_tpu_torch import map_grids
     from torchdrivesim_tpu_torch.benchmark import load_or_bake_texture, texture_cache_path
@@ -5043,6 +5149,15 @@ def map_bake_path(device, card, names=('carla_Town02', 'carla_Town10HD')):
             raise AssertionError(f'{name} texture bake: launches {ran}, expected {strips} HF')
         if not equal >= 0.999 or not same_origin:
             raise AssertionError(f'{name} texture: only {equal * 100:.4f}% equal to the cache')
+        for i, strip in enumerate(calls):
+            bad_lists, n_over, listed, longest = compare_hf_lists(strip)
+            scratch = hard_faces.scratch_bytes(*strip[1].shape, *strip[3].shape[-2:])
+            print(f'{name} texture strip {i}: HF tile lists {bad_lists} mismatches against '
+                  f'the plain lists, {listed} listed pairs, longest {longest}, {n_over} tiles '
+                  f'overflowed; scratch {scratch / 1e6:.3f} MB')
+            if bad_lists or n_over:
+                raise AssertionError(f'{name} texture strip {i}: HF tile lists disagree or '
+                                     'overflow')
         if name != names[0]:
             continue
         ops = tuple(t.contiguous() for t in calls[0])
@@ -5126,6 +5241,34 @@ def map_examples_path(device, card):
     print(f'map examples phase: {time.perf_counter() - t_phase:.1f} s')
 
 
+def ptxas_usage(library):
+    """Start ``nvcc -Xptxas -v`` on ``library``'s source, with the build's
+    own flags, into a cubin under ``build/``; returns the process."""
+    from torchdrivesim_tpu_torch.ops.build import NVCC_FLAGS, nvcc
+    flags = [f for f in NVCC_FLAGS if f not in ('-shared', '-Xcompiler', '-fPIC')]
+    os.makedirs('build', exist_ok=True)
+    return subprocess.Popen([nvcc(), *flags, '-cubin', '-Xptxas', '-v', '-o',
+                             f'build/{library.name}.cubin', library.source],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def ptxas_report(proc):
+    """The registers, shared memory and spills that ptxas reports for each
+    kernel of a :func:`ptxas_usage` process, one line each."""
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f'nvcc -Xptxas -v failed ({proc.returncode}):\n{out}\n{err}')
+    lines, kernel = [], None
+    for line in (out + err).splitlines():
+        found = re.findall(r'[a-z]+(?:_[a-z]+)*_kernel', line) \
+            if 'Compiling entry function' in line else None
+        if found:
+            kernel = found[-1]
+        elif kernel and ('registers' in line or 'spill' in line):
+            lines.append(f'{kernel}: {line.split("ptxas info", 1)[-1].lstrip(" :")}')
+    return lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -5140,9 +5283,12 @@ def main() -> int:
     print(card)                  # name, power.limit as nvidia-smi gives them
     libraries = [fused.LIBRARY, warp.LIBRARY, soft.LIBRARY, soft.ACCUM_LIBRARY,
                  warp.NEAREST_LIBRARY, hard.LIBRARY, prims.LIBRARY, hard_faces.LIBRARY]
+    usage = ptxas_usage(hard_faces.LIBRARY)
     secs = build_all(libraries)
     print(f'kernel build ({", ".join(lib.name for lib in libraries)} in parallel): '
           f'{secs:.2f} s (nvcc sm_90a)')
+    for line in ptxas_report(usage):
+        print(f'hard_faces.cu ptxas: {line}')
 
     if sys.argv[1:] == ['grouped-check-timing']:
         grouped_check_timing(device, card)

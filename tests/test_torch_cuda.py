@@ -642,20 +642,26 @@ def test_soft_kernels_under_quad_background(cuda):
 @pytest.mark.depends_on_cuda
 @pytest.mark.parametrize('kind,b,f,h,w', [
     ('random', 4, 300, 64, 64), ('random', 2, 1000, 72, 40), ('centres', 4, 200, 48, 80),
-    ('slivers', 4, 300, 64, 64), ('grazing', 4, 40, 64, 64), ('random', 2, 0, 32, 48)])
+    ('slivers', 4, 300, 64, 64), ('grazing', 4, 40, 64, 64), ('random', 2, 0, 32, 48),
+    ('ulps', 4, 300, 64, 64), ('far', 2, 300, 72, 40), ('nonfinite', 4, 300, 64, 64),
+    ('crowd', 2, 700, 48, 48)])
 def test_hard_faces_kernel_matches_plain_version(cuda, kind, b, f, h, w):
     """HF (``csrc/hard_faces.cu``) bit for bit its plain version, image and
     winner index: random faces of both windings (degenerate, z ties, z at
     BIG_Z, +-inf, NaN), corners on pixel centres, slivers, faces grazing a
-    tile's corner pixel (``chip_smoke.hf_grazing_operands``), rectangular
-    frames and no faces; its gradients within 1e-5 of the largest value of
-    autograd's through the plain version."""
+    tile's corner pixel (``chip_smoke.hf_grazing_operands``), corners a few
+    ulps off pixel centres, up to +-1e6 and +-inf or NaN, a tile whose list
+    overflows its capacity (``crowd``), rectangular frames and no faces;
+    its per-tile lists equal as sets to ``hard_faces_tile_lists_reference``;
+    its gradients within 1e-5 of the largest value of autograd's through
+    the plain version."""
     from chip_smoke import compare_hf, compare_hf_grad, hf_grazing_operands, hf_random_operands
     from torchdrivesim_tpu_torch.ops import hard_faces
     ops = hf_grazing_operands(b, b, f, h, cuda) if kind == 'grazing' \
         else hf_random_operands(kind, f + h, b, f, h, w, cuda)
     before = hard_faces.LAUNCHES
-    assert compare_hf(ops, kind) == 0.0
+    overflow = True if kind == 'crowd' else None if f > hard_faces.LIST_CAP else False
+    assert compare_hf(ops, kind, overflow) == 0.0
     assert hard_faces.LAUNCHES == before + 1
     if f:
         compare_hf_grad(ops, kind)

@@ -6,17 +6,25 @@ that are not square):
 
 * the plain version (image and winner index) on random faces of both
   windings with every fifth degenerate, z on four levels (ties), z at
-  BIG_Z, +-inf and NaN, corners on pixel centres, and slivers, square and
-  rectangular, against the reference jitted: exact wherever the image does
+  BIG_Z, +-inf and NaN, corners on pixel centres, slivers, corners a few
+  ulps off pixel centres, up to +-1e6, +-inf and NaN, and a crowded tile,
+  square and rectangular, against the reference jitted: exact wherever the image does
   not hang on the rounding of an edge value's ``ex * dy - ey * dx`` (the
   reference's compiled code may fuse a product into the difference), and
   the reference's value one of the roundings' everywhere;
 * the autograd.Function's gradients (colors, background) against autograd
   through the plain ``torch.where`` chain and against ``jax.grad`` of the
   reference;
-* the kernel's per-tile cull (its plain version
+* the kernel's per-tile float64 edge test (its plain version
   ``hard_faces_tile_keep_reference``) drops no face that covers a pixel of
   its tile and can win;
+* the kernel's per-tile lists (their plain version
+  ``hard_faces_tile_lists_reference``: each face's conservative box of
+  tiles, ``face_tile_ranges``, and the edge test) drop no (tile, face) pair
+  in which the face covers a pixel centre under HF's rounding, on the cases
+  above and on corners a few ulps off pixel centres, up to +-1e6, +-inf and
+  NaN; they are ascending and a subset of the edge test's pairs, and
+  ``hard_faces_cover_reference`` gives exactly the covering pairs;
 * the differentiable primitive render and the differentiable face soup
   run HF (one call per frame) and no other raster.
 """
@@ -67,6 +75,10 @@ CASES = {
     'centres_rect': ('centres', 2, 2, 90, 40, 24),
     'slivers_square': ('slivers', 3, 2, 120, 32, 32),
     'no_faces': ('random', 4, 1, 0, 16, 16),
+    'ulps_square': ('ulps', 10, 2, 150, 32, 32),
+    'far_rect': ('far', 11, 2, 120, 24, 56),
+    'nonfinite_square': ('nonfinite', 12, 2, 120, 32, 32),
+    'crowd_square': ('crowd', 13, 1, 600, 32, 32),
 }
 
 
@@ -169,6 +181,66 @@ def test_tile_cull_drops_no_face_that_can_win(kind, h, w):
     dropped = 1.0 - float(keep.float().mean())
     print(f'{kind}: the cull drops {dropped * 100:.1f}% of the (tile, face) pairs')
     assert dropped > 0.3
+
+
+def _dense_cover(corners, z, h, w):
+    """(B, tiles, F) whether the face covers a pixel centre of the tile
+    under HF's rounding and passes its area and z tests, pixel by pixel."""
+    a0, a1, ex, ey, area = HF._face_edges(corners)
+    px = (torch.arange(h) + 0.5)[:, None].expand(h, w)
+    py = (torch.arange(w) + 0.5)[None, :].expand(h, w)
+    e = HF.edge_value(ex[..., None, None], py - a1[..., None, None],
+                      ey[..., None, None], px - a0[..., None, None])     # (B, F, 3, H, W)
+    cover = ((e >= 0).all(dim=2) | (e <= 0).all(dim=2)) & HF._usable(area, z)[..., None, None]
+    b, f = z.shape
+    th, tw = -(-h // HF.TILE), -(-w // HF.TILE)
+    padded = torch.zeros(b, f, th * HF.TILE, tw * HF.TILE, dtype=torch.bool)
+    padded[..., :h, :w] = cover
+    return padded.reshape(b, f, th, HF.TILE, tw, HF.TILE).any(-1).any(-2) \
+        .reshape(b, f, th * tw).transpose(1, 2)
+
+
+@pytest.mark.parametrize('kind,f,h,w', [
+    ('random', 150, 40, 40), ('centres', 150, 40, 56), ('slivers', 150, 48, 40),
+    ('grazing', 40, 48, 48), ('ulps', 150, 40, 40), ('far', 150, 40, 56),
+    ('nonfinite', 150, 40, 40), ('crowd', 700, 32, 32)])
+def test_tile_lists_keep_every_covering_pair(kind, f, h, w):
+    ops = chip_smoke.hf_grazing_operands(9, 2, f, h, 'cpu') if kind == 'grazing' \
+        else chip_smoke.hf_random_operands(kind, 9, 2, f, h, w, 'cpu')
+    corners, z = ops[:2]
+    lists, counts = HF.hard_faces_tile_lists_reference(corners, z, h, w)
+    b, tiles = counts.shape
+    assert torch.equal(counts, (lists >= 0).sum(-1).to(torch.int32))
+    assert ((lists[..., 1:] > lists[..., :-1]) | (lists[..., 1:] < 0)).all()   # ascending
+    listed = torch.zeros(b, tiles, f + 1, dtype=torch.bool)
+    listed.scatter_(2, lists.long() % (f + 1), True)                # -1 lands in slot f
+    listed = listed[..., :f]
+    cover = _dense_cover(corners, z, h, w)
+    assert not (cover & ~listed).any()
+    assert not (listed & ~HF.hard_faces_tile_keep_reference(corners, z, h, w)).any()
+    cam, face, tile = HF.hard_faces_cover_reference(corners, z, h, w, chunk=97)
+    got = torch.zeros_like(cover)
+    got[cam, tile, face] = True
+    assert torch.equal(got, cover) and len(cam) == int(cover.sum())
+    # a face whose area or z test fails has an empty range; some faces get
+    # the whole frame (non-finite corners, slivers), some an empty one
+    rng = HF.face_tile_ranges(corners, z, h, w)
+    empty = (rng[..., 0] > rng[..., 1]) | (rng[..., 2] > rng[..., 3])
+    assert empty[~HF._usable(HF._face_edges(corners)[4], z)].all()
+    print(f'{kind}: {int(listed.sum())} listed, {int(cover.sum())} covering pairs, '
+          f'longest list {int(counts.max())} (capacity {HF.list_capacity(f)})')
+    if kind == 'crowd':
+        assert int(counts.max()) > HF.list_capacity(f)
+    if kind == 'nonfinite':
+        bad = ~torch.isfinite(corners).flatten(-2).all(-1) & HF._usable(HF._face_edges(corners)[4], z)
+        assert bad.any() and (rng[bad] == torch.tensor([0, (h - 1) // 16, 0, (w - 1) // 16])).all()
+
+
+def test_hard_faces_scratch_is_sized_from_the_shapes():
+    assert HF.list_capacity(94) == 94 and HF.list_capacity(59744) == HF.LIST_CAP
+    # one 64-byte record per face; a count and the list per 16 x 16 tile
+    assert HF.scratch_bytes(1, 59744, 512, 1121) == 59744 * 64 + 2272 * 4 * (1 + HF.LIST_CAP)
+    assert HF.scratch_bytes(3, 0, 16, 16) == 3 * 4
 
 
 def test_differentiable_routes_run_hf_once(monkeypatch):

@@ -22,6 +22,13 @@ background.
 the background where no face wins and each face's color summed over the
 pixels it wins, as autograd through the plain ``torch.where`` chain gives
 them; corners and z get none.
+
+The kernel sets each face up once, bins it into the 16 x 16 tiles of a
+conservative box (:func:`face_tile_ranges`) that pass a float64 edge test,
+and folds each tile's list in ascending face order; its plain mirror is
+:func:`hard_faces_tile_lists_reference`, and :func:`hard_faces_cover_reference`
+gives the (tile, face) pairs in which a face covers a pixel centre, the work
+these inputs need.
 """
 import ctypes
 
@@ -37,6 +44,14 @@ FACE_CHUNK = 16
 TILE = 16
 #: 3.1 x 2^-24 and 2^-140, the float64 cull's error terms (``csrc/hard_faces.cu``)
 _CULL_ERR, _CULL_TINY = 3.1 * 2.0 ** -24, 2.0 ** -140
+#: the box margin's terms (``csrc/hard_faces.cu`` derives them): 4.1 u per
+#: unit of |P| + |Q|, twice that per unit of distance, 2^-140; the float64
+#: area's relative error 2^-48; the margin's relative and absolute pads
+_BOX_ERR, _BOX_SLOPE, _BOX_TINY = 4.1 * 2.0 ** -24, 8.2 * 2.0 ** -24, 2.0 ** -140
+_AREA_REL, _PAD_REL, _PAD_ABS = 2.0 ** -48, 1.0 + 2.0 ** -40, 2.0 ** -48
+#: the most faces a tile's list holds (``kListCap`` in ``csrc/hard_faces.cu``);
+#: a tile with more takes the kernel's ordered scan of all faces
+LIST_CAP = 512
 
 #: kernel launches since import (or the last reset by the caller): a run can
 #: show that its main path went through the kernel
@@ -44,11 +59,16 @@ LAUNCHES = 0
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C entry point's signature (``csrc/hard_faces.cu``):
-    corners, z, color and background pointers; batch, faces, height, width;
-    the image and winner pointers and the stream."""
+    """Declare the C entry points' signatures (``csrc/hard_faces.cu``): the
+    raster (corners, z, color and background pointers; batch, faces,
+    height, width, list capacity; the records, counts, lists, image and
+    winner pointers and the stream) and its binning alone (corners and z;
+    the five ints; records, counts, lists and the stream)."""
     fn = lib.tds_hard_faces
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
+    fn.restype = ctypes.c_int
+    fn = lib.tds_hard_faces_bin
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     return lib
 
@@ -124,37 +144,195 @@ def hard_faces_reference(corners: torch.Tensor, z: torch.Tensor, color: torch.Te
 def hard_faces_tile_keep_reference(corners: torch.Tensor, z: torch.Tensor,
                                    height: int, width: int) -> torch.Tensor:
     """
-    Plain version of the kernel's per-tile cull (``csrc/hard_faces.cu``): a
-    face stays in a 16 x 16 tile unless its area test fails, its z is not
-    below :data:`BIG_Z`, or one of its edges is negative and one positive at
+    Plain version of the kernel's float64 per-tile edge test
+    (``csrc/hard_faces.cu``) over every tile, without the box: a face stays
+    in a 16 x 16 tile unless its area test fails, its z is not below
+    :data:`BIG_Z`, or one of its edges is negative and one positive at
     every pixel centre of the tile by the float64 test over the tile's four
     extreme centres (the last tile row and column clamped to the frame). Not
     on any path: the tests show with it that a dropped face wins no pixel of
-    its tile.
+    its tile, and that the kernel's lists keep a subset of its pairs.
 
     Returns:
         (B, tiles, F) bool, tiles row-major (``ceil(H / 16) x ceil(W / 16)``).
     """
     edges = _face_edges(corners)
     ok = _usable(edges[4], z)
-    a0, a1, ex, ey = (t.double() for t in edges[:4])
+    a0, a1, ex, ey = (t.double()[..., None, None, :] for t in edges[:4])  # (B, F, 1, 1, 3)
     r0 = torch.arange(0, height, TILE, device=corners.device).double()
     c0 = torch.arange(0, width, TILE, device=corners.device).double()
     rows = (r0 + 0.5, torch.clamp(r0 + TILE, max=height) - 0.5)     # (th,) each
     cols = (c0 + 0.5, torch.clamp(c0 + TILE, max=width) - 0.5)      # (tw,) each
+    keep = _edge_test_keeps(a0, a1, ex, ey, [r[:, None, None] for r in rows],
+                            [c[:, None] for c in cols])             # (B, F, th, tw)
+    keep = keep & ok[..., None, None]
+    return keep.flatten(2).transpose(1, 2)
+
+
+def _edge_test_keeps(a0, a1, ex, ey, rows, cols) -> torch.Tensor:
+    """The float64 per-tile edge test (``csrc/hard_faces.cu``): false where
+    one edge is certainly negative and one certainly positive at every
+    pixel centre between the first and last centre rows ``rows`` and
+    columns ``cols`` of the tile, padded by the float32 edge's error bound.
+    The edges (a0, a1, ex, ey) run along the last dimension; every operand
+    float64 and broadcastable."""
     neg = pos = None
     for px in rows:
         for py in cols:
-            p = ex[..., None, None] * (py[None, :] - a1[..., None, None])
-            q = ey[..., None, None] * (px[:, None] - a0[..., None, None])
-            v = p - q                                                 # (B, F, 3, th, tw)
+            p = ex * (py - a1)
+            q = ey * (px - a0)
+            v = p - q
             err = _CULL_ERR * (p.abs() + q.abs()) + _CULL_TINY
             n, s = v + err < 0, v - err > 0
             neg = n if neg is None else neg & n
             pos = s if pos is None else pos & s
-    drop = neg.any(dim=2) & pos.any(dim=2)                            # (B, F, th, tw)
-    keep = ~drop & ok[..., None, None]
-    return keep.flatten(2).transpose(1, 2)
+    return ~(neg.any(dim=-1) & pos.any(dim=-1))
+
+
+def face_tile_ranges(corners: torch.Tensor, z: torch.Tensor, height: int,
+                     width: int) -> torch.Tensor:
+    """
+    Each face's conservative range of 16 x 16 tiles, as the kernel's set-up
+    computes it (float64, operation by operation): the corners' box widened
+    on every side by the margin that ``csrc/hard_faces.cu`` derives from the
+    edges' rounding error, outside which no pixel centre passes HF's rounded
+    edge test; the whole frame for a face with a non-finite corner or too
+    thin for a finite margin; empty for one whose area or z test fails.
+
+    Returns:
+        (B, F, 4) int64: first and last tile row, first and last tile column
+        (an empty range has first > last).
+    """
+    c = corners.double()
+    r, q = c[..., 0], c[..., 1]                                       # (B, F, 3)
+    rmin, rmax = r.amin(-1), r.amax(-1)
+    cmin, cmax = q.amin(-1), q.amax(-1)
+    sr, sc = rmax - rmin, cmax - cmin
+    x, y = r[..., [1, 2, 0]] - r, q[..., [1, 2, 0]] - q
+    m = torch.maximum(x.abs().amax(-1), y.abs().amax(-1))
+    p = x[..., 0] * (q[..., 2] - q[..., 0])
+    s = y[..., 0] * (r[..., 2] - r[..., 0])
+    a_lo = 0.5 * ((p - s).abs() - _AREA_REL * (p.abs() + s.abs()))
+    den = a_lo / torch.maximum(sr, sc) - _BOX_SLOPE * m
+    num = _BOX_ERR * m * (sr + sc) + _BOX_TINY
+    reach = torch.maximum(torch.maximum(rmin.abs(), rmax.abs()),
+                          torch.maximum(cmin.abs(), cmax.abs())) + 1.0
+    d = num / den * _PAD_REL + reach * _PAD_ABS
+    whole = ~torch.isfinite(c).flatten(-2).all(-1) | ~(den > 0)
+    lo_r = torch.ceil(rmin - d - 0.5).clamp(min=0.0)
+    hi_r = torch.floor(rmax + d - 0.5).clamp(max=height - 1.0)
+    lo_c = torch.ceil(cmin - d - 0.5).clamp(min=0.0)
+    hi_c = torch.floor(cmax + d - 0.5).clamp(max=width - 1.0)
+    full = torch.tensor([0.0, height - 1.0, 0.0, width - 1.0], dtype=c.dtype,
+                        device=c.device)
+    px = torch.where(whole[..., None], full, torch.stack([lo_r, hi_r, lo_c, hi_c], -1))
+    empty = ~_usable(_face_edges(corners)[4], z) | (px[..., 0] > px[..., 1]) \
+        | (px[..., 2] > px[..., 3])
+    tiles = torch.div(px.long(), TILE, rounding_mode='floor')
+    return torch.where(empty[..., None], torch.tensor([1, 0, 1, 0], device=c.device), tiles)
+
+
+def _listed_pairs(corners: torch.Tensor, z: torch.Tensor, height: int, width: int):
+    """(camera, face, tile) index vectors of the pairs the kernel lists:
+    the tile in the face's :func:`face_tile_ranges` and not dropped by the
+    float64 edge test of :func:`hard_faces_tile_keep_reference`."""
+    b, f = z.shape
+    dev = corners.device
+    tiles_w = -(-width // TILE)
+    rng = face_tile_ranges(corners, z, height, width).reshape(-1, 4)
+    nr = (rng[:, 1] - rng[:, 0] + 1).clamp(min=0)
+    nc = (rng[:, 3] - rng[:, 2] + 1).clamp(min=0)
+    n = nr * nc
+    owner = torch.repeat_interleave(torch.arange(b * f, device=dev), n)
+    k = torch.arange(owner.numel(), device=dev) - (torch.cumsum(n, 0) - n)[owner]
+    tr = rng[owner, 0] + torch.div(k, nc[owner], rounding_mode='floor')
+    tc = rng[owner, 2] + k % nc[owner].clamp(min=1)
+    r0, c0 = (tr * TILE).double(), (tc * TILE).double()
+    rows = (r0 + 0.5, torch.clamp(r0 + TILE, max=height) - 0.5)       # (pairs,) each
+    cols = (c0 + 0.5, torch.clamp(c0 + TILE, max=width) - 0.5)
+    a0, a1, ex, ey = (t.reshape(b * f, 3)[owner].double() for t in _face_edges(corners)[:4])
+    keep = _edge_test_keeps(a0, a1, ex, ey, [r[:, None] for r in rows],
+                            [c[:, None] for c in cols])
+    owner = owner[keep]
+    return (torch.div(owner, f, rounding_mode='floor'), owner % f,
+            (tr * tiles_w + tc)[keep])
+
+
+def hard_faces_tile_lists_reference(corners: torch.Tensor, z: torch.Tensor,
+                                    height: int, width: int):
+    """
+    Plain version of the kernel's binning (``csrc/hard_faces.cu``): each 16 x
+    16 tile's list of the faces whose :func:`face_tile_ranges` holds the tile
+    and that the float64 edge test of :func:`hard_faces_tile_keep_reference`
+    keeps there, in ascending face order. Not on any path: the tests hold
+    the kernel's lists to it (as sets) and show that no face covering a
+    pixel centre of a tile is missing from the tile's list.
+
+    Returns:
+        (lists (B, tiles, L) int32 ascending, padded with -1, L the longest
+        list; counts (B, tiles) int32), tiles row-major.
+    """
+    b, f = z.shape
+    tiles = -(-height // TILE) * -(-width // TILE)
+    cam, face, tile = _listed_pairs(corners, z, height, width)
+    cell = cam * tiles + tile
+    order = torch.argsort(cell * max(f, 1) + face)
+    cell, face = cell[order], face[order]
+    counts = torch.bincount(cell, minlength=b * tiles)
+    slot = torch.arange(cell.numel(), device=cell.device) - (torch.cumsum(counts, 0)
+                                                             - counts)[cell]
+    width_l = int(counts.max()) if counts.numel() else 0
+    lists = torch.full((b * tiles, width_l), -1, dtype=torch.int32, device=corners.device)
+    lists[cell, slot] = face.to(torch.int32)
+    return lists.reshape(b, tiles, width_l), counts.reshape(b, tiles).to(torch.int32)
+
+
+def hard_faces_cover_reference(corners: torch.Tensor, z: torch.Tensor, height: int,
+                               width: int, chunk: int = 8192):
+    """
+    The (camera, face, tile) pairs in which the face covers at least one
+    pixel centre of the 16 x 16 tile under HF's rounding (:func:`edge_value`)
+    and passes its area and z tests: the pairs whose fold the inputs need,
+    whatever implements it. Evaluated over the listed pairs
+    (:func:`hard_faces_tile_lists_reference`'s, which hold every covering
+    pair), ``chunk`` pairs at a time.
+
+    Returns:
+        (camera, face, tile) int64 index vectors.
+    """
+    b, f = z.shape
+    tiles_w = -(-width // TILE)
+    cam, face, tile = _listed_pairs(corners, z, height, width)
+    edges = [t.reshape(b * f, 3) for t in _face_edges(corners)[:4]]
+    offs = torch.arange(TILE, device=corners.device)
+    kept = []
+    for lo in range(0, cam.numel(), chunk):
+        sl = slice(lo, lo + chunk)
+        g = cam[sl] * f + face[sl]
+        rows = torch.div(tile[sl], tiles_w, rounding_mode='floor')[:, None] * TILE + offs
+        cols = (tile[sl] % tiles_w)[:, None] * TILE + offs                  # (n, 16) each
+        px = (rows.to(corners.dtype) + 0.5)[:, None, :, None]
+        py = (cols.to(corners.dtype) + 0.5)[:, None, None, :]
+        a0, a1, ex, ey = (t[g][..., None, None] for t in edges)             # (n, 3, 1, 1)
+        e = edge_value(ex, py - a1, ey, px - a0)                            # (n, 3, 16, 16)
+        inside = (rows < height)[:, :, None] & (cols < width)[:, None, :]
+        cover = (((e >= 0).all(dim=1) | (e <= 0).all(dim=1)) & inside).flatten(1).any(-1)
+        kept.append(cover)
+    keep = torch.cat(kept) if kept else torch.zeros(0, dtype=torch.bool,
+                                                   device=corners.device)
+    return cam[keep], face[keep], tile[keep]
+
+
+def list_capacity(n_faces: int) -> int:
+    """The kernel's per-tile list length for ``n_faces`` faces."""
+    return min(n_faces, LIST_CAP)
+
+
+def scratch_bytes(b: int, n_faces: int, height: int, width: int) -> int:
+    """The kernel's scratch on these shapes: a 64-byte record per face, a
+    count and :func:`list_capacity` face indices per tile."""
+    tiles = -(-height // TILE) * -(-width // TILE)
+    return b * n_faces * 64 + b * tiles * 4 * (1 + list_capacity(n_faces))
 
 
 def _check(corners, z, color, background) -> None:
@@ -172,27 +350,36 @@ def _check(corners, z, color, background) -> None:
         raise ValueError(f'no hard face raster for device {corners.device}')
     if b > 65535:
         raise ValueError(f'at most 65535 cameras per launch, got {b}')
+    if max(h, w) > 65535 * TILE:
+        raise ValueError(f'at most {65535 * TILE} pixels a side, got {h} x {w}')
 
 
 def hard_faces(corners: torch.Tensor, z: torch.Tensor, color: torch.Tensor,
                background: torch.Tensor):
     """The kernel (HF) on CUDA tensors, :func:`hard_faces_reference` on CPU
     tensors; float32 operands as there. Returns (image (B, 3, H, W),
-    winner (B, H, W) int32)."""
+    winner (B, H, W) int32). Reads nothing back from the card: its scratch
+    (:func:`scratch_bytes`) is sized from the shapes alone."""
     global LAUNCHES
     _check(corners, z, color, background)
     if corners.device.type == 'cpu':
         return hard_faces_reference(corners, z, color, background)
     b, f = z.shape
     h, w = background.shape[-2:]
-    out = torch.empty((b, 3, h, w), dtype=torch.float32, device=corners.device)
-    winner = torch.empty((b, h, w), dtype=torch.int32, device=corners.device)
+    dev = corners.device
+    tiles = -(-h // TILE) * -(-w // TILE)
+    cap = list_capacity(f)
+    out = torch.empty((b, 3, h, w), dtype=torch.float32, device=dev)
+    winner = torch.empty((b, h, w), dtype=torch.int32, device=dev)
+    records = torch.empty((b, f, 16), dtype=torch.float32, device=dev)
+    counts = torch.empty((b, tiles), dtype=torch.int32, device=dev)
+    lists = torch.empty((b, tiles, cap), dtype=torch.int32, device=dev)
     operands = [t.contiguous() for t in (corners, z, color, background)]
-    with torch.cuda.device(corners.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = LIBRARY.load().tds_hard_faces(
-            *[t.data_ptr() for t in operands], b, f, h, w, out.data_ptr(),
-            winner.data_ptr(), stream)
+            *[t.data_ptr() for t in operands], b, f, h, w, cap,
+            *[t.data_ptr() for t in (records, counts, lists, out, winner)], stream)
     check_launch(err, 'tds_hard_faces')
     LAUNCHES += 1
     return out, winner
