@@ -1,6 +1,6 @@
 """
 Smoke run of the PyTorch port on one CUDA card. Builds every kernel from the
-checkout (one ``nvcc`` per source, all at once), then drives twenty-one paths:
+checkout (one ``nvcc`` per source, all at once), then drives twenty-two paths:
 
 * the headline env step (carla_Town02, 256 environments, 20 vehicles,
   128 x 128 render plus all metrics): the fused render kernel against its
@@ -151,7 +151,15 @@ checkout (one ``nvcc`` per source, all at once), then drives twenty-one paths:
   Town10HD's textures at 4 px/m (one HF launch per 512-row strip) and
   Town02's distance and direction grids at 0.4 m (the native direction
   baker), each against the cache bundled with the map;
-* the examples ``show_map`` and ``check_map_alignment`` on Town02.
+* the examples ``show_map`` and ``check_map_alignment`` on Town02;
+* the renders split over a mesh of the card (``parallel.shard_simulator``):
+  20 headline steps on ``make_mesh()`` and on the card four times (one
+  fused render launch per slice), config 4's gradient step at horizon 4
+  (the bilinear warp, its VJP and the soft raster's two kernels) and 5
+  face-soup frames (the nearest warp and the packed hard raster) four
+  ways, each held to its unsharded run (images bit for bit, loss and
+  gradients within rtol 3e-4), a batch of 6 that the mesh does not
+  divide, launches, times and device operations.
 
     python3 chip_smoke.py
     python3 chip_smoke.py grouped-check-timing   # the grouped plain check's
@@ -5241,6 +5249,265 @@ def map_examples_path(device, card):
     print(f'map examples phase: {time.perf_counter() - t_phase:.1f} s')
 
 
+# --- the renders split over a mesh (parallel.shard_simulator) ---------------
+
+SHARD_WAYS, SHARD_STEPS, SHARD_IL_HORIZON, SHARD_FACES_FRAMES = 4, 20, 4, 5
+
+
+def reset_kernels():
+    """Every kernel's launch counter set to 0."""
+    from torchdrivesim_tpu_torch.ops import fused, hard, hard_faces, prims, soft, warp
+    fused.LAUNCHES = hard_faces.LAUNCHES = 0
+    warp.LAUNCHES = warp.VJP_LAUNCHES = warp.NEAREST_LAUNCHES = 0
+    soft.FWD_LAUNCHES = soft.BWD_LAUNCHES = 0
+    soft.ACCUM_FWD_LAUNCHES = soft.ACCUM_BWD_LAUNCHES = 0
+    hard.PACKED_LAUNCHES = hard.CHUNKED_LAUNCHES = 0
+    prims.B7_LAUNCHES = prims.B8_LAUNCHES = 0
+
+
+def launched():
+    """The kernels launched since :func:`reset_kernels`, and how often."""
+    return {k: v for k, v in count_kernels().items() if v}
+
+
+def shard_meshes(device):
+    """(label, mesh) of the runs each sharded frame is held to: none, the
+    card's own mesh (``make_mesh()``: one device), the card ``SHARD_WAYS``
+    times."""
+    from torchdrivesim_tpu_torch import parallel
+    return (('unsharded', None), ('make_mesh()', parallel.make_mesh()),
+            (f'{SHARD_WAYS}-way', parallel.make_mesh(devices=[device] * SHARD_WAYS)))
+
+
+def mesh_graph_ms(fn, mesh, device):
+    """``graph_ms(fn, 20)``, or None where ``mesh`` spans a device other
+    than ``device``: one CUDA graph captures the work of one device."""
+    if mesh is not None and any(d != device for d in mesh.devices):
+        return None
+    return graph_ms(fn, 20)
+
+
+def ms_text(ms) -> str:
+    return 'not measured' if ms is None else f'{ms:.4f} ms'
+
+
+def set_mesh(sim, mesh):
+    """``sim`` placed on ``mesh`` by ``shard_simulator``, or unsharded."""
+    from torchdrivesim_tpu_torch import parallel
+    sim.renderer.shard_mesh = None
+    return sim if mesh is None else parallel.shard_simulator(sim, mesh)
+
+
+def sharded_headline(device, card):
+    """The headline frame (Town02, B = 256, res 128, render and metrics)
+    for ``SHARD_STEPS`` steps unsharded, on ``make_mesh()`` and on the
+    card ``SHARD_WAYS`` times: B1 launched once a step, once, and
+    ``SHARD_WAYS`` times, nothing else, no plain call; the images of every
+    step bit-equal to the unsharded ones; the render's times."""
+    from torchdrivesim_tpu_torch.benchmark import build_benchmark_scenario
+    from torchdrivesim_tpu_torch.ops import fused
+    from torchdrivesim_tpu_torch.utils import Resolution
+    scenario = build_benchmark_scenario(batch_size=BATCH, agent_count=AGENTS, res=RES,
+                                        fov=FOV, device=device)
+    sim, step = scenario.sim, scenario.make_step_fn(render=True, metrics=True)
+    action = torch.zeros((BATCH, AGENTS, 2), device=device)
+    prims, cams = prim_frame(scenario, sim.state, scenario.fov)
+    images, times = {}, {}
+    for label, mesh in shard_meshes(device):
+        set_mesh(sim, mesh)
+        state = sim.state
+        step(state, action)                  # the first frame of this layout
+        torch.cuda.synchronize()
+        reset_kernels()
+        with count_calls(fused, ['render_coefs_fused_reference']) as plain:
+            t0 = time.perf_counter()
+            frames = []
+            for _ in range(SHARD_STEPS):
+                state, out = step(state, action)
+                frames.append(out['image'])
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+        ran = launched()
+        ways = 1 if mesh is None else mesh.size
+        images[label] = torch.stack(frames)
+        render = lambda: sim.renderer.render_prims_chw(*prims, Resolution(RES, RES), cams)
+        times[label] = (mesh_graph_ms(render, mesh, device), cuda_ms(render, 20),
+                        step_s / SHARD_STEPS * 1e3)
+        print(f'sharded headline, {label}: launches {ran} in {SHARD_STEPS} steps, plain '
+              f'calls {plain}; render {ms_text(times[label][0])} (graph replay), '
+              f'{times[label][1]:.4f} ms (eager call), {device_ops(render)} device ops; '
+              f'step {times[label][2]:.3f} ms [{card}]')
+        if ran != {'fused_render': ways * SHARD_STEPS} or any(plain.values()):
+            raise AssertionError(f'{label}: launches {ran}, expected '
+                                 f'{ways * SHARD_STEPS} fused_render')
+        same = torch.equal(images[label], images['unsharded'])
+        print(f'sharded headline, {label}: images bit-equal to unsharded: {same}')
+        if not same:
+            raise AssertionError(f'{label}: images differ from the unsharded run')
+    set_mesh(sim, None)
+    return times
+
+
+def sharded_il(device, card):
+    """Config 4's gradient step (B = 16, res 64, float32 policy) at
+    horizon ``SHARD_IL_HORIZON``, unsharded and split ``SHARD_WAYS`` ways:
+    B3 and B4a launched once a frame per slice, the VJP and B4b once a
+    frame but the first per slice; the loss within rtol/atol 1e-6 and each
+    parameter's gradient within rtol 3e-4, atol 2e-6 of the unsharded
+    step's (cuDNN held deterministic; a second unsharded step shows the
+    floor)."""
+    from torchdrivesim_tpu_torch.benchmark import build_il_scenario, make_il_grad_fn
+    from torchdrivesim_tpu_torch.ops import soft, warp
+    scenario = build_il_scenario(batch_size=IL_BATCH, agent_count=IL_AGENTS, res=IL_RES,
+                                 device=device)
+    policy = il_policy(IL_FEATURES, torch.float32, device)
+    grad_fn = make_il_grad_fn(scenario, policy, horizon=SHARD_IL_HORIZON)
+    h = SHARD_IL_HORIZON
+    split = shard_meshes(device)[2]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        results = {}
+        for label, mesh in (('unsharded', None), ('unsharded again', None), split):
+            set_mesh(scenario.sim, mesh)
+            grad_fn(scenario.sim.state)
+            torch.cuda.synchronize()
+            reset_kernels()
+            with count_calls(warp, PLAIN_WARP) as plain:
+                t0 = time.perf_counter()
+                loss, grads = grad_fn(scenario.sim.state)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            ran = launched()
+            ways = 1 if mesh is None else mesh.size
+            want = {'warp_bilinear': ways * h, 'warp_bilinear_vjp': ways * (h - 1),
+                    'soft_raster_fwd': ways * h, 'soft_raster_bwd': ways * (h - 1)}
+            results[label] = (loss, grads)
+            print(f'sharded IL, {label}: loss {float(loss)!r}, launches {ran}, plain '
+                  f'calls {plain}, gradient step {ms:.2f} ms [{card}]')
+            if ran != want or any(plain.values()):
+                raise AssertionError(f'sharded IL {label}: launches {ran}, expected {want}')
+            if not torch.isfinite(loss) or not all(torch.isfinite(g).all() for g in grads):
+                raise AssertionError(f'sharded IL {label}: non-finite loss or gradient')
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        set_mesh(scenario.sim, None)
+    loss0, grads0 = results['unsharded']
+    for label in ('unsharded again', split[0]):
+        loss, grads = results[label]
+        dl = abs(float(loss) - float(loss0))
+        dg = max(float((g - g0).abs().max()) for g, g0 in zip(grads, grads0))
+        ok = dl <= 1e-6 + 1e-6 * abs(float(loss0)) and all(
+            torch.allclose(g, g0, rtol=3e-4, atol=2e-6) for g, g0 in zip(grads, grads0))
+        print(f'sharded IL, {label} against unsharded: loss off by {dl!r}, gradients by '
+              f'at most {dg!r} (rtol 3e-4, atol 2e-6): {"ok" if ok else "OVER"}')
+        if not ok:
+            raise AssertionError(f'sharded IL {label}: loss or gradients over tolerance')
+
+
+def sharded_faces(device, card):
+    """The face soup (Town02, B = 256, res 128) for
+    ``SHARD_FACES_FRAMES`` steps unsharded and split ``SHARD_WAYS`` ways:
+    B2 and B6a once a frame per slice, nothing else; the images bit-equal;
+    the render's times."""
+    from torchdrivesim_tpu_torch.ops import hard, warp
+    from torchdrivesim_tpu_torch.utils import Resolution
+    scenario, wps, mask = faces_world(BATCH, device)
+    sim = scenario.sim
+    action = torch.zeros((BATCH, AGENTS, 2), device=device)
+    faces, cams = faces_frame(scenario, sim.state, wps, mask)
+    images = {}
+    split = shard_meshes(device)[2]
+    for label, mesh in (('unsharded', None), split):
+        set_mesh(sim, mesh)
+        state = sim.state
+        reset_kernels()
+        with count_calls(hard, ['raster_packed_reference', 'raster_chunked_reference']) \
+                as plain:
+            frames = []
+            for _ in range(SHARD_FACES_FRAMES):
+                state, image = faces_iteration(scenario, state, action, wps, mask)
+                frames.append(image)
+            torch.cuda.synchronize()
+        ran = launched()
+        ways = 1 if mesh is None else mesh.size
+        images[label] = torch.stack(frames)
+        render = lambda: sim.renderer.render_faces_chw(*faces, Resolution(RES, RES), cams)
+        ms = mesh_graph_ms(render, mesh, device), cuda_ms(render, 20)
+        print(f'sharded face soup, {label}: launches {ran} in {SHARD_FACES_FRAMES} '
+              f'frames, plain calls {plain}; render {ms_text(ms[0])} (graph replay), '
+              f'{ms[1]:.4f} ms (eager call), {device_ops(render)} device ops [{card}]')
+        n = ways * SHARD_FACES_FRAMES
+        if ran != {'warp_nearest': n, 'hard_raster_packed': n} or any(plain.values()):
+            raise AssertionError(f'sharded face soup {label}: launches {ran}, expected '
+                                 f'{n} warp_nearest and {n} hard_raster_packed')
+    same = torch.equal(images[split[0]], images['unsharded'])
+    print(f'sharded face soup: images bit-equal to unsharded: {same}')
+    if not same:
+        raise AssertionError('sharded face soup: images differ from the unsharded run')
+    set_mesh(sim, None)
+
+
+def sharded_indivisible(device):
+    """A headline world of 6 environments on the card's ``SHARD_WAYS``-way
+    mesh (set on the renderer past ``shard_simulator``'s check): one
+    warning that says 'not divisible', one B1 launch a frame, the
+    unsharded image."""
+    import logging
+    from torchdrivesim_tpu_torch import parallel
+    from torchdrivesim_tpu_torch.benchmark import build_benchmark_scenario
+    from torchdrivesim_tpu_torch.rendering import renderer as renderer_module
+    scenario = build_benchmark_scenario(batch_size=6, agent_count=AGENTS, res=RES,
+                                        fov=FOV, device=device)
+    step = scenario.make_step_fn(render=True, metrics=False)
+    action = torch.zeros((6, AGENTS, 2), device=device)
+    _, want = step(scenario.sim.state, action)
+    messages = []
+    handler = logging.Handler()
+    handler.emit = lambda record: messages.append(record.getMessage())
+    renderer_module.logger.addHandler(handler)
+    try:
+        scenario.sim.renderer.shard_mesh = parallel.make_mesh(devices=[device] * SHARD_WAYS)
+        reset_kernels()
+        _, got = step(scenario.sim.state, action)
+        _, again = step(scenario.sim.state, action)
+        torch.cuda.synchronize()
+        ran = launched()
+    finally:
+        renderer_module.logger.removeHandler(handler)
+    warned = sum('not divisible' in m for m in messages)
+    same = torch.equal(got['image'], want['image']) and torch.equal(again['image'],
+                                                                      want['image'])
+    print(f'batch 6 on the {SHARD_WAYS}-way mesh: {warned} warning(s) saying "not '
+          f'divisible" ({messages[:1]}), launches {ran} in 2 frames, image equal to '
+          f'unsharded: {same}')
+    if warned != 1 or ran != {'fused_render': 2} or not same:
+        raise AssertionError('batch 6 on the mesh: expected one warning, one launch a '
+                             'frame and the unsharded image')
+
+
+def sharded_path(device, card):
+    """The renders split over a mesh of the one card
+    (``parallel.shard_simulator``): the headline frame on ``make_mesh()``
+    and on the card ``SHARD_WAYS`` times (B1), config 4's gradient step
+    (B3, its VJP, B4a, B4b) and the face soup (B2, B6a) ``SHARD_WAYS``
+    ways, each held to its unsharded run; a batch the mesh does not
+    divide. Every count is set to 0 just before each run and read just
+    after it."""
+    t_phase = time.perf_counter()
+    times = sharded_headline(device, card)
+    sharded_il(device, card)
+    sharded_faces(device, card)
+    sharded_indivisible(device)
+    base = times['unsharded']
+    for label, (g, e, s) in times.items():
+        ratio = '' if g is None else f' ({g / base[0]:.3f}x unsharded)'
+        print(f'sharded headline render B={BATCH} res {RES}, {label}: {ms_text(g)} graph '
+              f'replay{ratio}, {e:.4f} ms eager ({e / base[1]:.3f}x), step {s:.3f} ms '
+              f'({s / base[2]:.3f}x) [{card}]')
+    print(f'sharded phase: {time.perf_counter() - t_phase:.1f} s')
+
+
 def ptxas_usage(library):
     """Start ``nvcc -Xptxas -v`` on ``library``'s source, with the build's
     own flags, into a cubin under ``build/``; returns the process."""
@@ -5316,6 +5583,7 @@ def main() -> int:
     kernels += hard_faces_path(device, card)
     kernels.append(map_bake_path(device, card))
     map_examples_path(device, card)
+    sharded_path(device, card)
 
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -38,7 +38,9 @@ packed hard raster also run on the face-soup frame, and the soft raster
 over the full-resolution bilinear background. The float-color hard raster
 (HF) must match its plain version bit for bit, image and winner index, on
 random, pixel-centred, sliver and tile-grazing faces and on the
-differentiable primitive and face-soup frames.
+differentiable primitive and face-soup frames. The primitive frame split
+over a mesh of the card twice (``parallel``) must equal the unsharded one
+bit for bit.
 """
 import dataclasses
 
@@ -696,3 +698,26 @@ def test_hard_faces_on_the_differentiable_routes(cuda):
     before = count_kernels()
     renderer.render_faces_chw(*faces, Resolution(RES, RES), cams)
     assert launched_since(before) == {'hard_faces': 1}
+
+
+@pytest.mark.depends_on_cuda
+def test_two_entry_mesh_renders_the_primitive_frame_bit_equal(cuda):
+    """The headline world's primitive frame (B = 8, res 128) on a mesh of
+    the card twice: over the texture two B1 launches, without it two B7
+    launches, each image bit-equal to the unsharded one."""
+    from chip_smoke import FOV, RES, prim_frame, untextured_renderer
+    from torchdrivesim_tpu_torch import parallel
+    from torchdrivesim_tpu_torch.benchmark import build_benchmark_scenario
+    from torchdrivesim_tpu_torch.utils import Resolution
+    scenario = build_benchmark_scenario(batch_size=8, res=RES, fov=FOV, device=cuda)
+    frame, cams = prim_frame(scenario, scenario.sim.state, FOV)
+    mesh = parallel.make_mesh(devices=[cuda, cuda])
+    for renderer, counter in ((scenario.sim.renderer, (fused, 'LAUNCHES')),
+                              (untextured_renderer(scenario, cuda), (prims, 'B7_LAUNCHES'))):
+        renderer.shard_mesh = None
+        want = renderer.render_prims_chw(*frame, Resolution(RES, RES), cams)
+        renderer.shard_mesh = mesh
+        before = getattr(*counter)
+        got = renderer.render_prims_chw(*frame, Resolution(RES, RES), cams)
+        assert getattr(*counter) == before + 2
+        assert got.device == want.device and torch.equal(got, want)

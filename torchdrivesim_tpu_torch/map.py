@@ -81,11 +81,21 @@ class MapConfig:
 
     @cached_property
     def road_mesh(self) -> Optional[BirdviewMesh]:
-        """The serialized drivable-surface mesh (triangulating a mesh from
-        the Lanelet2 map is not ported)."""
+        """
+        The drivable-surface mesh: loaded from the serialized mesh when
+        there is one, else triangulated from the Lanelet2 map (the lane
+        markings merged over the road surface); None without either.
+        """
         if self.mesh_path is not None and os.path.exists(self.mesh_path):
             return BirdviewMesh.load(self.mesh_path)
-        return None
+        lanelet_map = self.lanelet_map
+        if lanelet_map is None:
+            return None
+        from torchdrivesim_tpu_torch.lanelet2 import (
+            lanelet_map_to_lane_mesh, road_mesh_from_lanelet_map)
+        road = BirdviewMesh.set_properties(road_mesh_from_lanelet_map(lanelet_map),
+                                           category='road')
+        return lanelet_map_to_lane_mesh(lanelet_map, left_handed=False).merge(road)
 
     @property
     def stoplines(self) -> List[Stopline]:

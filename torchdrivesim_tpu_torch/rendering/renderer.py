@@ -36,9 +36,15 @@ The port's bird's-eye-view renderer (counterpart of
 
 A square resolution that is not a multiple of 16 renders at the next
 multiple of 16, at the same pixels per meter, and returns the top-left crop.
+
+With :attr:`Renderer.shard_mesh` set (``parallel.shard_simulator``), each
+of the three renders cuts its batch into one slice per mesh entry wherever
+its branch launches a kernel, as the reference's ``jax.shard_map`` does.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import logging
 from typing import Dict, List, Optional, Tuple
 
@@ -202,15 +208,24 @@ class Renderer(BirdviewRenderer):
         self._tile_offsets: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
         #: (quads, triangles) per camera whose sort route has been logged
         self._warned_sort = set()
+        #: optional ``parallel.Mesh``: the renders that launch a kernel
+        #: split their batch over its entries (:meth:`_shard_wrap`)
+        self.shard_mesh = None
+        #: render batch sizes whose indivisibility by the mesh was logged
+        self._warned_shard_batch = set()
+        #: this renderer with its device tables on another device, by device
+        #: (:meth:`_on_device`)
+        self._device_views: Dict[torch.device, "Renderer"] = {}
 
     def copy(self) -> "Renderer":
-        """:meth:`BirdviewRenderer.copy` sharing this renderer's texture and
-        the device tables built from it."""
+        """:meth:`BirdviewRenderer.copy` sharing this renderer's texture,
+        the device tables built from it and its shard mesh."""
         other = super().copy()
         other._background_texture = self._background_texture
         other._mip_pyramid = self._mip_pyramid
         other._packed_texture = self._packed_texture
         other._quad = self._quad
+        other.shard_mesh = self.shard_mesh
         return other
 
     @property
@@ -227,6 +242,7 @@ class Renderer(BirdviewRenderer):
         self._mip_pyramid = None
         self._packed_texture = None
         self._quad = None
+        self._device_views = {}
         if texture is not None:
             self._mip_pyramid = [
                 level.to(self.device) for level in build_mip_pyramid(
@@ -249,6 +265,75 @@ class Renderer(BirdviewRenderer):
                 data=torch.from_numpy(pack_texture_rgb8_quad(tex.data)).to(self.device),
                 origin=self._packed_texture.origin, cell_size=float(tex.cell_size))
         return self._quad
+
+    def _on_device(self, device: torch.device) -> "Renderer":
+        """This renderer with its device tables (the mip pyramid, the packed
+        and quad textures, the sub-camera offsets, the background color) on
+        ``device``: itself on its own device, else a copy made at the first
+        use of that device and kept, whose tables are moved there (the quad
+        texture and the offsets are built there at their first use)."""
+        device = _canonical(device)
+        if device == _canonical(self.device):
+            return self
+        view = self._device_views.get(device)
+        if view is None:
+            view = self.copy()
+            view.shard_mesh = None
+            view.device = device
+            view._background_color = self._background_color.to(device)
+            view._quad = None
+            if self._mip_pyramid is not None:
+                view._mip_pyramid = [level.to(device) for level in self._mip_pyramid]
+            if self._packed_texture is not None:
+                tex = self._packed_texture
+                view._packed_texture = Grid2D(data=tex.data.to(device),
+                                              origin=tex.origin.to(device),
+                                              cell_size=tex.cell_size)
+            self._device_views[device] = view
+        return view
+
+    def _shard_wrap(self, fn, batch: int):
+        """
+        ``fn(renderer, *operands)`` as a function of its operands, split
+        over :attr:`shard_mesh` (the reference's ``jax.shard_map`` of its
+        kernel renders): every operand whose leading dimension is the
+        ``batch`` is cut into one contiguous slice per mesh entry; slice
+        ``i`` renders on ``mesh.devices[i]``, with every operand there and
+        this renderer's tables there (:meth:`_on_device`), and the frames
+        are gathered on ``mesh.devices[0]`` in slice order. Every shape
+        inside ``fn`` derives from its operands, so from the slice. Without
+        a mesh or with a mesh of one device, ``fn`` on this renderer; with
+        a batch that is not a multiple of the mesh size too, after a warning
+        (once per batch size).
+        """
+        mesh = self.shard_mesh
+        if mesh is None or mesh.size == 1:
+            return functools.partial(fn, self)
+        n = mesh.size
+        if batch % n != 0:
+            if batch not in self._warned_shard_batch:
+                self._warned_shard_batch.add(batch)
+                logger.warning(
+                    "render batch %d is not divisible by the %d-device shard_mesh; "
+                    "the kernels render the whole batch in one call instead of one "
+                    "slice per device.", batch, n)
+            return functools.partial(fn, self)
+        local = batch // n
+
+        def split(*operands):
+            frames = []
+            for i, device in enumerate(mesh.devices):
+                part = [x[i * local:(i + 1) * local]
+                        if getattr(x, 'ndim', 0) > 0 and x.shape[0] == batch else x
+                        for x in operands]
+                part = [x.to(device) if torch.is_tensor(x) else x for x in part]
+                scope = torch.cuda.device(device) if device.type == 'cuda' \
+                    else contextlib.nullcontext()
+                with scope:
+                    frames.append(fn(self._on_device(device), *part).to(mesh.devices[0]))
+            return torch.cat(frames, dim=0)
+
+        return split
 
     def _warp_mip(self, scale: float, size: int) -> Optional[MipLevel]:
         """The mip level for the fused render and the nearest warp, or None
@@ -361,6 +446,18 @@ class Renderer(BirdviewRenderer):
             raise NotImplementedError(
                 f"res {size}: the primitive render serves sizes the banded "
                 "kernels tile (multiples of 16) and pads others from 4 up")
+        scale = cameras.scale
+        frame = self._shard_wrap(
+            lambda r, quads, qz, qcolors, tris, tz, tcolors, xy, sc: r._prims_frame(
+                quads, qz, qcolors, tris, tz, tcolors, size, Cameras(xy, sc, scale),
+                packed), qz.shape[0])
+        return frame(quads, qz, qcolors, tris, tz, tcolors, cameras.xy, cameras.sc)
+
+    def _prims_frame(self, quads, qz, qcolors, tris, tz, tcolors, size: int,
+                     cameras: Cameras, packed: bool) -> torch.Tensor:
+        """:meth:`render_prims_chw` of one batch slice at a size its
+        kernels serve: the fused render, the banded raster, or in
+        differentiable mode the float-color hard raster (HF)."""
         if self.cfg.differentiable:
             image = self._render_prims_plain(quads, qz, qcolors, tris, tz, tcolors,
                                              size, cameras) * 255.0
@@ -542,6 +639,25 @@ class Renderer(BirdviewRenderer):
             return self.render_rgb_mesh_chw(
                 mesh, Resolution(pad_to, pad_to), self._pad_cameras(cameras, size, pad_to),
                 background_texture)[..., :size, :size]
+        scale = cameras.scale
+
+        def frame(r, verts, faces, attrs, xy, sc):
+            return r._mesh_frame(RGBMesh(verts, faces, attrs), size,
+                                 Cameras(xy, sc, scale), background_texture)
+
+        # every branch launches a kernel but the painter's blend over a
+        # background that the bilinear warp (B3) does not draw
+        if (not self.cfg.differentiable or self.cfg.soft_blend == 'softmax'
+                or self._soft_warp_mip(scale, size, background_texture) is not None):
+            frame = self._shard_wrap(frame, cameras.xy.shape[0])
+        else:
+            frame = functools.partial(frame, self)
+        return frame(mesh.verts, mesh.faces, mesh.attrs, cameras.xy, cameras.sc)
+
+    def _mesh_frame(self, mesh: RGBMesh, size: int, cameras: Cameras,
+                    background_texture: Optional[Grid2D]) -> torch.Tensor:
+        """:meth:`render_rgb_mesh_chw` of one batch slice at a multiple of
+        16."""
         if not self.cfg.differentiable:
             background, ops, _ = self.hard_frame_operands(mesh, size, cameras,
                                                           background_texture)
@@ -583,8 +699,7 @@ class Renderer(BirdviewRenderer):
         if self._mip_pyramid is None:
             return self._background_color[None, :, None, None].expand(
                 cameras.xy.shape[0], 3, size, size)
-        mip = self._warp_mip(cameras.scale, size) if self.cfg.diff_fast_background \
-            else None
+        mip = self._soft_warp_mip(cameras.scale, size, background_texture)
         if mip is not None:
             return warp_background_diff(mip, cameras.xy, cameras.sc, cameras.scale,
                                         self._background_color, left_handed=lh, res=size)
@@ -592,6 +707,14 @@ class Renderer(BirdviewRenderer):
         return sample_background_quad(quad.data, quad.origin, quad.cell_size,
                                       cameras.xy, cameras.sc, cameras.scale, size,
                                       self._background_color, left_handed=lh)
+
+    def _soft_warp_mip(self, scale: float, size: int,
+                       background_texture: Optional[Grid2D]) -> Optional[MipLevel]:
+        """The mip level of the differentiable background's bilinear warp
+        (B3), or None where :meth:`soft_background` samples otherwise."""
+        if background_texture is not None or not self.cfg.diff_fast_background:
+            return None
+        return self._warp_mip(scale, size)
 
     def soft_frame_operands(self, mesh: RGBMesh, size: int, cameras: Cameras,
                             background_texture: Optional[Grid2D] = None):
@@ -688,6 +811,16 @@ class Renderer(BirdviewRenderer):
             return self.render_faces_chw(
                 corners, z, colors, Resolution(pad_to, pad_to),
                 self._pad_cameras(cameras, size, pad_to))[..., :size, :size]
+        scale = cameras.scale
+        frame = self._shard_wrap(
+            lambda r, corners, z, colors, xy, sc: r._faces_frame(
+                corners, z, colors, size, Cameras(xy, sc, scale)), z.shape[0])
+        return frame(corners, z, colors, cameras.xy, cameras.sc)
+
+    def _faces_frame(self, corners, z, colors, size: int,
+                     cameras: Cameras) -> torch.Tensor:
+        """:meth:`render_faces_chw` of one batch slice: the hard raster (B6a
+        or B6b) over its background, or in differentiable mode HF."""
         background, faces, _ = self.face_frame_operands(corners, z, colors, size, cameras)
         if self.cfg.differentiable:
             return rasterize_hard_faces(*faces, background) * 255.0
@@ -737,3 +870,12 @@ class Renderer(BirdviewRenderer):
         """(B, H, W, 3) float image in [0, 255] (the channels-last layout)."""
         return self.render_rgb_mesh_chw(mesh, res, cameras,
                                         background_texture).permute(0, 2, 3, 1)
+
+
+def _canonical(device) -> torch.device:
+    """``device`` with the current card's index where a CUDA device has
+    none, so that 'cuda' and 'cuda:0' name one device."""
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        return torch.device('cuda', torch.cuda.current_device())
+    return device

@@ -595,10 +595,8 @@ class Simulator:
     # --- copies and batch operations ---------------------------------------
 
     def to(self, device=None) -> "Simulator":
-        """This simulator; it stays on the device it was built on."""
-        if device is not None and torch.device(device) != self.device:
-            raise NotImplementedError(
-                f"the simulator lives on {self.device}; build it on {device}")
+        """This simulator, for any ``device``: its state stays where it is
+        (placing the state is ``parallel.shard_simulator``'s work)."""
         return self
 
     def copy(self) -> "Simulator":
