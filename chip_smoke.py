@@ -183,6 +183,8 @@ import time
 import numpy as np
 import torch
 
+from torchdrivesim_tpu_torch import tracing
+
 BATCH, AGENTS, RES, FOV = 256, 20, 128, 70.0
 MAIN_STEPS = 200
 COMPARE_BATCH, COMPARE_STEPS = 4, 3
@@ -259,6 +261,25 @@ def card_label() -> str:
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+#: the hand-written kernels, by the ids of their ``launch.<id>`` counters
+KERNEL_IDS = ('B1', 'B2', 'B3', 'B3-VJP', 'B4a', 'B4b', 'B5a', 'B5b', 'B6a', 'B6b', 'B7',
+              'B8', 'HF')
+_LAUNCH_BASE = {}
+
+
+def reset_launches(*kernels):
+    """Count the launches of ``kernels`` (ids of :data:`KERNEL_IDS`) from
+    here on: :func:`launches_of` reads them."""
+    counts = tracing.counts()
+    for k in kernels:
+        _LAUNCH_BASE[k] = counts.get(f'launch.{k}', 0)
+
+
+def launches_of(kernel: str) -> int:
+    """The launches of ``kernel`` since its last :func:`reset_launches`."""
+    return int(tracing.counts().get(f'launch.{kernel}', 0) - _LAUNCH_BASE.get(kernel, 0))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -543,8 +564,7 @@ def fused_bound(mip, ops, screen, res, fov):
 def headline(device, card):
     """The headline phases; returns the fused kernel's JSON entry, the
     scenario and the state its main path ended on."""
-    from torchdrivesim_tpu_torch.benchmark import (
-        build_benchmark_scenario, run_benchmark)
+    from torchdrivesim_tpu_torch.benchmark import build_benchmark_scenario
     from torchdrivesim_tpu_torch.ops import fused
 
     # 1. kernel against plain version at the headline operands
@@ -568,13 +588,13 @@ def headline(device, card):
     step = scenario.make_step_fn(render=True, metrics=True)
     state = scenario.sim.state
     action = torch.zeros((BATCH, AGENTS, 2), device=device)
-    fused.LAUNCHES = 0
+    reset_launches('B1')
     t0 = time.perf_counter()
     for _ in range(MAIN_STEPS):
         state, out = step(state, action)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = fused.LAUNCHES
+    launches = launches_of('B1')
     print(f'main path: {MAIN_STEPS} steps at B={BATCH} in {main_s:.2f} s, '
           f'fused_render launches {launches}')
     if launches != MAIN_STEPS:
@@ -621,10 +641,6 @@ def headline(device, card):
           f'zeroed {floor_ms:.4f} ms [{card}]')
     print(f'headline: {device_ops(lambda: step(state, action))} device ops per env '
           f'step [{card}]')
-    bench = run_benchmark(scenario, steps_per_chunk=100, n_chunks=3)
-    print(f'env step B={BATCH} res={RES} render+metrics: '
-          f'{bench["env_steps_per_sec_median"]:.1f} env-steps/s median of '
-          f'chunks {[round(r, 1) for r in bench["chunk_rates"]]} [{card}]')
     entry = {'name': 'fused_render', 'route': 'cuda',
              'source': 'torchdrivesim_tpu_torch/csrc/fused_render.cu',
              'replaces': 'torchdrivesim_tpu/ops/pallas_fused.py:69',
@@ -1029,7 +1045,7 @@ def il_path(device, card):
     """The imitation-learning phases; returns the JSON entries of its
     four kernels."""
     from torchdrivesim_tpu_torch.benchmark import (
-        build_il_scenario, make_il_grad_fn, make_il_loss_fn, run_il_benchmark)
+        build_il_scenario, make_il_grad_fn, make_il_loss_fn)
     from torchdrivesim_tpu_torch.imitation import (
         build_synthetic_batch, build_synthetic_simulator, make_bc_train_step,
         make_optimizer)
@@ -1089,14 +1105,14 @@ def il_path(device, card):
     params = list(policy.parameters())
     grad_fn = make_il_grad_fn(scenario, policy, horizon=IL_HORIZON)
     state = scenario.sim.state
-    warp.LAUNCHES = warp.VJP_LAUNCHES = soft.FWD_LAUNCHES = soft.BWD_LAUNCHES = 0
+    reset_launches('B3', 'B3-VJP', 'B4a', 'B4b')
     with count_calls(warp, PLAIN_WARP) as plain_calls:
         t0 = time.perf_counter()
         loss, grads = grad_fn(state)
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
-    launches = {'warp': warp.LAUNCHES, 'vjp': warp.VJP_LAUNCHES,
-                'fwd': soft.FWD_LAUNCHES, 'bwd': soft.BWD_LAUNCHES}
+    launches = {'warp': launches_of('B3'), 'vjp': launches_of('B3-VJP'),
+                'fwd': launches_of('B4a'), 'bwd': launches_of('B4b')}
     print(f'IL main path: one gradient step, B={IL_BATCH}, {IL_AGENTS} vehicles, '
           f'res {IL_RES}, horizon {IL_HORIZON}, in {step_s:.2f} s; loss '
           f'{float(loss)!r}; launches warp_bilinear {launches["warp"]}, '
@@ -1209,12 +1225,6 @@ def il_path(device, card):
           f'{peak / 2**20:.1f} MiB [{card}]')
     profile_step(lambda: grad_fn(state), 'IL gradient step', card,
                  count=('warp_bilinear_kernel', 'warp_bilinear_vjp_kernel'))
-    bench = run_il_benchmark(scenario, policy, horizon=IL_HORIZON,
-                             rollouts_per_chunk=2, n_chunks=3)
-    print(f'IL gradient step B={IL_BATCH} horizon {IL_HORIZON}: '
-          f'{bench["grad_rollouts_per_sec_median"]:.3f} grad-rollouts/s, '
-          f'{bench["env_steps_per_sec_median"]:.1f} env-steps/s median of chunks '
-          f'{[round(r, 3) for r in bench["chunk_rollout_rates"]]} rollouts/s [{card}]')
     return entries
 
 
@@ -1644,8 +1654,8 @@ def grouped_soft_path(device, card):
     Town02 road mesh); returns the JSON entries of B5a and B5b."""
     from torchdrivesim_tpu_torch.benchmark import (
         build_il_scenario, il_view, make_il_grad_fn, make_il_loss_fn,
-        make_il_rollout_fn, run_il_benchmark)
-    from torchdrivesim_tpu_torch.ops import soft, warp
+        make_il_rollout_fn)
+    from torchdrivesim_tpu_torch.ops import soft
 
     # 1. the kernels against their plain versions and their per-tile lists
     # against the plain cull: on random operands (a partial last group and a
@@ -1692,17 +1702,17 @@ def grouped_soft_path(device, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     resident = torch.cuda.memory_allocated(device)
-    warp.LAUNCHES = warp.VJP_LAUNCHES = soft.FWD_LAUNCHES = soft.BWD_LAUNCHES = 0
-    soft.ACCUM_FWD_LAUNCHES = soft.ACCUM_BWD_LAUNCHES = 0
+    reset_launches('B3', 'B3-VJP', 'B4a', 'B4b', 'B5a', 'B5b')
     t0 = time.perf_counter()
     loss, grads = grad_fn(state)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
-    launches = {'warp_bilinear': warp.LAUNCHES, 'warp_bilinear_vjp': warp.VJP_LAUNCHES,
-                'soft_raster_fwd': soft.FWD_LAUNCHES,
-                'soft_raster_bwd': soft.BWD_LAUNCHES,
-                'soft_accum_fwd': soft.ACCUM_FWD_LAUNCHES,
-                'soft_accum_bwd': soft.ACCUM_BWD_LAUNCHES}
+    launches = {'warp_bilinear': launches_of('B3'),
+                'warp_bilinear_vjp': launches_of('B3-VJP'),
+                'soft_raster_fwd': launches_of('B4a'),
+                'soft_raster_bwd': launches_of('B4b'),
+                'soft_accum_fwd': launches_of('B5a'),
+                'soft_accum_bwd': launches_of('B5b')}
     peak = torch.cuda.max_memory_allocated(device)
     total = torch.cuda.get_device_properties(device).total_memory
     print(f'untextured IL main path: one gradient rollout, B={IL_BATCH}, {IL_AGENTS} '
@@ -1801,12 +1811,6 @@ def grouped_soft_path(device, card):
                         'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
                         'bound_by': bound_by, 'library_ms': None})
     profile_step(lambda: grad_fn(state), 'untextured IL gradient step', card)
-    bench = run_il_benchmark(scenario, policy, horizon=IL_HORIZON,
-                             rollouts_per_chunk=2, n_chunks=3)
-    print(f'untextured IL gradient step B={IL_BATCH} horizon {IL_HORIZON}: '
-          f'{bench["grad_rollouts_per_sec_median"]:.3f} grad-rollouts/s, '
-          f'{bench["env_steps_per_sec_median"]:.1f} env-steps/s median of chunks '
-          f'{[round(r, 3) for r in bench["chunk_rollout_rates"]]} rollouts/s [{card}]')
     return entries
 
 
@@ -1977,20 +1981,20 @@ def rl_compare_with_cpu(device):
             raise AssertionError(f'RL step {i}: observations differ')
 
 
-def rl_counts(warp, hard):
-    return {'warp_nearest': warp.NEAREST_LAUNCHES,
-            'hard_raster_packed': hard.PACKED_LAUNCHES,
-            'hard_raster_chunked': hard.CHUNKED_LAUNCHES}
+def rl_counts():
+    return {'warp_nearest': launches_of('B2'),
+            'hard_raster_packed': launches_of('B6a'),
+            'hard_raster_chunked': launches_of('B6b')}
 
 
-def rl_zero_counts(warp, hard):
-    warp.NEAREST_LAUNCHES = hard.PACKED_LAUNCHES = hard.CHUNKED_LAUNCHES = 0
+def rl_zero_counts():
+    reset_launches('B2', 'B6a', 'B6b')
 
 
 def rl_path(device, card):
     """The RL phases; returns the JSON entries of its three kernels."""
     from torchdrivesim_tpu_torch import rl
-    from torchdrivesim_tpu_torch.benchmark import build_rl_env, run_rl_benchmark
+    from torchdrivesim_tpu_torch.benchmark import build_rl_env
     from torchdrivesim_tpu_torch.ops import hard, warp
 
     # 1. the kernels against their plain versions on random operands
@@ -2040,12 +2044,12 @@ def rl_path(device, card):
     launches = None
     for it in range(RL_ITERATIONS):
         torch.cuda.synchronize()
-        rl_zero_counts(warp, hard)
+        rl_zero_counts()
         t0 = time.perf_counter()
         state, batch = rl.collect(model, step_fn, state, RL_ROLLOUT, generator)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        counts = rl_counts(warp, hard)
+        counts = rl_counts()
         for _ in range(RL_EPOCHS):
             loss, pg, v_loss = rl.ppo_update(model, optimizer, batch)
         torch.cuda.synchronize()
@@ -2098,13 +2102,13 @@ def rl_path(device, card):
                for _ in range(RL_UNTEXTURED_STEPS + 1)]
     state_u, obs_u, _, _ = step_u(untextured.initial_state, actions[0])
     torch.cuda.synchronize()
-    rl_zero_counts(warp, hard)
+    rl_zero_counts()
     t0 = time.perf_counter()
     for act in actions[1:]:
         state_u, obs_u, reward_u, _ = step_u(state_u, act)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / RL_UNTEXTURED_STEPS
-    counts_u = rl_counts(warp, hard)
+    counts_u = rl_counts()
     (town_bg, town_ops, _), (town_mesh, town_cams) = rl_frame(untextured, state_u)
     print(f'untextured RL env B={RL_UNTEXTURED_BATCH}: {town_ops[1].shape[1]} faces per '
           f'camera, {step_ms:.2f} ms per step; launches over {RL_UNTEXTURED_STEPS} '
@@ -2122,12 +2126,12 @@ def rl_path(device, card):
     gen_c = torch.Generator(device=device).manual_seed(2)
     state_c, _ = rl.collect(model, step_u, untextured.initial_state, RL_ROLLOUT, gen_c)
     torch.cuda.synchronize()
-    rl_zero_counts(warp, hard)
+    rl_zero_counts()
     t0 = time.perf_counter()
     state_c, batch_u = rl.collect(model, step_u, state_c, RL_ROLLOUT, gen_c)
     torch.cuda.synchronize()
     collect_s = time.perf_counter() - t0
-    counts_c = rl_counts(warp, hard)
+    counts_c = rl_counts()
     print(f'untextured RL collect B={RL_UNTEXTURED_BATCH} rollout {RL_ROLLOUT}: '
           f'{collect_s:.3f} s ({RL_UNTEXTURED_BATCH * RL_ROLLOUT / collect_s:.1f} '
           f'env-steps/s); launches per collect {counts_c} [{card}]')
@@ -2222,13 +2226,6 @@ def rl_path(device, card):
         print(f'RL collect: {n_ops / RL_ROLLOUT:.1f} device operations per rollout step '
               f'({n_ops / (2 * RL_ROLLOUT + 1):.1f} per environment step call), busy '
               f'{busy * 100:.1f}% [{card}]')
-    bench = run_rl_benchmark(venv, model, optimizer, rollout=RL_ROLLOUT,
-                             epochs=RL_EPOCHS, n_chunks=3)
-    print(f'RL B={RL_BATCH} rollout {RL_ROLLOUT}: collect '
-          f'{bench["collect_env_steps_per_sec_median"]:.1f} env-steps/s median of chunks '
-          f'{[round(r, 1) for r in bench["chunk_collect_rates"]]}; PPO update '
-          f'{bench["ppo_update_ms_median"]:.2f} ms median, iteration updates '
-          f'{[round(r, 2) for r in bench["chunk_ppo_iteration_ms"]]} ms [{card}]')
     return entries
 
 
@@ -2542,7 +2539,6 @@ def compare_prims(prims_mod, scene, bg, res, label, masks_cover=True):
 def prim_path(device, card, scenario, state):
     """The primitive raster's phases on the headline scenario and the state
     its main path ended on; returns the JSON entries of B7 and B8."""
-    from torchdrivesim_tpu_torch.ops import fused
     from torchdrivesim_tpu_torch.ops import prims as P
     from torchdrivesim_tpu_torch.ops.rasterize import n_bands_for
     from torchdrivesim_tpu_torch.utils import Resolution
@@ -2593,7 +2589,7 @@ def prim_path(device, card, scenario, state):
     action = torch.zeros((BATCH, AGENTS, 2), device=device)
     st_u = scenario.sim.state
     stage_s = 0.0
-    P.B7_LAUNCHES = P.B8_LAUNCHES = fused.LAUNCHES = 0
+    reset_launches('B7', 'B8', 'B1')
     for _ in range(UNTEXTURED_STEPS):
         st_u, _ = step(st_u, action)
         torch.cuda.synchronize()
@@ -2602,7 +2598,8 @@ def prim_path(device, card, scenario, state):
         image = plain.render_prims_chw(*world, Resolution(RES, RES), cams)
         torch.cuda.synchronize()
         stage_s += time.perf_counter() - t0
-    launches_u = {'b7': P.B7_LAUNCHES, 'b8': P.B8_LAUNCHES, 'fused': fused.LAUNCHES}
+    launches_u = {'b7': launches_of('B7'), 'b8': launches_of('B8'),
+                  'fused': launches_of('B1')}
     print(f'untextured prim render: {UNTEXTURED_STEPS} steps at B={BATCH} res {RES}, '
           f'generate_prims + render_prims_chw {stage_s * 1e3 / UNTEXTURED_STEPS:.3f} ms '
           f'per step (host clock between syncs); launches {launches_u} [{card}]')
@@ -2620,14 +2617,15 @@ def prim_path(device, card, scenario, state):
     # 4. the wide view through Simulator.render: full-resolution background
     sim = scenario.sim
     ego = sim.state.agent_state[:, 0]
-    P.B7_LAUNCHES = P.B8_LAUNCHES = fused.LAUNCHES = 0
+    reset_launches('B7', 'B8', 'B1')
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     wide = sim.render(ego[:, :2], ego[:, 2:3], res=Resolution(WIDE_RES, WIDE_RES),
                       fov=WIDE_FOV)
     torch.cuda.synchronize()
     wide_ms = (time.perf_counter() - t0) * 1e3
-    launches_w = {'b7': P.B7_LAUNCHES, 'b8': P.B8_LAUNCHES, 'fused': fused.LAUNCHES}
+    launches_w = {'b7': launches_of('B7'), 'b8': launches_of('B8'),
+                  'fused': launches_of('B1')}
     color = torch.tensor(sim.renderer.get_color('background'), dtype=torch.float32,
                          device=device)
     bg_share = float((wide[:, 0] == color[None, :, None, None]).all(dim=1).float().mean())
@@ -2640,12 +2638,12 @@ def prim_path(device, card, scenario, state):
         raise AssertionError('wide view: non-finite, or all or none in the background color')
 
     # 5. B8 at full width on the headline's unsorted prims
-    P.B7_LAUNCHES = P.B8_LAUNCHES = 0
+    reset_launches('B7', 'B8')
     b8_image = P.rasterize_hard_prims(*headline_scene, RES, bg)
     torch.cuda.synchronize()
-    launches_b8 = P.B8_LAUNCHES
+    launches_b8 = launches_of('B8')
     print(f'prim_raster on the headline frame: {launches_b8} launch')
-    if launches_b8 != 1 or P.B7_LAUNCHES != 0 or not torch.isfinite(b8_image).all():
+    if launches_b8 != 1 or launches_of('B7') != 0 or not torch.isfinite(b8_image).all():
         raise AssertionError('B8 run')
 
     # 6. times and bounds, on this card
@@ -2738,19 +2736,18 @@ def fused_main_path(scenario, label, card):
     """``MAIN_STEPS`` steps of the scenario with zero actions, counting
     B1's launches (one per step required); returns (launches, the state
     the path ended on, the step function, the action)."""
-    from torchdrivesim_tpu_torch.ops import fused
     sim = scenario.sim
     step = scenario.make_step_fn(render=True, metrics=True)
     action = torch.zeros((sim.batch_size, sim.agent_count, sim.action_size),
                          device=sim.device)
     state = sim.state
-    fused.LAUNCHES = 0
+    reset_launches('B1')
     t0 = time.perf_counter()
     for _ in range(MAIN_STEPS):
         state, out = step(state, action)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = fused.LAUNCHES
+    launches = launches_of('B1')
     print(f'{label} main path: {MAIN_STEPS} steps at B={sim.batch_size} in {main_s:.2f} s, '
           f'fused_render launches {launches} [{card}]')
     if launches != MAIN_STEPS:
@@ -2762,9 +2759,8 @@ def fused_main_path(scenario, label, card):
 def fused_numbers(scenario, state, step, action, label, entry_name, errs, launches,
                   card):
     """B1's time (graph replay), eager call, plain version and bound on the
-    frame of ``state``, the step's device operations, and
-    ``run_benchmark``'s env-steps/s; returns B1's JSON entry."""
-    from torchdrivesim_tpu_torch.benchmark import run_benchmark
+    frame of ``state`` and the step's device operations; returns B1's JSON
+    entry."""
     from torchdrivesim_tpu_torch.ops import fused
     mip, ops, res, n, screen, _ = fused_frame(scenario, state)
     b = ops[0].shape[0]
@@ -2781,10 +2777,6 @@ def fused_numbers(scenario, state, step, action, label, entry_name, errs, launch
           f'{bound_ms * 1e3:.2f} us by {bound_by}; plain cull lists {listed_q:.3f} quads '
           f'and {listed_t:.3f} triangles per {BOUND_TILE} x {BOUND_TILE} tile; '
           f'{step_ops} device ops per env step [{card}]')
-    bench = run_benchmark(scenario, steps_per_chunk=100, n_chunks=3)
-    print(f'{label} env step B={scenario.sim.batch_size} res={scenario.res} '
-          f'render+metrics: {bench["env_steps_per_sec_median"]:.1f} env-steps/s median '
-          f'of chunks {[round(r, 1) for r in bench["chunk_rates"]]} [{card}]')
     return {'name': entry_name, 'route': 'cuda',
             'source': 'torchdrivesim_tpu_torch/csrc/fused_render.cu',
             'replaces': 'torchdrivesim_tpu/ops/pallas_fused.py:69',
@@ -3037,12 +3029,12 @@ def facade_path(device, card):
     compare_exact(fused.render_coefs_fused(forced[0], *forced[1], res),
                   fused.render_coefs_fused(mip, *ops, res),
                   'facade first frame: sort route against prep route (bits)')
-    fused.LAUNCHES = 0
+    reset_launches('B1')
     sim.render_egocentric(res=Resolution(RES, RES), fov=FOV,
                           n_subsequent_waypoints=FACADE_FALLBACK_COUNT)
     torch.cuda.synchronize()
-    if fused.LAUNCHES != 1:
-        raise AssertionError(f'fallback frame: {fused.LAUNCHES} B1 launches, expected 1')
+    if launches_of('B1') != 1:
+        raise AssertionError(f'fallback frame: {launches_of("B1")} B1 launches, expected 1')
     print('facade fallback frame: 1 fused_render launch')
 
     # 2. the first iterations and the fallback frame against the CPU
@@ -3050,14 +3042,14 @@ def facade_path(device, card):
 
     # 3. the main path: the facade loop, counting launches
     actions = facade_actions(FACADE_BATCH, FACADE_ITERATIONS, device)
-    fused.LAUNCHES = 0
+    reset_launches('B1')
     with count_calls(fused, ['render_coefs_fused_reference']) as plain:
         t0 = time.perf_counter()
         for action in actions:
             out = facade_iteration(sim, action)
         torch.cuda.synchronize()
         loop_s = time.perf_counter() - t0
-    launches = fused.LAUNCHES
+    launches = launches_of('B1')
     print(f'facade main path: {FACADE_ITERATIONS} iterations at B={FACADE_BATCH} in '
           f'{loop_s:.2f} s ({FACADE_ITERATIONS / loop_s:.1f} iterations/s, '
           f'{FACADE_ITERATIONS * FACADE_BATCH / loop_s:.1f} env-steps/s), fused_render '
@@ -3119,13 +3111,13 @@ def facade_path(device, card):
           f'device busy {100 * replay_ms / eager_ms:.1f}% of the eager iteration [{card}]')
 
     # 6. the example, on the card by default
-    fused.LAUNCHES = 0
+    reset_launches('B1')
     simulate.main(['--steps', str(FACADE_EXAMPLE_STEPS), '--out',
                    'build/simulate_example.npz'])
     torch.cuda.synchronize()
     print(f'example (res 256, 2 x 2 sub-views): {FACADE_EXAMPLE_STEPS} steps, '
-          f'fused_render launches {fused.LAUNCHES}')
-    if fused.LAUNCHES != FACADE_EXAMPLE_STEPS:
+          f'fused_render launches {launches_of("B1")}')
+    if launches_of('B1') != FACADE_EXAMPLE_STEPS:
         raise AssertionError('example: expected one B1 launch per step')
     print(f'facade phase: {time.perf_counter() - t_phase:.1f} s')
     return {'name': 'fused_render_facade', 'route': 'cuda',
@@ -3319,7 +3311,7 @@ def noisy_facade_path(device, card):
     frame; the signs drawn; the first iterations against the CPU; times,
     bounds, device ops and iterations/s. Returns the JSON entries of B2, B6a
     and B6b on this path."""
-    from torchdrivesim_tpu_torch.ops import fused, hard, warp
+    from torchdrivesim_tpu_torch.ops import hard, warp
     t_phase = time.perf_counter()
     sim, colors = noisy_world(NOISY_BATCH, device)
     print(f'noisy facade: carla_Town10HD B={NOISY_BATCH}, {AGENTS} agents, controls '
@@ -3358,8 +3350,7 @@ def noisy_facade_path(device, card):
 
     # 3. the main path: the noisy facade loop, then the sign frame
     actions = noisy_actions(sim, NOISY_ITERATIONS)
-    warp.NEAREST_LAUNCHES = hard.PACKED_LAUNCHES = hard.CHUNKED_LAUNCHES = 0
-    fused.LAUNCHES = 0
+    reset_launches('B2', 'B6a', 'B6b', 'B1')
     names = ['raster_packed_reference', 'raster_chunked_reference']
     with count_calls(hard, names) as plain, \
             count_calls(warp, ['warp_view_nearest_reference']) as plain_warp:
@@ -3371,9 +3362,10 @@ def noisy_facade_path(device, card):
         one, xy, psi, kinds = sign_world(sim)
         image = one.render(xy, psi, fov=NOISY_SIGN_FOV, noisy_perception=True)[0]
         torch.cuda.synchronize()
-    launches = {'warp_nearest': warp.NEAREST_LAUNCHES,
-                'hard_raster_packed': hard.PACKED_LAUNCHES,
-                'hard_raster_chunked': hard.CHUNKED_LAUNCHES, 'fused_render': fused.LAUNCHES}
+    launches = {'warp_nearest': launches_of('B2'),
+                'hard_raster_packed': launches_of('B6a'),
+                'hard_raster_chunked': launches_of('B6b'),
+                'fused_render': launches_of('B1')}
     plain = {**plain, **plain_warp}
     print(f'noisy facade main path: {NOISY_ITERATIONS} iterations at B={NOISY_BATCH} in '
           f'{loop_s:.2f} s ({NOISY_ITERATIONS / loop_s:.2f} iterations/s, '
@@ -3635,14 +3627,14 @@ def replay_path(device, card, root: str):
     replay_compare_with_cpu(root, device)
 
     # 3. the main path: the example, one B6b launch per frame
-    hard.PACKED_LAUNCHES = hard.CHUNKED_LAUNCHES = 0
+    reset_launches('B6a', 'B6b')
     with count_calls(hard, ['raster_chunked_reference', 'raster_packed_reference']) as plain:
         t0 = time.perf_counter()
         sim = replay.main(replay_argv(root, device))
         torch.cuda.synchronize()
         example_s = time.perf_counter() - t0
-    launches = {'hard_raster_packed': hard.PACKED_LAUNCHES,
-                'hard_raster_chunked': hard.CHUNKED_LAUNCHES}
+    launches = {'hard_raster_packed': launches_of('B6a'),
+                'hard_raster_chunked': launches_of('B6b')}
     print(f'replay main path: the example, {frames} frames in {example_s:.2f} s '
           f'(npz written), launches {launches}, plain calls {plain} [{card}]')
     if launches != {'hard_raster_packed': 0, 'hard_raster_chunked': frames} or \
@@ -3778,7 +3770,7 @@ def dataset_il_path(device, card, root: str):
     from torchdrivesim_tpu_torch.examples import imitation_learning
     from torchdrivesim_tpu_torch.imitation import (
         make_bc_loss_fn, make_bc_train_step, make_optimizer, render_ego)
-    from torchdrivesim_tpu_torch.ops import soft, warp
+    from torchdrivesim_tpu_torch.ops import soft
     t_phase = time.perf_counter()
     sim, expert, policy = dataset_il_world(root, DATASET_IL_BATCH, DATASET_IL_HORIZON,
                                            DATASET_IL_RES, device)
@@ -3804,13 +3796,8 @@ def dataset_il_path(device, card, root: str):
     dataset_il_compare_with_cpu(root, device)
 
     # 3. the main path: the example's training steps, then one train step
-    counters = ('LAUNCHES', 'VJP_LAUNCHES')
-    soft_counters = ('FWD_LAUNCHES', 'BWD_LAUNCHES', 'ACCUM_FWD_LAUNCHES',
-                     'ACCUM_BWD_LAUNCHES')
-    for name in counters:
-        setattr(warp, name, 0)
-    for name in soft_counters:
-        setattr(soft, name, 0)
+    kernels = ('B3', 'B3-VJP', 'B4a', 'B4b', 'B5a', 'B5b')
+    reset_launches(*kernels)
     with count_calls(soft, ['soft_accum_fwd_reference', 'soft_accum_bwd_reference']) \
             as plain:
         t0 = time.perf_counter()
@@ -3820,14 +3807,12 @@ def dataset_il_path(device, card, root: str):
             str(DATASET_IL_RES), '--steps', str(DATASET_IL_STEPS)])
         torch.cuda.synchronize()
         example_s = time.perf_counter() - t0
-    launches = {**{f'warp.{n}': getattr(warp, n) for n in counters},
-                **{f'soft.{n}': getattr(soft, n) for n in soft_counters}}
+    launches = {k: launches_of(k) for k in kernels}
     print(f'dataset IL main path: the example, {DATASET_IL_STEPS} training steps in '
           f'{example_s:.2f} s, losses {[round(x, 4) for x in losses]}, launches '
           f'{launches}, plain calls {plain} [{card}]')
-    want = {'warp.LAUNCHES': 0, 'warp.VJP_LAUNCHES': 0, 'soft.FWD_LAUNCHES': 0,
-            'soft.BWD_LAUNCHES': 0, 'soft.ACCUM_FWD_LAUNCHES': DATASET_IL_STEPS * horizon,
-            'soft.ACCUM_BWD_LAUNCHES': DATASET_IL_STEPS * (horizon - 1)}
+    want = {'B3': 0, 'B3-VJP': 0, 'B4a': 0, 'B4b': 0, 'B5a': DATASET_IL_STEPS * horizon,
+            'B5b': DATASET_IL_STEPS * (horizon - 1)}
     if launches != want or any(plain.values()):
         raise AssertionError(f'dataset IL launches {launches}, expected {want}, and no '
                              'plain call')
@@ -3882,10 +3867,10 @@ def dataset_il_path(device, card, root: str):
     for name, fn, plain_ms, reps, backward, replaces, err, n in (
             ('soft_accum_fwd_dataset', lambda: soft.soft_accum_fwd(*frame, DATASET_IL_RES),
              fwd_ms, 20, False, 'torchdrivesim_tpu/ops/pallas_soft.py:393',
-             max(errs['fwd']), launches['soft.ACCUM_FWD_LAUNCHES']),
+             max(errs['fwd']), launches['B5a']),
             ('soft_accum_bwd_dataset', lambda: soft.soft_accum_bwd(*frame, *frame_grads),
              bwd_ms, 10, True, 'torchdrivesim_tpu/ops/pallas_soft.py:414',
-             max(errs['bwd']), launches['soft.ACCUM_BWD_LAUNCHES'])):
+             max(errs['bwd']), launches['B5b'])):
         ms = graph_ms(fn, reps)
         (bound_ms, bound_by), pairs = accum_bound(frame, DATASET_IL_RES, backward)
         print(f'{name} kernel B={DATASET_IL_BATCH} res={DATASET_IL_RES} '
@@ -3967,7 +3952,7 @@ def gym_env_path(device, card):
 
     # the main path: reset and an episode, one B1 launch per observation
     actions = np.random.RandomState(2).uniform(-0.3, 0.3, (GYM_STEPS, 2))
-    fused.LAUNCHES = 0
+    reset_launches('B1')
     with count_calls(fused, ['render_coefs_fused_reference']) as plain:
         t0 = time.perf_counter()
         obs, _ = env.reset()
@@ -3978,7 +3963,7 @@ def gym_env_path(device, card):
             if terminated or truncated:
                 break
         loop_s = time.perf_counter() - t0
-    launches = fused.LAUNCHES
+    launches = launches_of('B1')
     print(f'gym main path: reset and {steps} steps in {loop_s:.2f} s ({steps / loop_s:.1f} '
           f'env steps/s, host clock, observations read back), fused_render launches '
           f'{launches}, plain calls {plain["render_coefs_fused_reference"]}; last reward '
@@ -4107,7 +4092,7 @@ def faces_path(device, card):
     plain version there); the first frames against the CPU; times, bounds
     and frames/s.
     Returns the JSON entries of B2, B6a and HF on this path."""
-    from torchdrivesim_tpu_torch.ops import fused, hard, warp
+    from torchdrivesim_tpu_torch.ops import hard, warp
     from torchdrivesim_tpu_torch.rendering import Renderer
     from torchdrivesim_tpu_torch.utils import Resolution
     t_phase = time.perf_counter()
@@ -4126,8 +4111,7 @@ def faces_path(device, card):
     # the main path: steps and face-soup frames, counting launches
     action = torch.zeros((BATCH, AGENTS, 2), device=device)
     state = sim.state
-    warp.NEAREST_LAUNCHES = hard.PACKED_LAUNCHES = hard.CHUNKED_LAUNCHES = 0
-    fused.LAUNCHES = 0
+    reset_launches('B2', 'B6a', 'B6b', 'B1')
     with count_calls(hard, ['raster_packed_reference', 'raster_chunked_reference']) as plain, \
             count_calls(warp, ['warp_view_nearest_reference']) as plain_warp:
         t0 = time.perf_counter()
@@ -4135,9 +4119,10 @@ def faces_path(device, card):
             state, image = faces_iteration(scenario, state, action, wps, mask)
         torch.cuda.synchronize()
         loop_s = time.perf_counter() - t0
-    launches = {'warp_nearest': warp.NEAREST_LAUNCHES,
-                'hard_raster_packed': hard.PACKED_LAUNCHES,
-                'hard_raster_chunked': hard.CHUNKED_LAUNCHES, 'fused_render': fused.LAUNCHES}
+    launches = {'warp_nearest': launches_of('B2'),
+                'hard_raster_packed': launches_of('B6a'),
+                'hard_raster_chunked': launches_of('B6b'),
+                'fused_render': launches_of('B1')}
     plain = {**plain, **plain_warp}
     print(f'face soup main path: {FACES_FRAMES} steps and frames at B={BATCH} in '
           f'{loop_s:.2f} s ({FACES_FRAMES * BATCH / loop_s:.1f} frames/s); launches '
@@ -4169,10 +4154,10 @@ def faces_path(device, card):
     if uwarp is not None or len(uops) != 2 or uops[1].shape[1] != 64:
         raise AssertionError('untextured face soup: not B6a over 64 faces')
     compare_hard(hard, uops, ubg, RES, 'untextured face soup frame')
-    before = (hard.PACKED_LAUNCHES, warp.NEAREST_LAUNCHES)
+    before = (launches_of('B6a'), launches_of('B2'))
     uimage = plain_renderer.render_faces_chw(*faces, Resolution(RES, RES), cams)
     torch.cuda.synchronize()
-    if (hard.PACKED_LAUNCHES - before[0], warp.NEAREST_LAUNCHES - before[1]) != (1, 0):
+    if (launches_of('B6a') - before[0], launches_of('B2') - before[1]) != (1, 0):
         raise AssertionError('untextured face soup: not one B6a launch and no B2')
     print(f'untextured face soup frame: one B6a launch; background pixels '
           f'{float((uimage == 0).all(dim=1).float().mean()) * 100:.1f}%')
@@ -4249,16 +4234,15 @@ def faces_path(device, card):
 
 def count_kernels():
     """Every kernel's launch counter, by name."""
-    from torchdrivesim_tpu_torch.ops import fused, hard, hard_faces, prims, soft, warp
-    return {'fused_render': fused.LAUNCHES, 'warp_bilinear': warp.LAUNCHES,
-            'warp_bilinear_vjp': warp.VJP_LAUNCHES, 'warp_nearest': warp.NEAREST_LAUNCHES,
-            'soft_raster_fwd': soft.FWD_LAUNCHES, 'soft_raster_bwd': soft.BWD_LAUNCHES,
-            'soft_accum_fwd': soft.ACCUM_FWD_LAUNCHES,
-            'soft_accum_bwd': soft.ACCUM_BWD_LAUNCHES,
-            'hard_raster_packed': hard.PACKED_LAUNCHES,
-            'hard_raster_chunked': hard.CHUNKED_LAUNCHES,
-            'prim_raster_banded': prims.B7_LAUNCHES, 'prim_raster': prims.B8_LAUNCHES,
-            'hard_faces': hard_faces.LAUNCHES}
+    return {'fused_render': launches_of('B1'), 'warp_bilinear': launches_of('B3'),
+            'warp_bilinear_vjp': launches_of('B3-VJP'), 'warp_nearest': launches_of('B2'),
+            'soft_raster_fwd': launches_of('B4a'), 'soft_raster_bwd': launches_of('B4b'),
+            'soft_accum_fwd': launches_of('B5a'),
+            'soft_accum_bwd': launches_of('B5b'),
+            'hard_raster_packed': launches_of('B6a'),
+            'hard_raster_chunked': launches_of('B6b'),
+            'prim_raster_banded': launches_of('B7'), 'prim_raster': launches_of('B8'),
+            'hard_faces': launches_of('HF')}
 
 
 def launched_since(before):
@@ -5256,13 +5240,7 @@ SHARD_WAYS, SHARD_STEPS, SHARD_IL_HORIZON, SHARD_FACES_FRAMES = 4, 20, 4, 5
 
 def reset_kernels():
     """Every kernel's launch counter set to 0."""
-    from torchdrivesim_tpu_torch.ops import fused, hard, hard_faces, prims, soft, warp
-    fused.LAUNCHES = hard_faces.LAUNCHES = 0
-    warp.LAUNCHES = warp.VJP_LAUNCHES = warp.NEAREST_LAUNCHES = 0
-    soft.FWD_LAUNCHES = soft.BWD_LAUNCHES = 0
-    soft.ACCUM_FWD_LAUNCHES = soft.ACCUM_BWD_LAUNCHES = 0
-    hard.PACKED_LAUNCHES = hard.CHUNKED_LAUNCHES = 0
-    prims.B7_LAUNCHES = prims.B8_LAUNCHES = 0
+    reset_launches(*KERNEL_IDS)
 
 
 def launched():

@@ -1,0 +1,9 @@
+"""Stream time (ms) between the CUDA events of the program's ``dynamics`` span,
+``Simulator.functional_step``, per step of the window's function, summed over
+its records and averaged over the traced steps of :mod:`gpubench.program`'s run
+(a). Nothing where the program has no such span."""
+from gpubench import program
+
+
+def read(run):
+    return program.span_ms(run, 'dynamics')

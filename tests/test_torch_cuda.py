@@ -48,6 +48,7 @@ import numpy as np
 import pytest
 import torch
 
+from torchdrivesim_tpu_torch import tracing
 from torchdrivesim_tpu_torch.ops import fused, hard, prims, soft, warp
 from torchdrivesim_tpu_torch.ops.rasterize import (
     n_bands_for, prep_sorted_prim_coefs, sort_prims_rowmajor_with_masks,
@@ -55,6 +56,12 @@ from torchdrivesim_tpu_torch.ops.rasterize import (
 from torchdrivesim_tpu_torch.ops.warp import (
     build_mip_pyramid, select_mip, warp_coefficients,
 )
+
+
+def launches(kernel: str) -> int:
+    """The launches so far of the hand-written ``kernel`` (B1 ... HF)."""
+    return tracing.counts().get(f'launch.{kernel}', 0)
+
 
 torch.set_num_threads(1)
 
@@ -105,11 +112,11 @@ def test_kernel_matches_plain_version(cuda, res, packed, kind):
     else:
         from chip_smoke import cull_fused_operands
         mip, ops = cull_fused_operands(kind, res, 8, res, cuda)
-    before = fused.LAUNCHES
+    before = launches('B1')
     got = fused.render_coefs_fused(mip, *ops, res, packed)
     want = fused.render_coefs_fused_reference(mip, *ops, res, packed)
     torch.cuda.synchronize()
-    assert fused.LAUNCHES == before + 1
+    assert launches('B1') == before + 1
     assert int((got != want).sum()) == 0
 
 
@@ -139,11 +146,11 @@ def test_warp_kernel_matches_plain_version(cuda, res, b, kind):
     if kind != 'bounds':
         assert (icoef[:, 0, 2] == 1).any() and (icoef[:, 0, 2] == 0).any()
     strided = torch.cat([xy, torch.zeros_like(xy)], dim=1)[:, :2]
-    before = warp.LAUNCHES
+    before = launches('B3')
     got = warp.warp_background_bilinear(mip, strided, sc, scale, bg, lh, res)
     want = warp.warp_view_bilinear_reference(mip.data, fcoef, icoef, res)
     torch.cuda.synchronize()
-    assert warp.LAUNCHES == before + 1
+    assert launches('B3') == before + 1
     assert int((got != want).sum()) == 0
 
 
@@ -159,13 +166,13 @@ def test_warp_vjp_kernel_matches_plain_version(cuda, res, b, kind):
     out = warp.warp_background_bilinear_reference(mip, xy, sc, scale, bg, lh, res)
     g = torch.as_tensor(np.random.RandomState(res + b).uniform(
         -1, 1, tuple(out.shape)).astype(np.float32), device=cuda)
-    before = warp.VJP_LAUNCHES
+    before = launches('B3-VJP')
     got = warp.warp_bilinear_vjp(mip, out, g, xy, sc, scale, lh, res)
     again = warp.warp_bilinear_vjp(mip, out, g, xy, sc, scale, lh, res)
     plain = warp.warp_bilinear_vjp_reference(mip, out, g, xy, sc, scale, lh, res)
     chain = autograd_warp_vjp(warp, mip, out, g, xy, sc, scale, lh, res)
     torch.cuda.synchronize()
-    assert warp.VJP_LAUNCHES == before + 2
+    assert launches('B3-VJP') == before + 2
     assert all(torch.equal(a, c) for a, c in zip(got, again))
     assert judge_vjp(got, plain, 1e-5)[1] == 0
     assert judge_vjp(got, chain)[1] == 0
@@ -203,7 +210,7 @@ def _judge(got, plain, exact, rtol, atol=None):
 def test_soft_kernels_match_plain_versions(cuda, b, n_faces, res):
     ops, g = _soft_operands(n_faces + res, b, n_faces, res, cuda)
     exact_in = [x.double() for x in ops]
-    before = (soft.FWD_LAUNCHES, soft.BWD_LAUNCHES)
+    before = (launches('B4a'), launches('B4b'))
     got = soft.soft_raster_fwd(*ops)
     assert _judge(got, soft.soft_raster_fwd_reference(*ops),
                   soft.soft_raster_fwd_reference(*exact_in), 0.0, 1e-5) == 0
@@ -211,7 +218,7 @@ def test_soft_kernels_match_plain_versions(cuda, b, n_faces, res):
     plain = soft.soft_raster_bwd_reference(*ops, g)
     exact = soft.soft_raster_bwd_reference(*exact_in, g.double())
     torch.cuda.synchronize()
-    assert (soft.FWD_LAUNCHES, soft.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert (launches('B4a'), launches('B4b')) == (before[0] + 1, before[1] + 1)
     for a, p, e in zip(grads, plain, exact):
         assert a.shape == p.shape
         assert _judge(a, p, e, 1e-4) == 0
@@ -287,7 +294,7 @@ def test_grouped_soft_kernels_match_plain_versions(cuda, b, n_faces, res, kind):
     ops, plain, grads = _accum_operands(n_faces + res, b, n_faces, res, cuda, kind)
     assert ops[0].shape[1] % soft.MAX_FACES == 0 and ops[0].shape[1] >= n_faces
     exact_in = [x.double() for x in ops]
-    before = (soft.ACCUM_FWD_LAUNCHES, soft.ACCUM_BWD_LAUNCHES)
+    before = (launches('B5a'), launches('B5b'))
     for a, p in zip(soft.soft_accum_fwd(*ops, res), plain):
         assert torch.equal(a, p)
     for cot in (grads, (torch.zeros_like(grads[0]), torch.zeros_like(grads[1]), grads[2])):
@@ -297,7 +304,7 @@ def test_grouped_soft_kernels_match_plain_versions(cuda, b, n_faces, res, kind):
         torch.cuda.synchronize()
         assert [a.shape for a in out] == [p.shape for p in want]
         assert judge_rows(out, want, exact, 'backward')[1] == 0
-    assert (soft.ACCUM_FWD_LAUNCHES, soft.ACCUM_BWD_LAUNCHES) == (before[0] + 1,
+    assert (launches('B5a'), launches('B5b')) == (before[0] + 1,
                                                                   before[1] + 2)
 
 
@@ -332,11 +339,11 @@ def test_nearest_warp_kernel_matches_plain_version(cuda, res, b):
     mip, ops = _operands(res + 2, b, res, cuda)
     fcoef, icoef = ops[:2]
     assert (icoef[:, 0, 2] == 1).any() and (icoef[:, 0, 2] == 0).any()
-    before = warp.NEAREST_LAUNCHES
+    before = launches('B2')
     got = warp.warp_view_nearest(mip.data, fcoef, icoef, res)
     want = warp.warp_view_nearest_reference(mip.data, fcoef, icoef, res)
     torch.cuda.synchronize()
-    assert warp.NEAREST_LAUNCHES == before + 1
+    assert launches('B2') == before + 1
     assert int((got != want).sum()) == 0
 
 
@@ -360,11 +367,11 @@ def test_hard_raster_kernels_match_plain_versions(cuda, n_faces, b, res, case):
         corners, z, colors, bg = make(n_faces + res, b, n_faces, res, cuda)
         ops = hard.hard_operands(corners, z, colors)
     packed = len(ops) == 2
-    before = (hard.PACKED_LAUNCHES, hard.CHUNKED_LAUNCHES)
+    before = (launches('B6a'), launches('B6b'))
     got = hard.raster(ops, bg, res)
     want = hard.raster_reference(ops, bg, res)
     torch.cuda.synchronize()
-    assert (hard.PACKED_LAUNCHES, hard.CHUNKED_LAUNCHES) == (
+    assert (launches('B6a'), launches('B6b')) == (
         before[0] + packed, before[1] + (not packed))
     assert int((got != want).sum()) == 0
     assert int((got != bg).any(dim=1).sum()) > 0          # some faces show
@@ -411,14 +418,14 @@ def test_prim_raster_kernels_match_plain_versions(cuda, res, b, q, t, case):
     sq, sqz, sqc, qm = sort_prims_rowmajor_with_masks(*scene[:3], res, 56, n_bands)
     st, stz, stc, tm = sort_prims_rowmajor_with_masks(*scene[3:], res, 56, n_bands)
     banded = (sq, sqz, sqc, st, stz, stc, res, bg, qm, tm)
-    before = (prims.B7_LAUNCHES, prims.B8_LAUNCHES)
+    before = (launches('B7'), launches('B8'))
     got = prims.rasterize_hard_prims_banded(*banded)
     want = prims.rasterize_hard_prims_banded_reference(*banded)
     got8 = prims.rasterize_hard_prims(*scene, res, bg)
     want8 = prims.rasterize_hard_prims_reference(*scene, res, bg)
     same8 = prims.rasterize_hard_prims(*banded[:8])
     torch.cuda.synchronize()
-    assert (prims.B7_LAUNCHES, prims.B8_LAUNCHES) == (before[0] + 1, before[1] + 2)
+    assert (launches('B7'), launches('B8')) == (before[0] + 1, before[1] + 2)
     assert int((got != want).sum()) == 0
     assert int((got8 != want8).sum()) == 0
     if case != 'parallelogram':
@@ -470,11 +477,11 @@ def test_fused_kernel_on_new_path_operands(cuda, path):
     if path == 'config3':
         assert (n_quads, n_tris) == (50, 20)
     for packed in (False, True):
-        before = fused.LAUNCHES
+        before = launches('B1')
         got = fused.render_coefs_fused(mip, *ops, res, packed)
         want = fused.render_coefs_fused_reference(mip, *ops, res, packed)
         torch.cuda.synchronize()
-        assert fused.LAUNCHES == before + 1
+        assert launches('B1') == before + 1
         assert int((got != want).sum()) == 0
 
 
@@ -528,10 +535,10 @@ def test_fused_kernel_on_facade_frames(cuda, count):
         forced = sim.renderer.fused_frame_operands(*prims, res, cams, force_sort=True)
         sorted_image = fused.render_coefs_fused(forced[0], *forced[1], res)
         assert torch.equal(sorted_image, fused.render_coefs_fused(mip, *ops, res))
-    before = fused.LAUNCHES
+    before = launches('B1')
     sim.render_egocentric(res=Resolution(128, 128), fov=70.0,
                           n_subsequent_waypoints=count)
-    assert fused.LAUNCHES == before + 1
+    assert launches('B1') == before + 1
 
 
 @pytest.mark.depends_on_cuda
@@ -553,9 +560,9 @@ def test_hard_chunked_kernel_on_replay_frame(cuda, tmp_path):
     want = hard.raster_reference(ops, bg, 256)
     torch.cuda.synchronize()
     assert int((got != want).sum()) == 0
-    before = hard.CHUNKED_LAUNCHES
+    before = launches('B6b')
     sim.render_egocentric()
-    assert hard.CHUNKED_LAUNCHES == before + 1
+    assert launches('B6b') == before + 1
 
 
 @pytest.mark.depends_on_cuda
@@ -603,9 +610,9 @@ def test_kernels_on_face_soup_frame(cuda):
     got = warp.warp_view_nearest(mip.data, fcoef, icoef, RES)
     assert torch.equal(got, warp.warp_view_nearest_reference(mip.data, fcoef, icoef, RES))
     assert torch.equal(hard.raster(ops, bg, RES), hard.raster_reference(ops, bg, RES))
-    before = (warp.NEAREST_LAUNCHES, hard.PACKED_LAUNCHES)
+    before = (launches('B2'), launches('B6a'))
     renderer.render_faces_chw(*faces, Resolution(RES, RES), cams)
-    assert (warp.NEAREST_LAUNCHES, hard.PACKED_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert (launches('B2'), launches('B6a')) == (before[0] + 1, before[1] + 1)
     plain = Renderer(renderer.cfg, cuda)
     ubg, uops, _, uwarp = faces_operands(plain, faces, cams)
     assert uwarp is None and len(uops) == 2
@@ -636,9 +643,9 @@ def test_soft_kernels_under_quad_background(cuda):
     torch.cuda.synchronize()
     for a, p, e in zip(grads, plain, exact):
         assert _judge(a, p, e, 1e-4) == 0
-    before = (soft.FWD_LAUNCHES, warp.LAUNCHES)
+    before = (launches('B4a'), launches('B3'))
     renderer.render_rgb_mesh_chw(mesh, Resolution(64, 64), cams)
-    assert (soft.FWD_LAUNCHES, warp.LAUNCHES) == (before[0] + 1, before[1])
+    assert (launches('B4a'), launches('B3')) == (before[0] + 1, before[1])
 
 
 @pytest.mark.depends_on_cuda
@@ -661,10 +668,10 @@ def test_hard_faces_kernel_matches_plain_version(cuda, kind, b, f, h, w):
     from torchdrivesim_tpu_torch.ops import hard_faces
     ops = hf_grazing_operands(b, b, f, h, cuda) if kind == 'grazing' \
         else hf_random_operands(kind, f + h, b, f, h, w, cuda)
-    before = hard_faces.LAUNCHES
+    before = launches('HF')
     overflow = True if kind == 'crowd' else None if f > hard_faces.LIST_CAP else False
     assert compare_hf(ops, kind, overflow) == 0.0
-    assert hard_faces.LAUNCHES == before + 1
+    assert launches('HF') == before + 1
     if f:
         compare_hf_grad(ops, kind)
 
@@ -712,12 +719,12 @@ def test_two_entry_mesh_renders_the_primitive_frame_bit_equal(cuda):
     scenario = build_benchmark_scenario(batch_size=8, res=RES, fov=FOV, device=cuda)
     frame, cams = prim_frame(scenario, scenario.sim.state, FOV)
     mesh = parallel.make_mesh(devices=[cuda, cuda])
-    for renderer, counter in ((scenario.sim.renderer, (fused, 'LAUNCHES')),
-                              (untextured_renderer(scenario, cuda), (prims, 'B7_LAUNCHES'))):
+    for renderer, kernel in ((scenario.sim.renderer, 'B1'),
+                             (untextured_renderer(scenario, cuda), 'B7')):
         renderer.shard_mesh = None
         want = renderer.render_prims_chw(*frame, Resolution(RES, RES), cams)
         renderer.shard_mesh = mesh
-        before = getattr(*counter)
+        before = launches(kernel)
         got = renderer.render_prims_chw(*frame, Resolution(RES, RES), cams)
-        assert getattr(*counter) == before + 2
+        assert launches(kernel) == before + 2
         assert got.device == want.device and torch.equal(got, want)

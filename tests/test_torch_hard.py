@@ -28,8 +28,15 @@ import torch
 import torchdrivesim_tpu.ops.pallas_rasterize as R
 from tests.test_torch_warp_nearest import judge_roundings
 from torchdrivesim_tpu.ops import rasterize as jax_rasterize
+from torchdrivesim_tpu_torch import tracing
 from torchdrivesim_tpu_torch.ops import hard
 from torchdrivesim_tpu_torch.ops.rasterize import cull_faces_to_view
+
+
+def launches(kernel: str) -> int:
+    """The launches so far of the hand-written ``kernel`` (B1 ... HF)."""
+    return tracing.counts().get(f'launch.{kernel}', 0)
+
 
 torch.set_num_threads(1)
 
@@ -166,9 +173,9 @@ def test_cull_matches_jax_with_ties():
 def test_wrappers_check_their_operands():
     corners, z, colors, bg = map(torch.from_numpy, _faces(1, 2, 12, 16))
     coef, packed = hard.hard_operands(corners, z, colors)
-    before = (hard.PACKED_LAUNCHES, hard.CHUNKED_LAUNCHES)
+    before = (launches('B6a'), launches('B6b'))
     assert hard.raster_packed(coef, packed, bg, 16).shape == (2, 3, 16, 16)
-    assert (hard.PACKED_LAUNCHES, hard.CHUNKED_LAUNCHES) == before   # no kernel
+    assert (launches('B6a'), launches('B6b')) == before   # no kernel
     with pytest.raises(ValueError):
         hard.raster_packed(coef, packed, bg, 32)
     with pytest.raises(ValueError):

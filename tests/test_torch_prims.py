@@ -45,8 +45,15 @@ import torchdrivesim_tpu.ops.pallas_rasterize as R
 import torchdrivesim_tpu.ops.pallas_warp as W
 from tests.test_torch_warp_nearest import judge_roundings
 from torchdrivesim_tpu.ops import rasterize as jax_rasterize
+from torchdrivesim_tpu_torch import tracing
 from torchdrivesim_tpu_torch.ops import prims
 from torchdrivesim_tpu_torch.ops import rasterize
+
+
+def launches(kernel: str) -> int:
+    """The launches so far of the hand-written ``kernel`` (B1 ... HF)."""
+    return tracing.counts().get(f'launch.{kernel}', 0)
+
 
 torch.set_num_threads(1)
 
@@ -195,9 +202,9 @@ def test_banded_raster_matches_jax_kernel(interpret_mode, case):
         jnp.asarray(tm)))
     args = [torch.from_numpy(a) for a in sorted_scene] + [res, torch.from_numpy(bg)] \
         + [torch.from_numpy(qm), torch.from_numpy(tm)]
-    before = (prims.B7_LAUNCHES, prims.B8_LAUNCHES)
+    before = (launches('B7'), launches('B8'))
     got = prims.rasterize_hard_prims_banded(*args).numpy()
-    assert (prims.B7_LAUNCHES, prims.B8_LAUNCHES) == before    # the CPU runs no kernel
+    assert (launches('B7'), launches('B8')) == before    # the CPU runs no kernel
     np.testing.assert_array_equal(
         got, prims.rasterize_hard_prims_banded_reference(*args).numpy())
     ambiguous = judge_roundings(
@@ -427,7 +434,6 @@ RENDER_CASES = {
 def test_render_prims_matches_jax(renderers, town02_texture, case):
     from torchdrivesim_tpu.rendering.base import Cameras as JaxCameras
     from torchdrivesim_tpu.utils import Resolution as JaxResolution
-    from torchdrivesim_tpu_torch.ops import fused
     from torchdrivesim_tpu_torch.rendering.base import Cameras
     from torchdrivesim_tpu_torch.utils import Resolution
     kw = RENDER_CASES[case]
@@ -439,11 +445,11 @@ def test_render_prims_matches_jax(renderers, town02_texture, case):
     want = np.asarray(jax.jit(lambda *a: jr.render_prims_chw(
         *a[:6], JaxResolution(res, res), JaxCameras(a[6], a[7], 2.0 / fov),
         packed=packed))(*scene, xy, sc))
-    before = (prims.B7_LAUNCHES, fused.LAUNCHES)
+    before = (launches('B7'), launches('B1'))
     got = pr.render_prims_chw(*map(torch.from_numpy, scene), Resolution(res, res),
                               Cameras(torch.from_numpy(xy), torch.from_numpy(sc),
                                       2.0 / fov), packed=packed).numpy()
-    assert (prims.B7_LAUNCHES, fused.LAUNCHES) == before
+    assert (launches('B7'), launches('B1')) == before
     assert got.shape == want.shape and got.dtype == want.dtype
     assert _same_pixels(got, want, case) >= 0.999
     # the branch taken: the fused render only where a mip level covers the
@@ -507,7 +513,6 @@ def test_differentiable_render_prims_matches_jax(renderers, town02_texture, monk
     kernel runs. Res 64, 40 quads and 40 triangles per camera."""
     from torchdrivesim_tpu.rendering.base import Cameras as JaxCameras
     from torchdrivesim_tpu.utils import Resolution as JaxResolution
-    from torchdrivesim_tpu_torch.ops import fused
     from torchdrivesim_tpu_torch.rendering.base import Cameras
     from torchdrivesim_tpu_torch.utils import Resolution
     res, fov = 64, 35.0
@@ -519,11 +524,11 @@ def test_differentiable_render_prims_matches_jax(renderers, town02_texture, monk
     scene = _world_prims(5 + textured, xy, fov, q=40, t=40)
     want = np.asarray(jax.jit(lambda *a: jr.render_prims_chw(
         *a[:6], JaxResolution(res, res), JaxCameras(a[6], a[7], 2.0 / fov)))(*scene, xy, sc))
-    before = (prims.B7_LAUNCHES, prims.B8_LAUNCHES, fused.LAUNCHES)
+    before = (launches('B7'), launches('B8'), launches('B1'))
     got = pr.render_prims_chw(*map(torch.from_numpy, scene), Resolution(res, res),
                               Cameras(torch.from_numpy(xy), torch.from_numpy(sc),
                                       2.0 / fov)).numpy()
-    assert (prims.B7_LAUNCHES, prims.B8_LAUNCHES, fused.LAUNCHES) == before
+    assert (launches('B7'), launches('B8'), launches('B1')) == before
     assert got.shape == want.shape == (2, 3, res, res)
     assert _same_pixels(got, want, f'differentiable textured={textured}') >= 0.999
     assert len(np.unique(got.transpose(1, 0, 2, 3).reshape(3, -1).T, axis=0)) >= 4

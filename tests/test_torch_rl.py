@@ -38,13 +38,18 @@ import pytest
 import torch
 
 from tests.test_torch_warp_nearest import judge_roundings
-from torchdrivesim_tpu_torch import rl
+from torchdrivesim_tpu_torch import rl, tracing
 from torchdrivesim_tpu_torch.convert import actor_critic_state_dict_from_flax
 from torchdrivesim_tpu_torch.gym_env import (
     GymEnvConfig, VectorizedGymEnv, gym_sim_from_arrays, initial_arrays,
 )
 from torchdrivesim_tpu_torch.models import ActorCritic
-from torchdrivesim_tpu_torch.ops import hard
+
+
+def launches(kernel: str) -> int:
+    """The launches so far of the hand-written ``kernel`` (B1 ... HF)."""
+    return tracing.counts().get(f'launch.{kernel}', 0)
+
 
 torch.set_num_threads(1)
 
@@ -135,9 +140,9 @@ def test_env_step_matches_without_texture(untextured):
     over the background color, at res 32."""
     jvenv, jstep = untextured
     venv = _port_venv(jvenv, UNTEXTURED)
-    before = hard.CHUNKED_LAUNCHES
+    before = launches('B6b')
     _step_both(jvenv, jstep, venv, 1, seed=1)
-    assert hard.CHUNKED_LAUNCHES == before          # the CPU runs no kernel
+    assert launches('B6b') == before          # the CPU runs no kernel
 
 
 @pytest.mark.parametrize('textured_sim', [False, True])

@@ -1,5 +1,5 @@
 """
-The headline env step and its timing (counterpart of
+The headline env step (counterpart of
 ``torchdrivesim_tpu/benchmark.py``): a batch of environments on a CARLA
 town, ~20 bicycle-model vehicles each, FSM-driven traffic lights, an
 egocentric bird's-eye-view render over the baked map texture, and
@@ -14,8 +14,7 @@ and :func:`make_il_grad_fn`, the gradient of a policy's rollout loss
 through the differentiable render and the dynamics.
 
 And the RL path (the reference's ``examples/rl_example.py`` at 1024
-environments): :func:`build_rl_env` and :func:`run_rl_benchmark`, which
-times PPO's rollout collection and its update.
+environments): :func:`build_rl_env`.
 
 The map caches (texture, grids) are read from next to the map, or baked
 there when missing (:func:`load_or_bake_texture`, ``MapConfig.grids``).
@@ -23,8 +22,6 @@ there when missing (:func:`load_or_bake_texture`, ``MapConfig.grids``).
 import dataclasses
 import os
 import random
-import statistics
-import time
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple
 
@@ -32,6 +29,7 @@ import numpy as np
 import torch
 
 import torchdrivesim_tpu_torch.kinematic as K
+from torchdrivesim_tpu_torch import tracing
 from torchdrivesim_tpu_torch.behavior.heuristic import heuristic_initialize
 from torchdrivesim_tpu_torch.imitation import ego_view, policy_step
 from torchdrivesim_tpu_torch.infractions import compute_collision_matrix
@@ -116,7 +114,8 @@ class BenchmarkScenario:
         ``image`` (B, 3, res, res) float in [0, 255] (the primitive render
         over the texture, or the frame's mesh, map included, without one)
         or, with ``packed_image``, (B, res, res) int32 0x00BBGGRR; ``collision``,
-        ``offroad``, ``wrong_way``, ``light_violation`` per agent.
+        ``offroad``, ``wrong_way``, ``light_violation`` per agent. With spans on
+        (``tracing.enable``) the step opens ``step`` and its metrics ``metrics``.
         """
         sim = self.sim
         gen = sim.birdview_mesh_generator
@@ -125,50 +124,55 @@ class BenchmarkScenario:
         sizes = sim.get_all_agent_size()
         light_control = (sim.traffic_controls or {}).get('traffic_light')
 
+        def frame_metrics(state, all_state, present, light_state):
+            boxes = torch.cat([all_state[..., :2], sizes, all_state[..., 2:3]], dim=-1)
+            outputs = {'collision': compute_collision_matrix(
+                boxes, present)[:, :sim.agent_count]}
+            if sim.map_grids is not None:
+                outputs['offroad'] = offroad_loss_from_grid(
+                    sim.map_grids, state.agent_state, sim.agent_size,
+                    threshold=sim.cfg.offroad_threshold)
+                outputs['wrong_way'] = wrong_way_loss_from_grid(
+                    sim.map_grids, state.agent_state)
+            if light_state is not None:
+                outputs['light_violation'] = red_light_violations(
+                    boxes[:, :sim.agent_count], light_control.corners, light_state,
+                    red_index=light_control.allowed_states.index('red'))
+            return outputs
+
         def step(state, action):
-            state = sim.functional_step(state, action)
-            light_state = None
-            if light_control is not None:
-                light_state = state.traffic_control_state['traffic_light']
-            all_state = torch.cat([state.agent_state, state.npc_state], dim=-2)
-            present = torch.cat([state.present_mask, state.npc_present_mask], dim=-1)
-            outputs = {}
-            if render:
-                ego = state.agent_state[:, 0]
-                cameras = Cameras(ego[:, :2], torch.stack(
-                    [torch.sin(ego[:, 2]), torch.cos(ego[:, 2])], dim=-1),
-                    2.0 / self.fov)
-                if renderer.background_texture is not None:
-                    prims = gen.generate_prims(all_state, present_mask=present,
-                                               traffic_light_state=light_state)
-                    outputs['image'] = renderer.render_prims_chw(
-                        *prims, Resolution(res, res), cameras, packed=packed_image)
-                else:
-                    # without a texture the frame's mesh, map included
-                    mesh = gen.generate(1, agent_state=all_state[:, None],
-                                        present_mask=present[:, None],
-                                        traffic_light_state=light_state,
-                                        include_background=True)
-                    image = renderer.render_rgb_mesh_chw(mesh, Resolution(res, res),
-                                                         cameras)
-                    outputs['image'] = pack_rgb8_chw(image) if packed_image else image
-            if metrics:
-                boxes = torch.cat([all_state[..., :2], sizes, all_state[..., 2:3]],
-                                  dim=-1)
-                outputs['collision'] = compute_collision_matrix(
-                    boxes, present)[:, :sim.agent_count]
-                if sim.map_grids is not None:
-                    outputs['offroad'] = offroad_loss_from_grid(
-                        sim.map_grids, state.agent_state, sim.agent_size,
-                        threshold=sim.cfg.offroad_threshold)
-                    outputs['wrong_way'] = wrong_way_loss_from_grid(
-                        sim.map_grids, state.agent_state)
-                if light_state is not None:
-                    outputs['light_violation'] = red_light_violations(
-                        boxes[:, :sim.agent_count], light_control.corners,
-                        light_state,
-                        red_index=light_control.allowed_states.index('red'))
-            return state, outputs
+            with tracing.span('step'):
+                state = sim.functional_step(state, action)
+                light_state = None
+                if light_control is not None:
+                    light_state = state.traffic_control_state['traffic_light']
+                all_state = torch.cat([state.agent_state, state.npc_state], dim=-2)
+                present = torch.cat([state.present_mask, state.npc_present_mask], dim=-1)
+                outputs = {}
+                if render:
+                    ego = state.agent_state[:, 0]
+                    cameras = Cameras(ego[:, :2], torch.stack(
+                        [torch.sin(ego[:, 2]), torch.cos(ego[:, 2])], dim=-1),
+                        2.0 / self.fov)
+                    if renderer.background_texture is not None:
+                        prims = gen.generate_prims(all_state, present_mask=present,
+                                                   traffic_light_state=light_state)
+                        outputs['image'] = renderer.render_prims_chw(
+                            *prims, Resolution(res, res), cameras, packed=packed_image)
+                    else:
+                        # without a texture the frame's mesh, map included
+                        mesh = gen.generate(1, agent_state=all_state[:, None],
+                                            present_mask=present[:, None],
+                                            traffic_light_state=light_state,
+                                            include_background=True)
+                        image = renderer.render_rgb_mesh_chw(mesh, Resolution(res, res),
+                                                             cameras)
+                        outputs['image'] = pack_rgb8_chw(image) if packed_image else image
+                if metrics:
+                    with tracing.span('metrics'):
+                        outputs.update(frame_metrics(state, all_state, present,
+                                                     light_state))
+                return state, outputs
 
         return step
 
@@ -273,54 +277,6 @@ def build_config3_scenario(batch_size: int = 64, agent_count: int = 20,
     return scenario
 
 
-def run_benchmark(scenario: BenchmarkScenario, steps_per_chunk: int = 100,
-                  n_chunks: int = 3, warmup_steps: int = 20) -> dict:
-    """
-    Time the env step on a CUDA device: each chunk of ``steps_per_chunk``
-    steps is timed with CUDA events and synchronized before its time is
-    read. Every step's outputs are reduced to a checksum on the device, as
-    the reference's benchmark does, so nothing leaves the device.
-
-    Returns:
-        env-steps/s per chunk and their median, with the batch size.
-    """
-    sim = scenario.sim
-    if sim.device.type != 'cuda':
-        raise RuntimeError(f'run_benchmark times a CUDA device; the scenario '
-                           f'is on {sim.device}')
-    step = scenario.make_step_fn(render=True, metrics=True)
-    b = sim.batch_size
-    action = torch.zeros((b, sim.agent_count, sim.action_size), device=sim.device)
-
-    def run(state, n, checksum):
-        for _ in range(n):
-            state, out = step(state, action)
-            for v in out.values():
-                checksum = checksum + v.sum(dtype=torch.float32)
-        return state, checksum
-
-    state = sim.state
-    checksum = torch.zeros((), device=sim.device)
-    state, checksum = run(state, warmup_steps, checksum)
-    torch.cuda.synchronize(sim.device)
-    chunk_rates = []
-    for _ in range(n_chunks):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, checksum = run(state, steps_per_chunk, checksum)
-        end.record()
-        end.synchronize()
-        chunk_rates.append(b * steps_per_chunk / (start.elapsed_time(end) / 1e3))
-    return {
-        'env_steps_per_sec_median': statistics.median(chunk_rates),
-        'chunk_rates': chunk_rates,
-        'batch_size': b,
-        'steps_per_chunk': steps_per_chunk,
-        'checksum': float(checksum),
-    }
-
-
 def build_il_scenario(batch_size: int = 16, agent_count: int = 8, res: int = 64,
                       fov: float = 70.0, seed: int = 0, use_texture: bool = True,
                       n_layouts: int = 4, device='cuda') -> BenchmarkScenario:
@@ -390,43 +346,6 @@ def make_il_grad_fn(scenario: BenchmarkScenario, policy: torch.nn.Module,
     return grad_fn
 
 
-def run_il_benchmark(scenario: BenchmarkScenario, policy: torch.nn.Module,
-                     horizon: int = 40, rollouts_per_chunk: int = 2,
-                     n_chunks: int = 3, warmup_rollouts: int = 1) -> dict:
-    """
-    Time the imitation-learning gradient step on a CUDA device: each chunk
-    of ``rollouts_per_chunk`` gradient rollouts is timed by the host clock
-    between two ``torch.cuda.synchronize()`` calls.
-
-    Returns:
-        grad-rollouts/s and env-steps/s (batch x horizon per rollout) per
-        chunk and their medians.
-    """
-    sim = scenario.sim
-    if sim.device.type != 'cuda':
-        raise RuntimeError(f'run_il_benchmark times a CUDA device; the scenario '
-                           f'is on {sim.device}')
-    grad_fn = make_il_grad_fn(scenario, policy, horizon)
-    for _ in range(warmup_rollouts):
-        grad_fn(sim.state)
-    torch.cuda.synchronize(sim.device)
-    rates = []
-    for _ in range(n_chunks):
-        t0 = time.perf_counter()
-        for _ in range(rollouts_per_chunk):
-            grad_fn(sim.state)
-        torch.cuda.synchronize(sim.device)
-        rates.append(rollouts_per_chunk / (time.perf_counter() - t0))
-    steps = sim.batch_size * horizon
-    return {
-        'grad_rollouts_per_sec_median': statistics.median(rates),
-        'env_steps_per_sec_median': statistics.median(rates) * steps,
-        'chunk_rollout_rates': rates,
-        'batch_size': sim.batch_size,
-        'horizon': horizon,
-    }
-
-
 def build_rl_env(batch_size: int = 1024, map_name: str = 'carla_Town02',
                  agent_count: int = 4, res: int = 64, fov: float = 35.0,
                  use_background_texture: bool = True, seed: int = 0,
@@ -438,49 +357,3 @@ def build_rl_env(batch_size: int = 1024, map_name: str = 'carla_Town02',
     cfg = GymEnvConfig(map_name=map_name, agent_count=agent_count, res=res, fov=fov,
                        use_background_texture=use_background_texture, seed=seed)
     return VectorizedGymEnv(cfg, batch_size=batch_size, device=device)
-
-
-def run_rl_benchmark(venv, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                     rollout: int = 16, epochs: int = 2, n_chunks: int = 3) -> dict:
-    """
-    Time PPO on a CUDA device: each chunk is one rollout collection and
-    ``epochs`` PPO updates on it, each part timed by the host clock between
-    two ``torch.cuda.synchronize()`` calls. A first chunk warms up and is
-    not counted.
-
-    Returns:
-        env-steps/s of the collection (batch x rollout per collection) and
-        ms of the PPO iteration's updates (all epochs), per chunk and their
-        medians, and the median ms per update.
-    """
-    from torchdrivesim_tpu_torch.rl import collect, ppo_update
-    device = venv.device
-    if device.type != 'cuda':
-        raise RuntimeError(f'run_rl_benchmark times a CUDA device; the '
-                           f'environment is on {device}')
-    step_fn = venv.make_step_fn()
-    generator = torch.Generator(device=device).manual_seed(0)
-    state = venv.initial_state
-    rates, update_ms = [], []
-    for chunk in range(n_chunks + 1):
-        torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        state, batch = collect(model, step_fn, state, rollout, generator)
-        torch.cuda.synchronize(device)
-        t1 = time.perf_counter()
-        for _ in range(epochs):
-            ppo_update(model, optimizer, batch)
-        torch.cuda.synchronize(device)
-        t2 = time.perf_counter()
-        if chunk:
-            rates.append(venv.batch_size * rollout / (t1 - t0))
-            update_ms.append((t2 - t1) * 1e3)
-    return {
-        'collect_env_steps_per_sec_median': statistics.median(rates),
-        'ppo_iteration_ms_median': statistics.median(update_ms),
-        'ppo_update_ms_median': statistics.median(update_ms) / epochs,
-        'chunk_collect_rates': rates,
-        'chunk_ppo_iteration_ms': update_ms,
-        'batch_size': venv.batch_size,
-        'rollout': rollout,
-    }

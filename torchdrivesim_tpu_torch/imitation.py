@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 import torchdrivesim_tpu_torch.kinematic as K
+from torchdrivesim_tpu_torch import tracing
 from torchdrivesim_tpu_torch.lanelet2 import (
     Lanelet, LaneletMap, LaneletPoint, Linestring, road_mesh_from_lanelet_map,
 )
@@ -156,9 +157,11 @@ def render_ego(sim: Simulator, state: SimulatorState, res: int) -> torch.Tensor:
 def policy_step(sim: Simulator, policy: torch.nn.Module, state: SimulatorState,
                 res: int) -> SimulatorState:
     """One step of the rollout: the first agent's view (:func:`render_ego`),
-    the policy's action for that agent, zero action for the others, and the
-    kinematic step."""
-    action = policy(render_ego(sim, state, res))[:, None, :]          # B x 1 x Ac
+    the policy's action for that agent (the span ``policy``), zero action
+    for the others, and the kinematic step."""
+    image = render_ego(sim, state, res)
+    with tracing.span('policy'):
+        action = policy(image)[:, None, :]                         # B x 1 x Ac
     rest = state.agent_state.shape[1] - 1
     if rest:
         action = torch.cat([action, action.new_zeros(

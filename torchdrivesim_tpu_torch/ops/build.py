@@ -6,7 +6,9 @@ own shared library with a plain C interface, under ``build/kernels/`` at the
 repository root, named by the hash of the source and the flags, and bound
 with ``ctypes``. A build happens at first use (or in :func:`build_all`,
 which starts one ``nvcc`` per source at once); a library whose name exists
-is reused.
+is reused. The counters ``kernel.build`` and ``kernel.load``
+(``tracing.counts``) count the libraries built and loaded, and
+``kernel.load_s`` the seconds both took.
 """
 import ctypes
 import hashlib
@@ -17,7 +19,7 @@ import tempfile
 import time
 from typing import Callable, Optional, Sequence
 
-from torchdrivesim_tpu_torch import _REPO_ROOT
+from torchdrivesim_tpu_torch import _REPO_ROOT, tracing
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         'csrc')
@@ -93,6 +95,7 @@ class KernelLibrary:
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
+        tracing.count('kernel.build')
         return path
 
     def build(self) -> str:
@@ -102,7 +105,10 @@ class KernelLibrary:
     def load(self) -> ctypes.CDLL:
         """The bound library, built first if needed."""
         if self._lib is None:
+            t0 = time.perf_counter()
             self._lib = self.bind(ctypes.CDLL(self.build()))
+            tracing.count('kernel.load')
+            tracing.count('kernel.load_s', time.perf_counter() - t0)
         return self._lib
 
 
@@ -113,6 +119,7 @@ def build_all(libraries: Sequence[KernelLibrary]) -> float:
     started = [lib._start() for lib in libraries]
     for lib, s in zip(libraries, started):
         lib._finish(s)
+    tracing.count('kernel.load_s', time.perf_counter() - t0)
     for lib in libraries:
         lib.load()
     return time.perf_counter() - t0

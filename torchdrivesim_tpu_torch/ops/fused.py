@@ -14,16 +14,13 @@ import ctypes
 
 import torch
 
+from torchdrivesim_tpu_torch import tracing
 from torchdrivesim_tpu_torch.ops import build
 from torchdrivesim_tpu_torch.ops.build import KernelLibrary, check_launch
 from torchdrivesim_tpu_torch.ops.prims import prim_winner_reference
 from torchdrivesim_tpu_torch.ops.rasterize import CHUNK, band_rows
 from torchdrivesim_tpu_torch.ops import warp
 from torchdrivesim_tpu_torch.ops.warp import RES, WINDOW, WIN_ROWS, MipLevel
-
-#: kernel launches since import (or the last reset by the caller): a run can
-#: show that its main path went through the kernel
-LAUNCHES = 0
 
 #: cameras per launch: the kernel's grid spans them in its y dimension
 MAX_CAMERAS = 65535
@@ -110,7 +107,6 @@ def render_coefs_fused(mip: MipLevel, fcoef: torch.Tensor, icoef: torch.Tensor,
         packed: return (B, res, res) int32 0x00BBGGRR instead of
             (B, 3, res, res) float32 channels in [0, 1].
     """
-    global LAUNCHES
     tex = mip.data
     _check_operands(tex, fcoef, icoef, qcoef, qpk, tcoef, tpk, qmask, tmask,
                     res)
@@ -136,7 +132,7 @@ def render_coefs_fused(mip: MipLevel, fcoef: torch.Tensor, icoef: torch.Tensor,
                       tex.shape[0], tex.shape[1], b, res, qpk.shape[1],
                       tpk.shape[1], packed, out.data_ptr(), stream)
     check_launch(err, 'fused render')
-    LAUNCHES += 1
+    tracing.count('launch.B1')
     return out
 
 

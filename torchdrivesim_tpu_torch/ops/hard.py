@@ -29,6 +29,7 @@ import functools
 import numpy as np
 import torch
 
+from torchdrivesim_tpu_torch import tracing
 from torchdrivesim_tpu_torch.ops import warp
 from torchdrivesim_tpu_torch.ops.build import KernelLibrary, check_launch
 from torchdrivesim_tpu_torch.ops.prims import PRIM_TILE, tri_edge_out_reference
@@ -45,11 +46,6 @@ Z_SENTINEL = 0x7F800000
 _NO_COLOR = 1 << 24
 _AREA_EPS = 1e-9
 _INV255 = 1.0 / 255.0
-
-#: kernel launches since import (or the last reset by the caller): a run can
-#: show that its main path went through the kernels
-PACKED_LAUNCHES = 0
-CHUNKED_LAUNCHES = 0
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -286,7 +282,6 @@ def raster_packed(coef: torch.Tensor, packed: torch.Tensor,
     """The packed kernel (B6a) on CUDA tensors, its plain version on CPU
     tensors; operands as :func:`hard_operands` gives them, background
     (B, 3, res, res). Returns (B, 3, res, res) in [0, 1]."""
-    global PACKED_LAUNCHES
     _check(coef, [packed], background, res)
     if packed.shape[1] > MAX_PACKED_FACES:
         raise ValueError(f'the packed kernel takes at most {MAX_PACKED_FACES} '
@@ -294,7 +289,7 @@ def raster_packed(coef: torch.Tensor, packed: torch.Tensor,
     if coef.device.type == 'cpu':
         return raster_packed_reference(coef, packed, background, res)
     out = _launch('tds_hard_raster_packed', coef, [packed], background, res)
-    PACKED_LAUNCHES += 1
+    tracing.count('launch.B6a')
     return out
 
 
@@ -302,12 +297,11 @@ def raster_chunked(coef: torch.Tensor, zbits: torch.Tensor, rgb: torch.Tensor,
                    background: torch.Tensor, res: int) -> torch.Tensor:
     """The chunked kernel (B6b) on CUDA tensors, its plain version on CPU
     tensors; operands as :func:`hard_operands` gives them."""
-    global CHUNKED_LAUNCHES
     _check(coef, [zbits, rgb], background, res)
     if coef.device.type == 'cpu':
         return raster_chunked_reference(coef, zbits, rgb, background, res)
     out = _launch('tds_hard_raster_chunked', coef, [zbits, rgb], background, res)
-    CHUNKED_LAUNCHES += 1
+    tracing.count('launch.B6b')
     return out
 
 

@@ -34,6 +34,7 @@ import ctypes
 
 import torch
 
+from torchdrivesim_tpu_torch import tracing
 from torchdrivesim_tpu_torch.ops.build import KernelLibrary, check_launch
 
 BIG_Z = 1e9
@@ -52,10 +53,6 @@ _AREA_REL, _PAD_REL, _PAD_ABS = 2.0 ** -48, 1.0 + 2.0 ** -40, 2.0 ** -48
 #: the most faces a tile's list holds (``kListCap`` in ``csrc/hard_faces.cu``);
 #: a tile with more takes the kernel's ordered scan of all faces
 LIST_CAP = 512
-
-#: kernel launches since import (or the last reset by the caller): a run can
-#: show that its main path went through the kernel
-LAUNCHES = 0
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -360,7 +357,6 @@ def hard_faces(corners: torch.Tensor, z: torch.Tensor, color: torch.Tensor,
     tensors; float32 operands as there. Returns (image (B, 3, H, W),
     winner (B, H, W) int32). Reads nothing back from the card: its scratch
     (:func:`scratch_bytes`) is sized from the shapes alone."""
-    global LAUNCHES
     _check(corners, z, color, background)
     if corners.device.type == 'cpu':
         return hard_faces_reference(corners, z, color, background)
@@ -381,7 +377,7 @@ def hard_faces(corners: torch.Tensor, z: torch.Tensor, color: torch.Tensor,
             *[t.data_ptr() for t in operands], b, f, h, w, cap,
             *[t.data_ptr() for t in (records, counts, lists, out, winner)], stream)
     check_launch(err, 'tds_hard_faces')
-    LAUNCHES += 1
+    tracing.count('launch.HF')
     return out, winner
 
 
@@ -401,17 +397,19 @@ class HardFaces(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, _):
-        (winner,) = ctx.saved_tensors
-        won = (winner >= 0)[:, None]
-        g_bg = torch.where(won, torch.zeros_like(g), g) \
-            if ctx.needs_input_grad[3] else None
-        g_color = None
-        if ctx.needs_input_grad[2]:
-            b = g.shape[0]
-            idx = winner.clamp(min=0).reshape(b, -1, 1).long().expand(-1, -1, 3)
-            src = torch.where(won, g, torch.zeros_like(g)).reshape(b, 3, -1).transpose(1, 2)
-            g_color = g.new_zeros((b, ctx.n_faces, 3)).scatter_add_(1, idx, src)
-        return None, None, g_color, g_bg
+        with tracing.span('render.backward'):
+            (winner,) = ctx.saved_tensors
+            won = (winner >= 0)[:, None]
+            g_bg = torch.where(won, torch.zeros_like(g), g) \
+                if ctx.needs_input_grad[3] else None
+            g_color = None
+            if ctx.needs_input_grad[2]:
+                b = g.shape[0]
+                idx = winner.clamp(min=0).reshape(b, -1, 1).long().expand(-1, -1, 3)
+                src = torch.where(won, g, torch.zeros_like(g))
+                src = src.reshape(b, 3, -1).transpose(1, 2)
+                g_color = g.new_zeros((b, ctx.n_faces, 3)).scatter_add_(1, idx, src)
+            return None, None, g_color, g_bg
 
 
 def rasterize_hard_faces(corners: torch.Tensor, z: torch.Tensor, color: torch.Tensor,

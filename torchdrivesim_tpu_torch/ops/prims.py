@@ -27,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from torchdrivesim_tpu_torch import tracing
 from torchdrivesim_tpu_torch.ops import build, warp
 from torchdrivesim_tpu_torch.ops.build import KernelLibrary, check_launch
 from torchdrivesim_tpu_torch.ops.rasterize import (
@@ -42,12 +43,6 @@ PRIM_TILE = 16
 _CULL_SLACK = 2.0 ** -20
 _CULL_UNDERFLOW = 2.0 ** -149
 _INV255 = 1.0 / 255.0
-
-#: kernel launches since import (or the last reset by the caller), masked
-#: (B7) and unmasked (B8): a run can show that its main path went through
-#: the kernel
-B7_LAUNCHES = 0
-B8_LAUNCHES = 0
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -364,7 +359,6 @@ def raster_prims(qcoef: torch.Tensor, qpk: torch.Tensor, tcoef: torch.Tensor,
     Returns:
         (B, 3, res, res) float32 in [0, 1].
     """
-    global B7_LAUNCHES, B8_LAUNCHES
     _check(qcoef, qpk, tcoef, tpk, background, res, qmask, tmask)
     if qpk.device.type == 'cpu':
         return raster_prims_reference(qcoef, qpk, tcoef, tpk, background, res,
@@ -382,10 +376,7 @@ def raster_prims(qcoef: torch.Tensor, qpk: torch.Tensor, tcoef: torch.Tensor,
         err = _launch(LIBRARY.load(), ptrs, b, res, qpk.shape[1], tpk.shape[1],
                       bg_strides, out.data_ptr(), stream)
     check_launch(err, 'prim raster')
-    if masks:
-        B7_LAUNCHES += 1
-    else:
-        B8_LAUNCHES += 1
+    tracing.count('launch.B7' if masks else 'launch.B8')
     return out
 
 

@@ -39,6 +39,7 @@ from typing import Tuple
 
 import torch
 
+from torchdrivesim_tpu_torch import tracing
 from torchdrivesim_tpu_torch.ops.build import KernelLibrary, check_launch
 from torchdrivesim_tpu_torch.ops.rasterize import DEGENERATE_AREA_EPS, face_arrays
 from torchdrivesim_tpu_torch.ops.warp import affine
@@ -46,13 +47,6 @@ from torchdrivesim_tpu_torch.ops.warp import affine
 #: faces per camera the single-group kernels take, and the group size of
 #: the grouped path (the reference's constant)
 MAX_FACES = 128
-
-#: kernel launches since import (or the last reset by the caller): a run can
-#: show that its main path went through the kernels
-FWD_LAUNCHES = 0
-BWD_LAUNCHES = 0
-ACCUM_FWD_LAUNCHES = 0
-ACCUM_BWD_LAUNCHES = 0
 
 #: pixels per side of the block tiles of both kernel pairs
 #: (csrc/soft_face.cuh: kTile)
@@ -330,7 +324,6 @@ def soft_raster_fwd(coef: torch.Tensor, zw: torch.Tensor, color: torch.Tensor,
     (B, 3, R, R), F <= 128. CUDA kernel for CUDA tensors, plain version for
     CPU tensors.
     """
-    global FWD_LAUNCHES
     _check(coef, zw, color, background)
     if coef.device.type == 'cpu':
         return soft_raster_fwd_reference(coef, zw, color, background)
@@ -344,7 +337,7 @@ def soft_raster_fwd(coef: torch.Tensor, zw: torch.Tensor, color: torch.Tensor,
             coef.data_ptr(), zw.data_ptr(), color.data_ptr(),
             background.data_ptr(), b, n_faces, res, out.data_ptr(), stream)
     check_launch(err, 'soft raster forward')
-    FWD_LAUNCHES += 1
+    tracing.count('launch.B4a')
     return out
 
 
@@ -368,7 +361,6 @@ def soft_raster_bwd(coef: torch.Tensor, zw: torch.Tensor, color: torch.Tensor,
     CUDA kernel for CUDA tensors (one launch: the last block of each camera
     sums its per-tile partial sums), plain version for CPU tensors.
     """
-    global BWD_LAUNCHES
     _check(coef, zw, color, background, g)
     if coef.device.type == 'cpu':
         return soft_raster_bwd_reference(coef, zw, color, background, g)
@@ -387,7 +379,7 @@ def soft_raster_bwd(coef: torch.Tensor, zw: torch.Tensor, color: torch.Tensor,
             _counters(b, coef.device).data_ptr(), gcoef.data_ptr(),
             gzw.data_ptr(), gcolor.data_ptr(), stream)
     check_launch(err, 'soft raster backward')
-    BWD_LAUNCHES += 1
+    tracing.count('launch.B4b')
     return gcoef, gzw, gcolor, gbg
 
 
@@ -403,7 +395,8 @@ class SoftRaster(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return soft_raster_bwd(*ctx.saved_tensors, g.contiguous())
+        with tracing.span('render.backward'):
+            return soft_raster_bwd(*ctx.saved_tensors, g.contiguous())
 
 
 def pad_to_groups(coef: torch.Tensor, zw: torch.Tensor, color: torch.Tensor):
@@ -771,7 +764,6 @@ def soft_accum_fwd(coef: torch.Tensor, zw: torch.Tensor, color: torch.Tensor,
     over every group for CUDA tensors (each block over the faces that reach
     its tile), plain version for CPU tensors.
     """
-    global ACCUM_FWD_LAUNCHES
     _check_accum(coef, zw, color, res)
     if coef.device.type == 'cpu':
         return soft_accum_fwd_reference(coef, zw, color, res)
@@ -788,7 +780,7 @@ def soft_accum_fwd(coef: torch.Tensor, zw: torch.Tensor, color: torch.Tensor,
             MAX_FACES, res, lists.data_ptr(), counts.data_ptr(), num.data_ptr(),
             den.data_ptr(), transp.data_ptr(), stream)
     check_launch(err, 'grouped soft raster forward')
-    ACCUM_FWD_LAUNCHES += 1
+    tracing.count('launch.B5a')
     return num, den, transp
 
 
@@ -800,7 +792,6 @@ def soft_accum_bwd(coef: torch.Tensor, zw: torch.Tensor, color: torch.Tensor,
     tensors (its per-block partial sums finished here by one sum over the
     pixel tiles), plain version for CPU tensors.
     """
-    global ACCUM_BWD_LAUNCHES
     res = gden.shape[-1]
     _check_accum(coef, zw, color, res, (gnum, gden, gtransp))
     if coef.device.type == 'cpu':
@@ -820,7 +811,7 @@ def soft_accum_bwd(coef: torch.Tensor, zw: torch.Tensor, color: torch.Tensor,
             lists.data_ptr(), counts.data_ptr(), scratch.data_ptr(),
             partial.data_ptr(), stream)
     check_launch(err, 'grouped soft raster backward')
-    ACCUM_BWD_LAUNCHES += 1
+    tracing.count('launch.B5b')
     sums = partial.sum(dim=1)                                # (B, F, 13)
     return (sums[..., :9].reshape(b, n_faces, 3, 3), sums[..., 9][:, None, :],
             sums[..., 10:13].contiguous())
@@ -838,8 +829,9 @@ class SoftAccum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gnum, gden, gtransp):
-        return (*soft_accum_bwd(*ctx.saved_tensors, gnum.contiguous(),
-                                gden.contiguous(), gtransp.contiguous()), None)
+        with tracing.span('render.backward'):
+            return (*soft_accum_bwd(*ctx.saved_tensors, gnum.contiguous(),
+                                    gden.contiguous(), gtransp.contiguous()), None)
 
 
 def rasterize_softmax_coefs(coef: torch.Tensor, zw: torch.Tensor,

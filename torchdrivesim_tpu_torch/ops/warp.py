@@ -28,6 +28,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from torchdrivesim_tpu_torch import tracing
 from torchdrivesim_tpu_torch.ops.build import KernelLibrary, check_launch
 
 RES = 128        #: largest view the 256-texel window covers
@@ -37,14 +38,6 @@ WIN_ROWS = 128   #: texture window row count (origins align to 8)
 #: ``fov * MIP_FACTOR / res`` so the rotated view fits the 128-row window
 MIP_FACTOR = 1.55
 _INV255 = 1.0 / 255.0
-
-#: bilinear-warp kernel launches since import (or the last reset by the
-#: caller): a run can show that its main path went through the kernel
-LAUNCHES = 0
-#: launches of the bilinear warp's pose-VJP kernel, counted the same way
-VJP_LAUNCHES = 0
-#: nearest-warp kernel launches, counted the same way
-NEAREST_LAUNCHES = 0
 
 
 @dataclass
@@ -307,7 +300,6 @@ def warp_view_nearest(tex: torch.Tensor, fcoef: torch.Tensor,
     kernel for CUDA tensors, :func:`warp_view_nearest_reference` for CPU
     tensors.
     """
-    global NEAREST_LAUNCHES
     _check_operands(tex, fcoef, icoef, res)
     if tex.device.type == 'cpu':
         return warp_view_nearest_reference(tex, fcoef, icoef, res)
@@ -320,7 +312,7 @@ def warp_view_nearest(tex: torch.Tensor, fcoef: torch.Tensor,
             fcoef.data_ptr(), icoef.data_ptr(), tex.data_ptr(), tex.shape[0],
             tex.shape[1], b, res, out.data_ptr(), stream)
     check_launch(err, 'nearest warp')
-    NEAREST_LAUNCHES += 1
+    tracing.count('launch.B2')
     return out
 
 
@@ -505,7 +497,6 @@ def warp_background_bilinear(mip: MipLevel, cam_xy: torch.Tensor,
     :func:`warp_background_bilinear_reference`, which the kernel equals bit
     for bit.
     """
-    global LAUNCHES
     _check_poses(mip, cam_xy, cam_sc, res)
     if mip.data.device.type == 'cpu':
         return warp_background_bilinear_reference(mip, cam_xy, cam_sc, scale,
@@ -523,7 +514,7 @@ def warp_background_bilinear(mip: MipLevel, cam_xy: torch.Tensor,
             bg.data_ptr(), *_pose_constants(mip, scale, res, left_handed), b, res,
             out.data_ptr(), stream)
     check_launch(err, 'bilinear warp')
-    LAUNCHES += 1
+    tracing.count('launch.B3')
     return out
 
 
@@ -640,7 +631,6 @@ def warp_bilinear_vjp(mip: MipLevel, out: torch.Tensor, g: torch.Tensor,
     Returns:
         (gxy, gsc), each (B, 2).
     """
-    global VJP_LAUNCHES
     _check_poses(mip, cam_xy, cam_sc, res, min_res=2)
     b = cam_xy.shape[0]
     for name, t in (('out', out), ('g', g)):
@@ -662,7 +652,7 @@ def warp_bilinear_vjp(mip: MipLevel, out: torch.Tensor, g: torch.Tensor,
             *_pose_constants(mip, scale, res, left_handed), b, res,
             gxy.data_ptr(), gsc.data_ptr(), stream)
     check_launch(err, 'bilinear warp VJP')
-    VJP_LAUNCHES += 1
+    tracing.count('launch.B3-VJP')
     return gxy, gsc
 
 
@@ -684,8 +674,9 @@ class _WarpBackgroundDiff(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         out, cxy, csc = ctx.saved_tensors
-        gxy, gsc = warp_bilinear_vjp(ctx.mip, out, g, cxy, csc, ctx.scale,
-                                     ctx.left_handed, ctx.res)
+        with tracing.span('render.backward'):
+            gxy, gsc = warp_bilinear_vjp(ctx.mip, out, g, cxy, csc, ctx.scale,
+                                         ctx.left_handed, ctx.res)
         # the texture and the background color are map data, constants here
         return gxy, gsc, None, None, None, None, None
 

@@ -40,6 +40,10 @@ multiple of 16, at the same pixels per meter, and returns the top-left crop.
 With :attr:`Renderer.shard_mesh` set (``parallel.shard_simulator``), each
 of the three renders cuts its batch into one slice per mesh entry wherever
 its branch launches a kernel, as the reference's ``jax.shard_map`` does.
+
+With spans on (``tracing.enable``) the primitive and mesh renders open
+``render``, and each frame's operands and kernel call ``render.operands``
+and ``render.raster``; over a shard mesh ``render`` keeps host time only.
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from torchdrivesim_tpu_torch import tracing
 from torchdrivesim_tpu_torch.mesh import RGBMesh
 from torchdrivesim_tpu_torch.ops.fused import MAX_CAMERAS, render_coefs_fused
 from torchdrivesim_tpu_torch.ops.grids import Grid2D
@@ -160,7 +165,8 @@ def fused_prim_operands(sq, qz, qcolors, st, tz, tcolors, size: int, cap: int,
     each type row-major sorted and capped to the ``cap`` prims nearest the
     view's center (``sort_prims_rowmajor_with_masks``), then packed by
     ``prims.prep_prims``. Where both apply the two give the same image bit
-    for bit; ``force_sort`` takes the second.
+    for bit; ``force_sort`` takes the second. Each call that takes the
+    second counts ``render.sort_route`` (``tracing.counts``).
 
     Returns:
         ((qcoef, qpk, qmask, tcoef, tpk, tmask), whether the sort route ran).
@@ -171,6 +177,7 @@ def fused_prim_operands(sq, qz, qcolors, st, tz, tcolors, size: int, cap: int,
                                       cap, n_bands)
         if prep is not None:
             return prep, False
+    tracing.count('render.sort_route')
     sq, qz, qcolors, qmask = sort_prims_rowmajor_with_masks(sq, qz, qcolors, size,
                                                             cap, n_bands)
     st, tz, tcolors, tmask = sort_prims_rowmajor_with_masks(st, tz, tcolors, size,
@@ -321,6 +328,7 @@ class Renderer(BirdviewRenderer):
         local = batch // n
 
         def split(*operands):
+            tracing.host_only()
             frames = []
             for i, device in enumerate(mesh.devices):
                 part = [x[i * local:(i + 1) * local]
@@ -437,11 +445,18 @@ class Renderer(BirdviewRenderer):
         assert res.width == res.height, "only square resolutions are supported"
         size = res.width
         pad_to = self._pad_res_target(size)
-        if pad_to is not None:
-            image = self.render_prims_chw(
-                quads, qz, qcolors, tris, tz, tcolors, Resolution(pad_to, pad_to),
-                self._pad_cameras(cameras, size, pad_to), packed=packed)
+        with tracing.span('render'):
+            if pad_to is None:
+                return self._prims_chw(quads, qz, qcolors, tris, tz, tcolors, size,
+                                       cameras, packed)
+            image = self._prims_chw(quads, qz, qcolors, tris, tz, tcolors, pad_to,
+                                    self._pad_cameras(cameras, size, pad_to), packed)
             return image[..., :size, :size]
+
+    def _prims_chw(self, quads, qz, qcolors, tris, tz, tcolors, size: int,
+                   cameras: Cameras, packed: bool) -> torch.Tensor:
+        """:meth:`render_prims_chw` at a size its kernels serve, over the
+        shard mesh."""
         if not supports_res(size):
             raise NotImplementedError(
                 f"res {size}: the primitive render serves sizes the banded "
@@ -462,18 +477,22 @@ class Renderer(BirdviewRenderer):
             image = self._render_prims_plain(quads, qz, qcolors, tris, tz, tcolors,
                                              size, cameras) * 255.0
             return pack_rgb8_chw(image) if packed else image
-        fused = self.fused_frame_operands(quads, qz, qcolors, tris, tz, tcolors,
-                                          size, cameras)
+        with tracing.span('render.operands'):
+            fused = self.fused_frame_operands(quads, qz, qcolors, tris, tz, tcolors,
+                                              size, cameras)
         if fused is not None:
             mip, ops, size_k, n, _ = fused
-            image = render_coefs_fused(mip, *ops, size_k, packed)
+            with tracing.span('render.raster'):
+                image = render_coefs_fused(mip, *ops, size_k, packed)
             if n > 1:
                 image = _assemble_tiles(image, size, n)
             return image if packed else image * 255.0
-        scene, background, qmask, tmask = self.banded_frame_operands(
-            quads, qz, qcolors, tris, tz, tcolors, size, cameras)
-        image = rasterize_hard_prims_banded(*scene, size, background, qmask,
-                                            tmask) * 255.0
+        with tracing.span('render.operands'):
+            scene, background, qmask, tmask = self.banded_frame_operands(
+                quads, qz, qcolors, tris, tz, tcolors, size, cameras)
+        with tracing.span('render.raster'):
+            image = rasterize_hard_prims_banded(*scene, size, background, qmask, tmask)
+        image = image * 255.0
         return pack_rgb8_chw(image) if packed else image
 
     def fused_frame_operands(self, quads, qz, qcolors, tris, tz, tcolors,
@@ -635,10 +654,16 @@ class Renderer(BirdviewRenderer):
         assert res.width == res.height, "only square resolutions are supported"
         size = res.width
         pad_to = self._pad_res_target(size)
-        if pad_to is not None:
-            return self.render_rgb_mesh_chw(
-                mesh, Resolution(pad_to, pad_to), self._pad_cameras(cameras, size, pad_to),
-                background_texture)[..., :size, :size]
+        with tracing.span('render'):
+            if pad_to is None:
+                return self._mesh_chw(mesh, size, cameras, background_texture)
+            return self._mesh_chw(mesh, pad_to, self._pad_cameras(cameras, size, pad_to),
+                                  background_texture)[..., :size, :size]
+
+    def _mesh_chw(self, mesh: RGBMesh, size: int, cameras: Cameras,
+                  background_texture: Optional[Grid2D]) -> torch.Tensor:
+        """:meth:`render_rgb_mesh_chw` at a multiple of 16, over the shard
+        mesh where a kernel renders."""
         scale = cameras.scale
 
         def frame(r, verts, faces, attrs, xy, sc):
@@ -659,20 +684,26 @@ class Renderer(BirdviewRenderer):
         """:meth:`render_rgb_mesh_chw` of one batch slice at a multiple of
         16."""
         if not self.cfg.differentiable:
-            background, ops, _ = self.hard_frame_operands(mesh, size, cameras,
-                                                          background_texture)
-            return raster(ops, background, size) * 255.0
+            with tracing.span('render.operands'):
+                background, ops, _ = self.hard_frame_operands(mesh, size, cameras,
+                                                              background_texture)
+            with tracing.span('render.raster'):
+                image = raster(ops, background, size)
+            return image * 255.0
         if self.cfg.soft_blend != 'softmax':
             background = self.soft_background(cameras, size, background_texture)
             image = rasterize_soft(self._screen_verts(mesh, size, cameras), mesh.faces,
                                    mesh.attrs, size, background.permute(0, 2, 3, 1),
                                    sigma=self.cfg.soft_sigma)
             return image.permute(0, 3, 1, 2) * 255.0
-        background, (coef, zw, color) = self.soft_frame_operands(
-            mesh, size, cameras, background_texture)
+        with tracing.span('render.operands'):
+            background, (coef, zw, color) = self.soft_frame_operands(
+                mesh, size, cameras, background_texture)
         if coef.shape[1] == 0:
             return background * 255.0
-        return rasterize_softmax_coefs(coef, zw, color, background) * 255.0
+        with tracing.span('render.raster'):
+            image = rasterize_softmax_coefs(coef, zw, color, background)
+        return image * 255.0
 
     def _screen_verts(self, mesh: RGBMesh, size: int, cameras: Cameras) -> torch.Tensor:
         """The mesh's vertices as screen (row, col, priority z)."""

@@ -8,7 +8,8 @@ yield sign, as in the reference), the face soup of the face-soup render
 (the same content as triangles), and the per-camera RGB mesh of the mesh
 renders (background mesh and the static meshes added to it, actors, stop
 and yield signs, traffic lights, waypoints; absent agents' faces collapse
-onto vertex 0).
+onto vertex 0). The primitives and the mesh open the span ``scene``
+(``tracing``).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from torchdrivesim_tpu_torch import tracing
 from torchdrivesim_tpu_torch.mesh import (
     BaseMesh, BirdviewMesh, RGBMesh, build_verts_faces_from_bounding_box,
     generate_disc_mesh, rendering_mesh, set_colors_with_defaults, tensor_color,
@@ -406,70 +408,72 @@ class BirdviewRGBMeshGenerator:
             (quads (B, Q, 4, 2), qz (B, Q), qcolors (B, Q, 3),
              tris (B, T, 3, 2), tz (B, T), tcolors (B, T, 3)).
         """
-        b, n_all = agent_state.shape[0], agent_state.shape[1]
-        local, actor_z, actor_attrs = self.actor_verts, self.actor_z, self.actor_attrs
-        light_quads = self.light_quads
-        if local.shape[0] != b:
-            # multi-camera flattening: each template batch element repeats
-            # contiguously for its cameras (layout index = b * Nc + cam)
-            reps = b // local.shape[0]
-            local = torch.repeat_interleave(local, reps, dim=0)
-            actor_z = torch.repeat_interleave(actor_z, reps, dim=0)
-            actor_attrs = torch.repeat_interleave(actor_attrs, reps, dim=0)
-            if light_quads is not None:
-                light_quads = torch.repeat_interleave(light_quads, reps, dim=0)
-        psi = agent_state[..., 2:3][..., None]
-        xy = agent_state[..., :2][..., None, :]
-        world = rotate(local, psi) + xy                     # (B, All, S, 2)
+        with tracing.span('scene'):
+            b, n_all = agent_state.shape[0], agent_state.shape[1]
+            local, actor_z, actor_attrs = self.actor_verts, self.actor_z, self.actor_attrs
+            light_quads = self.light_quads
+            if local.shape[0] != b:
+                # multi-camera flattening: each template batch element repeats
+                # contiguously for its cameras (layout index = b * Nc + cam)
+                reps = b // local.shape[0]
+                local = torch.repeat_interleave(local, reps, dim=0)
+                actor_z = torch.repeat_interleave(actor_z, reps, dim=0)
+                actor_attrs = torch.repeat_interleave(actor_attrs, reps, dim=0)
+                if light_quads is not None:
+                    light_quads = torch.repeat_interleave(light_quads, reps, dim=0)
+            psi = agent_state[..., 2:3][..., None]
+            xy = agent_state[..., :2][..., None, :]
+            world = rotate(local, psi) + xy                     # (B, All, S, 2)
 
-        # template verts 0,1,3,2 cycle the bbox (faces [0,1,3] + [1,3,2])
-        quads = [torch.stack([world[:, :, 0], world[:, :, 1], world[:, :, 3],
-                              world[:, :, 2]], dim=2)]     # (B, All, 4, 2)
-        qz = [actor_z[:, :, 0].expand(b, n_all)]
-        qcol = [actor_attrs[:, :, 0].expand(b, n_all, 3)]
-        tris, tz, tcol = [], [], []
-        zero = world.new_zeros(())
-        if self.render_agent_direction:
-            tri = world[:, :, 4:7]
+            # template verts 0,1,3,2 cycle the bbox (faces [0,1,3] + [1,3,2])
+            quads = [torch.stack([world[:, :, 0], world[:, :, 1], world[:, :, 3],
+                                  world[:, :, 2]], dim=2)]     # (B, All, 4, 2)
+            qz = [actor_z[:, :, 0].expand(b, n_all)]
+            qcol = [actor_attrs[:, :, 0].expand(b, n_all, 3)]
+            tris, tz, tcol = [], [], []
+            zero = world.new_zeros(())
+            if self.render_agent_direction:
+                tri = world[:, :, 4:7]
+                if present_mask is not None:
+                    tri = torch.where(present_mask[..., None, None], tri, zero)
+                tris.append(tri)
+                tz.append(actor_z[:, :, 4].expand(b, n_all))
+                tcol.append(actor_attrs[:, :, 4].expand(b, n_all, 3))
             if present_mask is not None:
-                tri = torch.where(present_mask[..., None, None], tri, zero)
-            tris.append(tri)
-            tz.append(actor_z[:, :, 4].expand(b, n_all))
-            tcol.append(actor_attrs[:, :, 4].expand(b, n_all, 3))
-        if present_mask is not None:
-            quads[0] = torch.where(present_mask[..., None, None], quads[0], zero)
+                quads[0] = torch.where(present_mask[..., None, None], quads[0], zero)
 
-        if light_quads is not None and traffic_light_state is not None:
-            nl = light_quads.shape[1]
-            quads.append(light_quads)
-            qz.append(torch.full((b, nl), self.light_z, device=world.device))
-            qcol.append(self._light_colors(traffic_light_state))
+            if light_quads is not None and traffic_light_state is not None:
+                nl = light_quads.shape[1]
+                quads.append(light_quads)
+                qz.append(torch.full((b, nl), self.light_z, device=world.device))
+                qcol.append(self._light_colors(traffic_light_state))
 
-        if waypoints is not None:
-            m = waypoints.shape[1]
-            fd = self.waypoint_template_faces.shape[0]
-            disc = self._on('disc_tris', world.device, lambda d: torch.as_tensor(
-                self.waypoint_template_verts[self.waypoint_template_faces], device=d))
-            wcorners = disc[None, None] + waypoints[:, :, None, None, :]  # B,M,Fd,3,2
-            if waypoints_rendering_mask is not None:
-                wcorners = torch.where(waypoints_rendering_mask[..., None, None, None],
-                                       wcorners, zero)
-            tris.append(wcorners.reshape(b, m * fd, 3, 2))
-            tz.append(torch.full((b, m * fd), self.waypoint_z, device=world.device))
-            tcol.append(self._on('waypoint_color', world.device, lambda d: torch.as_tensor(
-                self.waypoint_color, device=d)).expand(b, m * fd, 3))
+            if waypoints is not None:
+                m = waypoints.shape[1]
+                fd = self.waypoint_template_faces.shape[0]
+                disc = self._on('disc_tris', world.device, lambda d: torch.as_tensor(
+                    self.waypoint_template_verts[self.waypoint_template_faces], device=d))
+                wcorners = disc[None, None] + waypoints[:, :, None, None, :]  # B,M,Fd,3,2
+                if waypoints_rendering_mask is not None:
+                    wcorners = torch.where(
+                        waypoints_rendering_mask[..., None, None, None], wcorners, zero)
+                tris.append(wcorners.reshape(b, m * fd, 3, 2))
+                tz.append(torch.full((b, m * fd), self.waypoint_z, device=world.device))
+                tcol.append(self._on('waypoint_color', world.device,
+                                     lambda d: torch.as_tensor(self.waypoint_color, device=d)
+                                     ).expand(b, m * fd, 3))
 
-        quads = torch.cat(quads, dim=1)
-        qz = torch.cat(qz, dim=1)
-        qcol = torch.cat(qcol, dim=1)
-        if tris:
-            tris, tz, tcol = (torch.cat(tris, dim=1), torch.cat(tz, dim=1),
-                              torch.cat(tcol, dim=1))
-        else:
-            tris = world.new_zeros((b, 0, 3, 2))
-            tz = world.new_zeros((b, 0))
-            tcol = world.new_zeros((b, 0, 3))
-        return quads, qz, qcol, tris, tz, tcol
+            quads = torch.cat(quads, dim=1)
+            qz = torch.cat(qz, dim=1)
+            qcol = torch.cat(qcol, dim=1)
+            if tris:
+                tris, tz, tcol = (torch.cat(tris, dim=1), torch.cat(tz, dim=1),
+                                  torch.cat(tcol, dim=1))
+            else:
+                tris = world.new_zeros((b, 0, 3, 2))
+                tz = world.new_zeros((b, 0))
+                tcol = world.new_zeros((b, 0, 3))
+            return quads, qz, qcol, tris, tz, tcol
 
     @property
     def background_rgb(self) -> Optional[RGBMesh]:
@@ -514,86 +518,89 @@ class BirdviewRGBMeshGenerator:
         Returns:
             RGBMesh with batch size B * Nc, verts (x, y, priority z).
         """
-        meshes = []
-        device = next(t.device for t in (agent_state, traffic_light_state, waypoints)
-                      if t is not None)
-        batch = next(t.shape[0] for t in (agent_state, traffic_light_state, waypoints)
-                     if t is not None)
-        if include_background:
-            parts = [] if self.background_rgb is None else [
-                self._on('background', device, self.background_rgb.to)]
-            parts += [m.to(device) if torch.is_tensor(m.verts)
-                      else self._on(f'static_{i}', device, m.to)
-                      for i, m in enumerate(self.static_rgb)]
-            # a batch-1 map mesh is shared by every environment
-            parts = [_to_batch(m, batch) for m in parts]
-            if parts:
-                background = parts[0] if len(parts) == 1 else RGBMesh.concat(parts)
-                meshes.append(background.expand(num_cameras))
+        with tracing.span('scene'):
+            meshes = []
+            device = next(t.device for t in (agent_state, traffic_light_state, waypoints)
+                          if t is not None)
+            batch = next(t.shape[0] for t in (agent_state, traffic_light_state, waypoints)
+                         if t is not None)
+            if include_background:
+                parts = [] if self.background_rgb is None else [
+                    self._on('background', device, self.background_rgb.to)]
+                parts += [m.to(device) if torch.is_tensor(m.verts)
+                          else self._on(f'static_{i}', device, m.to)
+                          for i, m in enumerate(self.static_rgb)]
+                # a batch-1 map mesh is shared by every environment
+                parts = [_to_batch(m, batch) for m in parts]
+                if parts:
+                    background = parts[0] if len(parts) == 1 else RGBMesh.concat(parts)
+                    meshes.append(background.expand(num_cameras))
 
-        if agent_state is not None and self.actor_verts is not None:
-            b, nc, n_all = agent_state.shape[:3]
-            s = self.actor_verts.shape[-2]
-            local = self.actor_verts[:, None].expand(b, nc, n_all, s, 2)
-            psi = agent_state[..., 2:3][..., None, :]          # B,Nc,All,1,1
-            xy = agent_state[..., :2][..., None, :]            # B,Nc,All,1,2
-            world = rotate(local, psi) + xy                    # B,Nc,All,S,2
-            z = self.actor_z[:, None, :, :, None].expand(b, nc, n_all, s, 1)
-            verts = torch.cat([world, z], dim=-1).reshape(b * nc, n_all * s, 3)
-            attrs = self.actor_attrs[:, None].expand(b, nc, n_all, s, 3)
-            if custom_agent_colors is not None:
-                # recolor the box vertices only, keep the direction triangles
-                boxes = custom_agent_colors[..., None, :].to(attrs.dtype).expand(
-                    b, nc, n_all, ACTOR_BOX_VERTS, 3)
-                attrs = torch.cat([boxes, attrs[..., ACTOR_BOX_VERTS:, :]], dim=-2) \
-                    if s > ACTOR_BOX_VERTS else boxes
-            attrs = attrs.reshape(b * nc, n_all * s, 3)
-            faces = self._on('actor_faces', device, lambda d: torch.as_tensor(
-                self.actor_faces, dtype=torch.int64, device=d)).expand(b * nc, -1, 3)
-            if present_mask is not None:
-                fpa = self.actor_faces.shape[0] // n_all
-                fm = present_mask.reshape(b * nc, n_all, 1, 1).expand(
-                    b * nc, n_all, fpa, 3).reshape(faces.shape)
-                faces = faces * fm
-            meshes.append(RGBMesh(verts=verts, faces=faces, attrs=attrs))
+            if agent_state is not None and self.actor_verts is not None:
+                b, nc, n_all = agent_state.shape[:3]
+                s = self.actor_verts.shape[-2]
+                local = self.actor_verts[:, None].expand(b, nc, n_all, s, 2)
+                psi = agent_state[..., 2:3][..., None, :]          # B,Nc,All,1,1
+                xy = agent_state[..., :2][..., None, :]            # B,Nc,All,1,2
+                world = rotate(local, psi) + xy                    # B,Nc,All,S,2
+                z = self.actor_z[:, None, :, :, None].expand(b, nc, n_all, s, 1)
+                verts = torch.cat([world, z], dim=-1).reshape(b * nc, n_all * s, 3)
+                attrs = self.actor_attrs[:, None].expand(b, nc, n_all, s, 3)
+                if custom_agent_colors is not None:
+                    # recolor the box vertices only, keep the direction triangles
+                    boxes = custom_agent_colors[..., None, :].to(attrs.dtype).expand(
+                        b, nc, n_all, ACTOR_BOX_VERTS, 3)
+                    attrs = torch.cat([boxes, attrs[..., ACTOR_BOX_VERTS:, :]], dim=-2) \
+                        if s > ACTOR_BOX_VERTS else boxes
+                attrs = attrs.reshape(b * nc, n_all * s, 3)
+                faces = self._on('actor_faces', device, lambda d: torch.as_tensor(
+                    self.actor_faces, dtype=torch.int64, device=d)).expand(b * nc, -1, 3)
+                if present_mask is not None:
+                    fpa = self.actor_faces.shape[0] // n_all
+                    fm = present_mask.reshape(b * nc, n_all, 1, 1).expand(
+                        b * nc, n_all, fpa, 3).reshape(faces.shape)
+                    faces = faces * fm
+                meshes.append(RGBMesh(verts=verts, faces=faces, attrs=attrs))
 
-        if self.static_controls_rgb is not None:
-            meshes.append(_to_batch(self.static_controls_rgb, batch).expand(num_cameras))
+            if self.static_controls_rgb is not None:
+                meshes.append(_to_batch(self.static_controls_rgb, batch).expand(
+                    num_cameras))
 
-        if self.light_quads is not None and traffic_light_state is not None:
-            b, nl = self.light_quads.shape[:2]
-            # cycle order (0, 1, 3, 2) back to the corner order of the faces
-            corners = self.light_quads[:, :, [0, 1, 3, 2]].reshape(b, nl * 4, 2)
-            z = torch.full((b, nl * 4, 1), self.light_z, device=device)
-            colors = self._light_colors(traffic_light_state)    # (B, Nl, 3)
-            lattrs = colors[:, :, None, :].expand(b, nl, 4, 3).reshape(b, nl * 4, 3)
-            base = np.asarray([[0, 1, 3], [1, 3, 2]], dtype=np.int64)
-            offs = (4 * np.arange(nl, dtype=np.int64))[:, None, None]
-            lfaces = self._on(f'light_faces_{nl}', device, lambda d: torch.as_tensor(
-                (base[None] + offs).reshape(-1, 3), device=d)).expand(b, nl * 2, 3)
-            meshes.append(RGBMesh(verts=torch.cat([corners, z], dim=-1),
-                                  faces=lfaces, attrs=lattrs).expand(num_cameras))
+            if self.light_quads is not None and traffic_light_state is not None:
+                b, nl = self.light_quads.shape[:2]
+                # cycle order (0, 1, 3, 2) back to the corner order of the faces
+                corners = self.light_quads[:, :, [0, 1, 3, 2]].reshape(b, nl * 4, 2)
+                z = torch.full((b, nl * 4, 1), self.light_z, device=device)
+                colors = self._light_colors(traffic_light_state)    # (B, Nl, 3)
+                lattrs = colors[:, :, None, :].expand(b, nl, 4, 3).reshape(b, nl * 4, 3)
+                base = np.asarray([[0, 1, 3], [1, 3, 2]], dtype=np.int64)
+                offs = (4 * np.arange(nl, dtype=np.int64))[:, None, None]
+                lfaces = self._on(f'light_faces_{nl}', device, lambda d: torch.as_tensor(
+                    (base[None] + offs).reshape(-1, 3), device=d)).expand(b, nl * 2, 3)
+                meshes.append(RGBMesh(verts=torch.cat([corners, z], dim=-1),
+                                      faces=lfaces, attrs=lattrs).expand(num_cameras))
 
-        if waypoints is not None:
-            b, nc, m = waypoints.shape[:3]
-            vd = self.waypoint_template_verts.shape[0]
-            fd = self.waypoint_template_faces.shape[0]
-            disc = self._on('disc', device, lambda d: torch.as_tensor(
-                self.waypoint_template_verts, device=d))
-            world = disc[None, None, None] + waypoints[..., None, :]   # B,Nc,M,Vd,2
-            z = torch.full((b, nc, m, vd, 1), self.waypoint_z, device=device)
-            wverts = torch.cat([world, z], dim=-1).reshape(b * nc, m * vd, 3)
-            wattrs = self._on('waypoint_color', device, lambda d: torch.as_tensor(
-                self.waypoint_color, device=d)).expand(b * nc, m * vd, 3)
-            offs = (vd * np.arange(m, dtype=np.int64))[:, None, None]
-            wf = (self.waypoint_template_faces[None].astype(np.int64) + offs
-                  ).reshape(-1, 3)
-            wfaces = self._on(f'waypoint_faces_{m}', device, lambda d: torch.as_tensor(
-                wf, device=d)).expand(b * nc, m * fd, 3)
-            if waypoints_rendering_mask is not None:
-                wm = waypoints_rendering_mask.reshape(b * nc, m, 1, 1).expand(
-                    b * nc, m, fd, 3).reshape(wfaces.shape)
-                wfaces = wfaces * wm
-            meshes.append(RGBMesh(verts=wverts, faces=wfaces, attrs=wattrs))
+            if waypoints is not None:
+                b, nc, m = waypoints.shape[:3]
+                vd = self.waypoint_template_verts.shape[0]
+                fd = self.waypoint_template_faces.shape[0]
+                disc = self._on('disc', device, lambda d: torch.as_tensor(
+                    self.waypoint_template_verts, device=d))
+                world = disc[None, None, None] + waypoints[..., None, :]   # B,Nc,M,Vd,2
+                z = torch.full((b, nc, m, vd, 1), self.waypoint_z, device=device)
+                wverts = torch.cat([world, z], dim=-1).reshape(b * nc, m * vd, 3)
+                wattrs = self._on('waypoint_color', device, lambda d: torch.as_tensor(
+                    self.waypoint_color, device=d)).expand(b * nc, m * vd, 3)
+                offs = (vd * np.arange(m, dtype=np.int64))[:, None, None]
+                wf = (self.waypoint_template_faces[None].astype(np.int64) + offs
+                      ).reshape(-1, 3)
+                wfaces = self._on(f'waypoint_faces_{m}', device,
+                                  lambda d: torch.as_tensor(wf, device=d)
+                                  ).expand(b * nc, m * fd, 3)
+                if waypoints_rendering_mask is not None:
+                    wm = waypoints_rendering_mask.reshape(b * nc, m, 1, 1).expand(
+                        b * nc, m, fd, 3).reshape(wfaces.shape)
+                    wfaces = wfaces * wm
+                meshes.append(RGBMesh(verts=wverts, faces=wfaces, attrs=wattrs))
 
-        return RGBMesh.concat(meshes)
+            return RGBMesh.concat(meshes)

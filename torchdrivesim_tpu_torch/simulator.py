@@ -26,7 +26,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from torchdrivesim_tpu_torch import kinematic as K
+from torchdrivesim_tpu_torch import kinematic as K, tracing
 from torchdrivesim_tpu_torch.goals import (
     WaypointGoal, WaypointGoalState, gather_current, step_waypoints,
 )
@@ -514,31 +514,32 @@ class Simulator:
                         ) -> SimulatorState:
         """
         One pure simulation step: NPC advance, kinematic step,
-        traffic-control advance, waypoint advance.
+        traffic-control advance, waypoint advance (the span ``dynamics``).
         """
-        time = state.time + 1
-        npc_time = state.npc_time + 1
-        npc_state, npc_mask = self.npc_controller.advance(
-            state.npc_state, state.npc_present_mask, npc_time, self)
-        km = self.kinematic_model
-        # a compound model dispatches per agent over the ids it holds, with
-        # the set in use known on the host
-        agent_state = K.step(state.agent_state, agent_action, km.params,
-                             single_model=km.model_id,
-                             model_ids=getattr(km, 'model_assignments', None),
-                             models=getattr(km, 'models_in_use', None))
-        tc_state = {kind: control.advance(state.traffic_control_state[kind], time)
-                    for kind, control in (self.traffic_controls or {}).items()}
-        wp_state = state.waypoint_state
-        if self.waypoint_goals is not None and wp_state is not None:
-            wp_state = step_waypoints(self.waypoint_goals.waypoints, wp_state,
-                                      agent_state,
-                                      threshold=self.cfg.waypoint_removal_threshold)
-        return SimulatorState(
-            agent_state=agent_state, present_mask=state.present_mask,
-            npc_state=npc_state, npc_present_mask=npc_mask,
-            traffic_control_state=tc_state, waypoint_state=wp_state,
-            time=time, npc_time=npc_time)
+        with tracing.span('dynamics'):
+            time = state.time + 1
+            npc_time = state.npc_time + 1
+            npc_state, npc_mask = self.npc_controller.advance(
+                state.npc_state, state.npc_present_mask, npc_time, self)
+            km = self.kinematic_model
+            # a compound model dispatches per agent over the ids it holds, with
+            # the set in use known on the host
+            agent_state = K.step(state.agent_state, agent_action, km.params,
+                                 single_model=km.model_id,
+                                 model_ids=getattr(km, 'model_assignments', None),
+                                 models=getattr(km, 'models_in_use', None))
+            tc_state = {kind: control.advance(state.traffic_control_state[kind], time)
+                        for kind, control in (self.traffic_controls or {}).items()}
+            wp_state = state.waypoint_state
+            if self.waypoint_goals is not None and wp_state is not None:
+                wp_state = step_waypoints(self.waypoint_goals.waypoints, wp_state,
+                                          agent_state,
+                                          threshold=self.cfg.waypoint_removal_threshold)
+            return SimulatorState(
+                agent_state=agent_state, present_mask=state.present_mask,
+                npc_state=npc_state, npc_present_mask=npc_mask,
+                traffic_control_state=tc_state, waypoint_state=wp_state,
+                time=time, npc_time=npc_time)
 
     # --- the mutating facade ------------------------------------------------
 
